@@ -1,0 +1,170 @@
+"""Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points refuse a missing CUDA device instead of falling back, its
+shipped config equals the YAML, flax weights carry across by name at the
+full VirConv-T width, and the serving entry point runs end to end on the
+CPU when asked to."""
+import functools
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / 'virconv_tpu_torch'
+
+torch.set_num_threads(1)
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    code = (
+        'import sys, virconv_tpu_torch, virconv_tpu_torch.serve, '
+        'virconv_tpu_torch.utils.jax_weights, '
+        'virconv_tpu_torch.utils.synth_scene\n'
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton'))\n"
+        'print(bad)\n'
+        'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+_IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|'
+                     r'virconv_tpu)\b', re.M)
+
+
+def test_sources_import_no_jax():
+    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
+           for f in files for m in _IMPORT.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from virconv_tpu_torch import resolve_device
+    from virconv_tpu_torch.serve import Detector
+    with pytest.raises(RuntimeError, match='CUDA'):
+        Detector()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        resolve_device('cuda')
+    assert resolve_device('cpu').type == 'cpu'
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card, or alone in a directory, chip_smoke.py exits non-zero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    alone = tmp_path / 'chip_smoke.py'
+    alone.write_text((ROOT / 'chip_smoke.py').read_text())
+    for script in (ROOT / 'chip_smoke.py', alone):
+        res = subprocess.run([sys.executable, str(script)],
+                             cwd=str(script.parent), capture_output=True,
+                             text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
+
+
+def test_config_dict_equals_yaml():
+    from virconv_tpu.config import CfgNode as JCfg, cfg_from_yaml_file
+    from virconv_tpu_torch.config import virconv_t_config
+    want = cfg_from_yaml_file(
+        str(ROOT / 'tools/cfgs/models/kitti/VirConv-T.yaml'),
+        JCfg({'ROOT_DIR': ROOT}))
+    got = virconv_t_config()
+    assert set(got) == {'CLASS_NAMES', 'DATA_CONFIG', 'MODEL',
+                        'OPTIMIZATION'}
+    for k in got:
+        assert got[k] == want[k], k
+
+
+def test_full_width_weights_carry_across():
+    """Every parameter and BN statistic of the full VirConv-T flax tree
+    lands on a port parameter of the same shape, and nothing is left
+    over."""
+    from virconv_tpu.config import CfgNode as JCfg, cfg_from_yaml_file
+    from virconv_tpu.models.detectors.voxel_rcnn import VoxelRCNN as JRCNN
+    from virconv_tpu_torch.config import virconv_t_config
+    from virconv_tpu_torch.models.detectors.voxel_rcnn import VoxelRCNN
+    from virconv_tpu_torch.utils.jax_weights import (from_jax_variables,
+                                                     load_state_dict_checked)
+    cfg = cfg_from_yaml_file(
+        str(ROOT / 'tools/cfgs/models/kitti/VirConv-T.yaml'),
+        JCfg({'ROOT_DIR': ROOT}))
+    jm = JRCNN(model_cfg=cfg.MODEL, dataset_cfg=cfg.DATA_CONFIG)
+    n = 4096
+    pts = np.zeros((1, n, 8), np.float32)
+    batch = {'points': pts, 'points_valid': np.ones((1, n), bool),
+             'points_mm': pts, 'points_mm_valid': np.ones((1, n), bool),
+             'v2r': np.zeros((1, 4, 3), np.float32),
+             'p2t': np.zeros((1, 4, 3), np.float32),
+             'trans_params': np.zeros((1, 3), np.float32),
+             'transform_param': None,
+             'gt_boxes': np.zeros((1, 4, 8), np.float32),
+             'gt_valid': np.zeros((1, 4), bool)}
+    shapes = jax.eval_shape(
+        functools.partial(jm.init, train=True),
+        {k: jax.random.PRNGKey(i) for i, k in
+         enumerate(('params', 'stvd', 'sampling', 'dropout'))}, batch)
+    rng = np.random.default_rng(0)
+    variables = {c: jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        shapes[c]) for c in ('params', 'batch_stats')}
+    c = virconv_t_config()
+    model = VoxelRCNN(c.MODEL, c.DATA_CONFIG)
+    load_state_dict_checked(model, from_jax_variables(variables))
+    w = variables['params']['backbone']['lidar']['conv1']['kernel']
+    assert torch.equal(model.backbone.lidar.conv1.kernel,
+                       torch.from_numpy(w))
+
+
+def _tiny_detector_cfg():
+    from test_model_forward import shrink_cfg, tiny_cfg
+    from virconv_tpu_torch.config import CfgNode, virconv_t_config
+    mc, dc = tiny_cfg(mm=True)
+    shrink_cfg(mc, dc)
+    dc = dict(dc)
+    dc['X_TRANS'] = virconv_t_config().DATA_CONFIG.X_TRANS
+    return CfgNode({'CLASS_NAMES': ['Car'], 'MODEL': dict(mc),
+                    'DATA_CONFIG': dc})
+
+
+def test_detector_serves_frames_on_cpu():
+    from test_model_forward import make_batch
+    from virconv_tpu_torch.ops import band_conv, roi_pool
+    from virconv_tpu_torch.serve import Detector
+    from virconv_tpu.utils.calibration import identity_calib
+    det = Detector(cfg=_tiny_detector_cfg(), device='cpu', seed=3)
+    rng = np.random.default_rng(0)
+    b = make_batch(rng, n_entries=2, n_pts=512, train=True)
+    v2r, p2t = identity_calib(fu=200.0, fv=200.0, cu=700.0,
+                              cv=300.0).device_matrices()
+    frames = {'points': np.array(b['points']),
+              'points_valid': np.array(b['points_valid']),
+              'points_mm': np.array(b['points_mm']),
+              'points_mm_valid': np.array(b['points_mm_valid']),
+              'v2r': np.tile(v2r, (2, 1, 1)), 'p2t': np.tile(p2t, (2, 1, 1))}
+    batch = det.make_batch(frames)
+    assert batch['points'].shape[0] == 4                 # 2 frames x R=2
+    np.testing.assert_array_equal(batch['points'][1].numpy()[:, 3:],
+                                  frames['points'][0][:, 3:])
+    launches = band_conv.launches, roi_pool.launches
+    res = det(frames)
+    assert (band_conv.launches, roi_pool.launches) == launches, \
+        'CPU tensors never launch a kernel'
+    assert len(res) == 2
+    for r in res:
+        assert r['boxes'].shape == (len(r['scores']), 7)
+        assert np.isfinite(r['boxes']).all()
+        assert np.isfinite(r['scores']).all()

@@ -1,0 +1,140 @@
+"""VoxelRCNN eval forward: voxelize -> VirConv8x -> BEV -> RPN -> TED head.
+Counterpart of ``virconv_tpu/models/detectors/voxel_rcnn.py``.
+
+Batch (tensors on one device):
+    points        (B*R, P, 8)  float32   LiDAR stream
+    points_valid  (B*R, P)     bool
+    points_mm / points_mm_valid           fused real + virtual stream
+    v2r, p2t      (B*R, 4, 3)  float32   calibration matrices
+    trans_params  (B*R, 3) | None         world transform of each entry
+    transform_param (B, R, 3) | None      test-time replica params
+Transform replicas ride the batch axis (entry = b * R + i).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ...config import CfgNode
+from ...ops import sparse as sp
+from ..backbones_2d.bev import BaseBEVBackbone, height_compression
+from ..backbones_3d.virconv import VirConv8x
+from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..roi_heads.ted_head import TEDMHead
+
+
+class VoxelRCNN(nn.Module):
+    def __init__(self, model_cfg, dataset_cfg, num_class: int = 1):
+        super().__init__()
+        mcfg = CfgNode(model_cfg)
+        dcfg = CfgNode(dataset_cfg)
+        self.pcr = tuple(dcfg.POINT_CLOUD_RANGE)
+        proc = [p for p in dcfg.DATA_PROCESSOR
+                if p['NAME'] == 'transform_points_to_voxels'][0]
+        self.voxel_size = tuple(proc.VOXEL_SIZE)
+        self.max_pts_per_voxel = proc.MAX_POINTS_PER_VOXEL
+        self.max_voxels = dict(proc.MAX_NUMBER_OF_VOXELS)
+        self.grid_size = tuple(
+            int(round((self.pcr[i + 3] - self.pcr[i]) / self.voxel_size[i]))
+            for i in range(3))
+        self.indicator_max = mcfg.VFE.get('MODEL', None) == 'max'
+        enc = dcfg.get('POINT_FEATURE_ENCODING', {})
+        n_point_features = enc.get('num_features', 8)
+
+        bcfg = mcfg.BACKBONE_3D
+        if bcfg.NAME != 'VirConv8x' or not bcfg.get('MM', False):
+            raise NotImplementedError(
+                f'{bcfg.NAME}: the port runs the VirConv-T backbone only')
+        nf = tuple(bcfg.NUM_FILTERS)
+        self.backbone = VirConv8x(n_point_features, nf, bcfg.OUT_FEATURES,
+                                  self.voxel_size, self.pcr)
+        b2 = mcfg.BACKBONE_2D
+        self.bev_backbone = BaseBEVBackbone(
+            mcfg.MAP_TO_BEV.NUM_BEV_FEATURES, b2.LAYER_NUMS,
+            b2.LAYER_STRIDES, b2.NUM_FILTERS, b2.UPSAMPLE_STRIDES,
+            b2.NUM_UPSAMPLE_FILTERS)
+        bev_c = sum(b2.NUM_UPSAMPLE_FILTERS)
+        rnms = mcfg.ROI_HEAD.NMS_CONFIG.TEST
+        self.nms_cfg = dict(pre=rnms.NMS_PRE_MAXSIZE,
+                            post=rnms.NMS_POST_MAXSIZE,
+                            thresh=rnms.NMS_THRESH)
+        self.dense_head = AnchorHeadSingle(mcfg.DENSE_HEAD, bev_c, num_class,
+                                           self.grid_size[:2], self.pcr)
+        rh = mcfg.ROI_HEAD
+        self.roi_head = TEDMHead(rh, num_class, rh.ROT_NUM, self.voxel_size,
+                                 self.pcr, {'x_conv3': nf[2],
+                                            'x_conv4': nf[3]}, bev_c)
+        self.eval()
+
+    def voxelize(self, points, valid, n_entries, indicator_max):
+        """(E, P, C) padded points -> SparseTensor with the reference's +1
+        z padding of the sparse shape."""
+        p = points.reshape(-1, points.shape[-1])
+        bidx = torch.arange(n_entries, dtype=torch.int32,
+                            device=points.device).repeat_interleave(
+                                points.shape[1])
+        st = sp.voxelize(p, valid.reshape(-1), self.pcr, self.voxel_size,
+                         max_voxels=self.max_voxels['test'] * n_entries,
+                         max_points_per_voxel=self.max_pts_per_voxel,
+                         batch_size=n_entries, batch_idx=bidx,
+                         indicator_max=indicator_max)
+        d, h, w = st.spatial_shape
+        return st.replace(spatial_shape=(d + 1, h, w))
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, Any], bf16: bool = True):
+        """Eval forward. ``bf16``: bf16 operands in the sparse conv and ROI
+        pooling kernels (f32 accumulation), as on the TPU."""
+        if self.training:
+            raise RuntimeError('VoxelRCNN is eval-only; call .eval()')
+        points = batch['points']
+        n_entries = points.shape[0]
+        tp = batch.get('transform_param')
+        n_rep = tp.shape[1] if tp is not None else 1
+        b = n_entries // n_rep
+        with record_function('voxelize'):
+            st = self.voxelize(points, batch['points_valid'], n_entries,
+                               self.indicator_max)
+            # the multimodal stream keeps the plain mean (no indicator max)
+            st_mm = self.voxelize(batch['points_mm'],
+                                  batch['points_mm_valid'], n_entries, False)
+        with record_function('backbone_3d'):
+            bb = self.backbone(st, st_mm, batch['v2r'], batch['p2t'],
+                               batch.get('trans_params'), bf16)
+
+        # BEV path uses replica 0 only
+        enc = bb['encoded_spconv_tensor']
+        if n_rep > 1:
+            keep = enc.mask & (enc.coords[:, 0] % n_rep == 0)
+            coords = enc.coords.clone()
+            coords[:, 0] = torch.div(coords[:, 0], n_rep,
+                                     rounding_mode='floor')
+            enc = sp.SparseTensor(
+                feats=torch.where(keep[:, None], enc.feats,
+                                  torch.zeros_like(enc.feats)),
+                coords=torch.where(keep[:, None], coords,
+                                   torch.full_like(coords, -1)),
+                mask=keep, spatial_shape=enc.spatial_shape, batch_size=b)
+        with record_function('bev'):
+            bev_feats = self.bev_backbone(height_compression(enc))
+
+        # anchor mask source: replica-0 points of the whole batch
+        pts0 = points.reshape(b, n_rep, *points.shape[1:])[:, 0]
+        pv0 = batch['points_valid'].reshape(b, n_rep, -1)[:, 0]
+        with record_function('rpn'):
+            rpn = self.dense_head(bev_feats, pts0[..., 0:2].reshape(-1, 2),
+                                  pv0.reshape(-1), self.nms_cfg)
+        with record_function('roi_head'):
+            roi_out = self.roi_head(
+                bb['multi_scale_3d_features'],
+                bb['multi_scale_3d_features_mm'],
+                bb['multi_scale_3d_strides'], rpn, bev_feats, tp, bf16)
+        return {'batch_box_preds': roi_out['batch_box_preds'],
+                'batch_cls_preds': roi_out['batch_cls_preds'],
+                'roi_valid': roi_out['roi_valid'],
+                'rois': rpn['rois'], 'roi_scores': rpn['roi_scores'],
+                'bev_feats': bev_feats, 'backbone': bb}

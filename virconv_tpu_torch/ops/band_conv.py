@@ -1,0 +1,221 @@
+"""Band-window sparse convolution: plan, plain PyTorch version and the CUDA
+kernel wrapper.
+
+Replaces ``virconv_tpu/ops/pallas/band_conv.py::_kernel`` (driver
+``band_conv``). Rows are sorted by the (b, y, x, z) key, so the neighbors of
+one T-row output tile under each dy "group" of taps lie in one narrow key
+band. ``band_plan`` picks, per (tile, group), a window of two BLOCK-row
+blocks (``blk``) and flags the tiles whose window covers the band
+(``fits``). The output of a tile is exact iff it fits; callers patch the
+rows of the other tiles (ops/sparse.py).
+
+Contract of one tap k of output row r in tile t: the source is the
+lower-bound row of key ``base_keys[r] + deltas[k]`` inside the window
+``[blk[t, group_of[k]] * BLOCK, +2 * BLOCK)`` if tap bit k of
+``valid_bits[r]`` is set and the key is there, else none. Lower bound lands
+on the first row of a duplicate-key run, which is the NRConv 2D first-wins
+source (callers zero the other rows of a run, as the JAX package does).
+``out = epilogue(sum_k feats[src_k] @ W[k])`` with epilogue = affine, ReLU,
+times row-valid bit. ``bf16`` rounds feats and W to bf16 before the f32
+multiply-add, as the TPU kernel's bf16 operands do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from .sparse import INVALID_KEY, ROW_VALID_BIT
+
+# kernel launches (CUDA tensors only), reset and read by chip_smoke.py
+launches = 0
+
+
+class BandPlan(NamedTuple):
+    """Per-scale conv plan, reusable by every layer sharing a key set."""
+    base_keys: torch.Tensor    # (n_tiles, T) int32 query-origin keys
+    valid_bits: torch.Tensor   # (n_tiles, T) int32 tap bits + row bit 30
+    blk: torch.Tensor          # (n_tiles, G) int32 window start block
+    span_ok: torch.Tensor      # () bool: every tile fits
+    fits: torch.Tensor         # (n_tiles,) bool
+    keys_sorted: torch.Tensor  # () bool: keys ascending, INVALID tail
+    deltas: Tuple[int, ...]
+    group_of: Tuple[int, ...]
+    n_out: int
+    tile: int
+    block: int
+
+
+def band_plan(keys, base_keys, valid_bits, deltas: Sequence[int],
+              group_of: Sequence[int], tile: int = 128,
+              block: int = 256) -> BandPlan:
+    """Window table for one (key set, kernel geometry) pair; bit-equal to
+    ``virconv_tpu.ops.pallas.band_conv.band_plan``."""
+    deltas = tuple(int(d) for d in deltas)
+    group_of = tuple(int(g) for g in group_of)
+    n_groups = max(group_of) + 1
+    dev = keys.device
+    n_out = base_keys.shape[0]
+    pad_out = (-n_out) % tile
+    bq = torch.nn.functional.pad(base_keys, (0, pad_out))
+    vb = torch.nn.functional.pad(valid_bits, (0, pad_out))
+    n_tiles = bq.shape[0] // tile
+    bq_t = bq.reshape(n_tiles, tile)
+    vb_t = vb.reshape(n_tiles, tile)
+
+    row_ok = ((vb_t >> ROW_VALID_BIT) & 1) == 1
+    big = 2 ** 30
+    bmin = torch.where(row_ok, bq_t, torch.full_like(bq_t, big)).amin(1)
+    bmax = torch.where(row_ok, bq_t, torch.full_like(bq_t, -big)).amax(1)
+    any_valid = row_ok.any(1)
+    bmin = torch.where(any_valid, bmin, torch.zeros_like(bmin))
+    bmax = torch.where(any_valid, bmax, torch.zeros_like(bmax))
+
+    n_in = keys.shape[0]
+    n_blocks = -(-n_in // block) + 1
+    lo_q = torch.stack([bmin + min(d for d, g in zip(deltas, group_of)
+                                   if g == gi)
+                        for gi in range(n_groups)], 1)
+    hi_q = torch.stack([bmax + max(d for d, g in zip(deltas, group_of)
+                                   if g == gi)
+                        for gi in range(n_groups)], 1)
+    jb = torch.arange(1, n_blocks - 1, dtype=torch.int64,
+                      device=dev) * block - 1
+    sb = keys[torch.clamp(jb, max=n_in - 1)]
+    blk = (sb[None, :] < lo_q.reshape(-1, 1)).sum(1).to(torch.int32)
+    blk = torch.clamp(blk.reshape(n_tiles, n_groups), 0, n_blocks - 2)
+    e = (blk.long() + 2) * block
+    fits_g = (e >= n_in) | (keys[torch.clamp(e, max=n_in - 1)] > hi_q)
+    fits = torch.where(any_valid[:, None], fits_g,
+                       torch.ones_like(fits_g)).all(1)
+    keys_sorted = (keys[1:] >= keys[:-1]).all()
+    fits = fits & keys_sorted
+    return BandPlan(bq_t, vb_t, blk, fits.all(), fits, keys_sorted, deltas,
+                    group_of, n_out, tile, block)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
+                    bias=None, relu=False, bf16=True):
+    """Plain PyTorch version of the kernel contract (module docstring)."""
+    tile, block = plan.tile, plan.block
+    n_in = feats.shape[0]
+    n_tiles = plan.base_keys.shape[0]
+    dev = feats.device
+    f = feats.float()
+    w = weights.float()
+    if bf16:
+        f, w = _bf16(f), _bf16(w)
+    keys_p = torch.cat([keys, torch.full((block,), INVALID_KEY,
+                                         dtype=torch.int32, device=dev)])
+    q = plan.base_keys.long()                                 # (nt, T)
+    row_ok = ((plan.valid_bits >> ROW_VALID_BIT) & 1).float()
+    out = torch.zeros((n_tiles * tile, w.shape[2]), dtype=torch.float32,
+                      device=dev)
+    for t, (d, g) in enumerate(zip(plan.deltas, plan.group_of)):
+        qk = (q + d).reshape(-1)
+        ws = (plan.blk[:, g].long() * block)[:, None].expand(
+            n_tiles, tile).reshape(-1)
+        we = torch.clamp(ws + 2 * block, max=n_in)
+        pos = torch.searchsorted(keys_p.long(), qk)
+        pos = torch.minimum(torch.maximum(pos, ws), we)
+        bit = ((plan.valid_bits.reshape(-1) >> t) & 1) == 1
+        hit = bit & (pos < we) & (keys_p[pos].long() == qk)
+        src = torch.where(hit, pos, torch.zeros_like(pos))
+        out += (f[src] * hit[:, None].float()) @ w[t]
+    if scale is not None:
+        out = out * scale + bias
+    if relu:
+        out = torch.relu(out)
+    out = out * row_ok.reshape(-1, 1)
+    return out[:plan.n_out]
+
+
+def band_conv(feats, keys, plan: BandPlan, weights, scale=None, bias=None,
+              relu: bool = False, bf16: bool = True):
+    """One sparse conv through the band window: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Returns (N_out, C') f32."""
+    if not feats.is_cuda:
+        return band_conv_plain(feats, keys, plan, weights, scale, bias,
+                               relu, bf16)
+    return _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu,
+                           bf16)
+
+
+# CUDA kernel limits (csrc/band_conv.cu): one thread per output row.
+MAX_TAPS, MAX_TILE, MAX_CIN = 27, 256, 128
+_geometry_cache = {}
+
+
+def _geometry(plan, dev):
+    key = (plan.deltas, plan.group_of, str(dev))
+    g = _geometry_cache.get(key)
+    if g is None:
+        g = torch.tensor(list(plan.deltas) + list(plan.group_of),
+                         dtype=torch.int32, device=dev)
+        _geometry_cache[key] = g
+    return g
+
+
+def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
+    """Launch ``band_conv_fwd`` (csrc/band_conv.cu).
+
+    Replaces virconv_tpu/ops/pallas/band_conv.py::_kernel. Bound: at the
+    main path's widths (C, C' <= 64) the work is ~2*K*C*C' flops per row
+    against ~(K*C + C')*4 bytes of gathered rows, so the ideal kernel is
+    compute-bound on the tensor cores; this first version instead runs the
+    multiply-adds on CUDA cores, one thread per output row, with W[k]
+    staged 16 output channels at a time in shared memory (the full W is
+    442 KB in f32 and does not fit). The row gather is a lower-bound binary
+    search of the tile's 2-block window: no one-hot matmul, no neighbor
+    map."""
+    global launches
+    from . import _cuda
+    dev = feats.device
+    n_in, c_in = feats.shape
+    k, _, c_out = weights.shape
+    _cuda.check_cuda_tensor(feats, 'feats', torch.float32, 2)
+    _cuda.check_cuda_tensor(keys, 'keys', torch.int32, 1, dev)
+    _cuda.check_cuda_tensor(weights, 'weights', torch.float32, 3, dev)
+    for name in ('base_keys', 'valid_bits', 'blk'):
+        _cuda.check_cuda_tensor(getattr(plan, name), name, torch.int32, 2,
+                                dev)
+    if keys.shape[0] != n_in or weights.shape[1] != c_in \
+            or k != len(plan.deltas):
+        raise ValueError('band_conv: inconsistent feats/keys/weights/plan')
+    if k > MAX_TAPS or plan.tile > MAX_TILE or c_in > MAX_CIN:
+        raise ValueError(f'band_conv kernel limits: K={k} tile={plan.tile} '
+                         f'C={c_in}')
+    affine = scale is not None
+    if affine:
+        scale = scale.float().contiguous()
+        bias = bias.float().contiguous()
+        _cuda.check_cuda_tensor(scale, 'scale', torch.float32, 1, dev)
+        _cuda.check_cuda_tensor(bias, 'bias', torch.float32, 1, dev)
+    n_tiles = plan.base_keys.shape[0]
+    geo = _geometry(plan, dev)
+    out = torch.empty((plan.n_out, c_out), dtype=torch.float32, device=dev)
+    lib = _cuda.load('band_conv')
+    fn = lib.band_conv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    null = ctypes.c_void_p(0)
+    err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
+             _cuda.ptr(plan.valid_bits), _cuda.ptr(plan.blk),
+             _cuda.ptr(weights),
+             n_in, c_in, c_out, k, max(plan.group_of) + 1,
+             _cuda.ptr(geo), _cuda.ptr(scale) if affine else null,
+             _cuda.ptr(bias) if affine else null,
+             int(affine), int(relu), int(bf16), plan.tile, plan.block,
+             n_tiles, plan.n_out, _cuda.ptr(out), _cuda.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f'band_conv_fwd launch failed: CUDA error {err}')
+    launches += 1
+    return out

@@ -1,0 +1,171 @@
+"""Box geometry on tensors (eval subset): rotated BEV overlap by Green's
+theorem, greedy rotated NMS and the residual box coder. Counterpart of
+``virconv_tpu/ops/boxes.py``; boxes are (x, y, z, dx, dy, dz, heading) in
+the LiDAR frame. All products are elementwise f32 (no matmuls), which keeps
+the parallel-edge tests of the overlap exact on every device."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+EPS = 1e-8
+
+
+def limit_period(val, offset=0.5, period=math.pi):
+    return val - torch.floor(val / period + offset) * period
+
+
+def rotate_points_along_z(points, angle):
+    """Rotate (B, N, 3+C) points by (B,) angles around +z, as elementwise
+    products summed in index order."""
+    cosa = torch.cos(angle)[:, None]
+    sina = torch.sin(angle)[:, None]
+    x, y = points[..., 0], points[..., 1]
+    zero = torch.zeros_like(x)
+    xr = x * cosa + y * (-sina) + zero
+    yr = x * sina + y * cosa + zero
+    return torch.cat([torch.stack([xr, yr, points[..., 2]], -1),
+                      points[..., 3:]], -1)
+
+
+def boxes_to_corners_bev(boxes):
+    """BEV corners (N, 4, 2), counter-clockwise."""
+    template = torch.tensor([[0.5, 0.5], [-0.5, 0.5], [-0.5, -0.5],
+                             [0.5, -0.5]], dtype=boxes.dtype,
+                            device=boxes.device)
+    corners = template[None] * torch.stack([boxes[:, 3], boxes[:, 4]],
+                                           -1)[:, None, :]
+    cosa = torch.cos(boxes[:, 6])[:, None]
+    sina = torch.sin(boxes[:, 6])[:, None]
+    x = corners[..., 0] * cosa - corners[..., 1] * sina
+    y = corners[..., 0] * sina + corners[..., 1] * cosa
+    return torch.stack([x, y], -1) + boxes[:, None, 0:2]
+
+
+def _rect_halfplanes(boxes):
+    """Half-plane form: normals (N, 4, 2), offsets (N, 4); inside is
+    n . x <= c."""
+    cosa, sina = torch.cos(boxes[:, 6]), torch.sin(boxes[:, 6])
+    n1 = torch.stack([cosa, sina], -1)
+    n2 = torch.stack([-sina, cosa], -1)
+    normals = torch.stack([n1, -n1, n2, -n2], 1)
+    proj = (normals * boxes[:, None, 0:2]).sum(-1)
+    half = torch.stack([boxes[:, 3] / 2, boxes[:, 3] / 2,
+                        boxes[:, 4] / 2, boxes[:, 4] / 2], -1)
+    return normals, proj + half
+
+
+def _clipped_edge_integrals(corners, normals, offsets, coincide_tol=1e-4):
+    """Green's-theorem contribution of one box's edges clipped to another
+    box's half-planes (Liang-Barsky); edges on a clip boundary weigh 1/2."""
+    u = corners
+    d = torch.roll(corners, -1, dims=-2) - u
+    npl = normals[..., None, :, :]
+    nu = (npl * u[..., :, None, :]).sum(-1)
+    nd = (npl * d[..., :, None, :]).sum(-1)
+    c = offsets[..., None, :]
+    par_eps = 1e-4
+    denom = torch.where(nd.abs() < par_eps, torch.full_like(nd, par_eps), nd)
+    t_hit = (c - nu) / denom
+    t_lo = torch.where(nd < -par_eps, t_hit, torch.zeros_like(t_hit)).amax(-1)
+    t_hi = torch.where(nd > par_eps, t_hit, torch.ones_like(t_hit)).amin(-1)
+    parallel = nd.abs() <= par_eps
+    infeasible = (parallel & (nu > c + coincide_tol)).any(-1)
+    on_boundary = (parallel & ((nu - c).abs() <= coincide_tol)).any(-1)
+    t0 = torch.clamp(t_lo, 0.0, 1.0)
+    t1 = torch.clamp(t_hi, 0.0, 1.0)
+    ok = (~infeasible) & (t1 > t0)
+    p0 = u + t0[..., None] * d
+    p1 = u + t1[..., None] * d
+    cross = p0[..., 0] * p1[..., 1] - p1[..., 0] * p0[..., 1]
+    weight = torch.where(on_boundary, 0.5, 1.0).to(cross.dtype)
+    return (torch.where(ok, cross, torch.zeros_like(cross)) * weight).sum(-1)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b, row_chunk: int | None = None):
+    """Pairwise rotated BEV overlap areas (N, M)."""
+    ca = boxes_to_corners_bev(boxes_a)
+    cb = boxes_to_corners_bev(boxes_b)
+    na, oa = _rect_halfplanes(boxes_a)
+    nb, ob = _rect_halfplanes(boxes_b)
+
+    def block(ca_, na_, oa_):
+        suma = _clipped_edge_integrals(ca_[:, None], nb[None], ob[None])
+        sumb = _clipped_edge_integrals(cb[None], na_[:, None], oa_[:, None])
+        return torch.clamp(0.5 * (suma + sumb), min=0.0)
+
+    n = boxes_a.shape[0]
+    if row_chunk is None or n <= row_chunk:
+        return block(ca, na, oa)
+    return torch.cat([block(ca[i:i + row_chunk], na[i:i + row_chunk],
+                            oa[i:i + row_chunk])
+                      for i in range(0, n, row_chunk)])
+
+
+def boxes_iou_bev(boxes_a, boxes_b, row_chunk: int | None = None):
+    inter = boxes_overlap_bev(boxes_a, boxes_b, row_chunk=row_chunk)
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return inter / torch.clamp(area_a + area_b - inter, min=EPS)
+
+
+def nms_bev(boxes, scores, thresh: float, pre_max: int, post_max: int,
+            valid=None, num_iters: int = 8):
+    """Rotated NMS by fixed-point suppression (``virconv_tpu.ops.boxes.
+    nms_bev``). The top ``pre_max`` by score come from a stable descending
+    sort, so ties keep the lower index first as XLA's top_k does.
+
+    Returns (selected indices (post_max,) into the input, valid mask)."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    masked = torch.where(valid, scores,
+                         torch.full_like(scores, -float('inf')))
+    k = min(pre_max, n)
+    top_scores, order = torch.sort(masked, descending=True, stable=True)
+    top_scores, order = top_scores[:k], order[:k]
+    top_valid = torch.isfinite(top_scores)
+    b = boxes[order]
+    iou = boxes_iou_bev(b, b, row_chunk=256 if k > 512 else None)
+    over = (iou > thresh) & top_valid[:, None] & top_valid[None, :]
+    sup = over & torch.tril(torch.ones((k, k), dtype=torch.bool, device=dev),
+                            diagonal=-1)
+    keep = torch.ones((k,), dtype=torch.bool, device=dev)
+    for _ in range(num_iters):
+        keep = ~(sup & keep[None, :]).any(1) & top_valid
+    rank = torch.cumsum(keep.to(torch.int32), 0) - 1
+    src = torch.where(keep & (rank < post_max), rank,
+                      torch.full_like(rank, post_max)).long()
+    sel = torch.zeros((post_max + 1,), dtype=torch.long, device=dev)
+    sel[src[keep & (rank < post_max)]] = order[keep & (rank < post_max)]
+    sel = sel[:post_max]
+    count = torch.clamp(keep.sum(), max=post_max)
+    sel_valid = torch.arange(post_max, device=dev) < count
+    return torch.where(sel_valid, sel, torch.zeros_like(sel)), sel_valid
+
+
+class ResidualCoder:
+    """Anchor-residual box decoder (with the JAX package's symmetric
+    log-dim clamp at +-10)."""
+
+    def __init__(self, code_size=7):
+        self.code_size = code_size
+
+    def decode(self, encodings, anchors):
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, -1)
+        xt, yt, zt, dxt, dyt, dzt, rt = torch.split(encodings[..., :7], 1, -1)
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        xg = xt * diag + xa
+        yg = yt * diag + ya
+        zg = zt * dza + za
+        dxg = torch.exp(torch.clamp(dxt, -10.0, 10.0)) * dxa
+        dyg = torch.exp(torch.clamp(dyt, -10.0, 10.0)) * dya
+        dzg = torch.exp(torch.clamp(dzt, -10.0, 10.0)) * dza
+        rg = rt + ra
+        rest = encodings.shape[-1] - self.code_size
+        cgs = [encodings[..., self.code_size + i:self.code_size + i + 1]
+               + anchors[..., 7 + i:8 + i] for i in range(rest)]
+        return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], -1)
