@@ -5,18 +5,20 @@
 
 Phases (each prints one line; any failure exits non-zero):
   1. build the CUDA kernels (one nvcc per source, in parallel);
-  2. hold each kernel against its plain PyTorch version at the shapes the
-     main path gives it (inputs captured from a full-width warm-up forward:
-     the first 3D submanifold, strided, 2D and conv_out layers, the widest
-     submanifold layer, the Q=216 and Q=64 pools): f32 and bf16 operands,
-     identical ROI selections, kernel and plain times;
+  2. hold every kernel call of one full-width request against its plain
+     PyTorch version on the same inputs (captured from a warm-up forward:
+     every 3D submanifold, strided, 2D first-wins and conv_out layer, every
+     stride-8 and stride-4 pool the kernel runs): f32 and bf16 operands,
+     identical ROI selections, kernel and plain times, each call's bound,
+     and each kernel's sums over the request;
   3. serve 3 requests of FRAMES=2 synthetic KITTI-scale frames through the
      full-width VirConv-T Detector (ROT_NUM=3, seeded random weights), with
      every launch count set to 0 just before and read just after;
   4. the tiny test configuration on CUDA (kernels) and on the CPU (plain
      versions) with the same weights, TF32 off: final boxes and scores
      compared;
-then one JSON line of per-kernel numbers, the card's name and power limit,
+then one JSON line of per-kernel numbers (times and bounds per request,
+summed over its calls; launches over the phase 3 requests), the card's name and power limit,
 and the device JSON as the last line. It needs the repository around it:
 alone, or without a CUDA device, it exits non-zero and prints no result.
 """
@@ -26,10 +28,10 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-FRAMES = 2
 N_REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
@@ -60,12 +62,12 @@ def nbytes(*ts):
 
 
 class Capture:
-    """Records the inputs of the first kernel call of each main-path case
-    during a warm-up forward (the calls still launch the kernels)."""
+    """Records the inputs of every kernel call of one warm-up forward (the
+    calls still launch the kernels)."""
 
     def __init__(self):
         from virconv_tpu_torch.ops import band_conv, roi_pool
-        self.cases = {}
+        self.band, self.pool = [], []
         self._bc, self._rp = band_conv, roi_pool
         self._orig = band_conv._band_conv_cuda, roi_pool._roi_pool_cuda
 
@@ -73,24 +75,13 @@ class Capture:
         orig_bc, orig_rp = self._orig
 
         def bc(feats, keys, plan, weights, scale, bias, relu, bf16):
-            k = weights.shape[0]
-            kind = ('subm3d_k27' if k == 27 and plan.n_out == feats.shape[0]
-                    else 'strided3d_k27' if k == 27 else f'subm2d_k{k}'
-                    if k == 9 else f'out_k{k}')
-            args = (feats, keys, plan, weights, scale, bias, relu)
-            self.cases.setdefault(kind, args)
-            if kind == 'subm3d_k27':      # also keep the widest layer
-                wide = self.cases.get('subm3d_k27_widest')
-                if wide is None or weights[0].numel() > wide[3][0].numel():
-                    self.cases['subm3d_k27_widest'] = args
+            self.band.append((feats, keys, plan, weights, scale, bias, relu))
             return orig_bc(feats, keys, plan, weights, scale, bias, relu,
                            bf16)
 
         def rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr, bf16,
                sel_out=None):
-            self.cases.setdefault(f'pool_q{plan.q_per_roi}',
-                                  (plan, fg, w_eff, b_eff, specs, vs, stride,
-                                   pcr))
+            self.pool.append((plan, fg, w_eff, b_eff, specs, vs, stride, pcr))
             return orig_rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr,
                            bf16, sel_out)
         self._bc._band_conv_cuda, self._rp._roi_pool_cuda = bc, rp
@@ -101,7 +92,17 @@ class Capture:
         return False
 
 
-def check_band_case(name, args, results):
+def band_kind(feats, plan, w):
+    k = w.shape[0]
+    if k == 27:
+        return 'subm3d_k27' if plan.n_out == feats.shape[0] else \
+            'strided3d_k27'
+    return 'subm2d_k9' if k == 9 else f'out_k{k}'
+
+
+def check_band_case(name, args):
+    """One main-path band-conv call: kernel vs plain (f32 and bf16
+    operands), both timed with bf16 operands, and the call's bound."""
     import torch
     from virconv_tpu_torch.ops import band_conv as bc
     feats, keys, plan, w, scale, bias, relu = args
@@ -119,9 +120,9 @@ def check_band_case(name, args, results):
     line['ms'] = cuda_ms(lambda: bc.band_conv(feats, keys, plan, w, scale,
                                               bias, relu, True))
     line['plain_ms'] = cuda_ms(lambda: bc.band_conv_plain(
-        feats, keys, plan, w, scale, bias, relu, True), reps=3)
-    # bound: inputs read once + output written once, and 2*C*C' flops per
-    # (row, tap) that has a source in this run's data
+        feats, keys, plan, w, scale, bias, relu, True), reps=3, warmup=1)
+    # bound: inputs read once + output written once, and 2*C*C' operations
+    # per (row, tap) that has a source in this run's data
     hits = 0
     keys_p = torch.cat([keys, keys.new_full((plan.block,), 2 ** 31 - 1)])
     for t, (d, g) in enumerate(zip(plan.deltas, plan.group_of)):
@@ -133,19 +134,17 @@ def check_band_case(name, args, results):
             keys_p.long(), q), ws), we)
         bit = ((plan.valid_bits.reshape(-1) >> t) & 1) == 1
         hits += int((bit & (pos < we) & (keys_p[pos].long() == q)).sum())
-    byts = (nbytes(feats, keys, plan.base_keys, plan.valid_bits, plan.blk, w)
-            + plan.n_out * w.shape[2] * 4)
-    flops = 2.0 * hits * w.shape[1] * w.shape[2]
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    line['bound_ms'] = 1e3 * max(t_bytes, t_ops)
-    line['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
-    line['library_ms'] = None      # no single PyTorch call computes it
     line['taps_hit'] = hits
-    results[name] = line
-    print(f'[phase 2] band_conv {json.dumps(line)}', flush=True)
+    line['bytes'] = (nbytes(feats, keys, plan.base_keys, plan.valid_bits,
+                            plan.blk, w) + plan.n_out * w.shape[2] * 4)
+    line['ops'] = 2.0 * hits * w.shape[1] * w.shape[2]
+    bound(line, BF16_FLOPS)
+    return line
 
 
-def check_pool_case(name, args, results):
+def check_pool_case(name, args):
+    """One main-path ROI-pool call: identical selections, kernel vs plain
+    (f32 and bf16 features), both timed with bf16, and the call's bound."""
     import torch
     from virconv_tpu_torch.ops import roi_pool as rp
     plan, fg, w_eff, b_eff, specs, vs, stride, pcr = args
@@ -175,24 +174,55 @@ def check_pool_case(name, args, results):
     line['ms'] = cuda_ms(lambda: rp.roi_pool_apply(
         plan, fg, w_eff, b_eff, specs, vs, stride, pcr, True))
     line['plain_ms'] = cuda_ms(lambda: rp.roi_pool_plain(
-        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, True), reps=3)
+        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, True), reps=3,
+        warmup=1)
     # bound: plan arrays + the candidate feature rows + output once; ~20
-    # flops per (query, candidate, group) distance/window test and ~6 per
-    # selected (slot, channel)
+    # operations per (query, candidate, group) distance/window test and ~6
+    # per selected (slot, channel)
     n_cand = int(plan.cand_valid.sum())
     mid = fg[0].shape[1]
-    byts = (nbytes(plan.cand_pack, plan.meta, plan.q_pack, plan.cand_rows,
-                   plan.blk_start) + n_cand * mid * len(fg) * 4
-            + plan.n_roi * plan.q_per_roi * len(fg) * mid * 4)
+    line['bytes'] = (nbytes(plan.cand_pack, plan.meta, plan.q_pack,
+                            plan.cand_rows, plan.blk_start)
+                     + n_cand * mid * len(fg) * 4
+                     + plan.n_roi * plan.q_per_roi * len(fg) * mid * 4)
     cand_per_roi = n_cand / max(plan.n_roi, 1)
-    ops = (20.0 * plan.n_roi * plan.q_per_roi * cand_per_roi * len(fg)
-           + 6.0 * n_sel * mid)
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops / F32_FLOPS
-    line['bound_ms'] = 1e3 * max(t_bytes, t_ops)
-    line['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
-    line['library_ms'] = None
-    results[name] = line
-    print(f'[phase 2] roi_pool {json.dumps(line)}', flush=True)
+    line['ops'] = (20.0 * plan.n_roi * plan.q_per_roi * cand_per_roi
+                   * len(fg) + 6.0 * n_sel * mid)
+    bound(line, F32_FLOPS)
+    return line
+
+
+def bound(line, peak):
+    """Sets the case's bound: the larger of its bytes over the memory rate
+    and its operations over ``peak``."""
+    line['t_bytes_ms'] = 1e3 * line['bytes'] / HBM_BYTES_PER_S
+    line['t_ops_ms'] = 1e3 * line['ops'] / peak
+    line['bound_ms'] = max(line['t_bytes_ms'], line['t_ops_ms'])
+    line['bound_by'] = ('bytes' if line['t_bytes_ms'] >= line['t_ops_ms']
+                        else 'operations')
+    line['library_ms'] = None      # no single PyTorch call computes it
+
+
+def per_request(lines):
+    """One kernel's numbers summed over every call of one request; the
+    bound is that of all the calls' work together."""
+    t_bytes = sum(c['t_bytes_ms'] for c in lines)
+    t_ops = sum(c['t_ops_ms'] for c in lines)
+    return {'launches_per_request': len(lines),
+            'max_abs_err': max(max(c['max_abs_err_f32'],
+                                   c['max_abs_err_bf16']) for c in lines),
+            'ms': sum(c['ms'] for c in lines),
+            'plain_ms': sum(c['plain_ms'] for c in lines),
+            'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+            'library_ms': None}
+
+
+def short(line):
+    keep = ('case', 'rows_in', 'rows_out', 'c_in', 'c_out', 'rois',
+            'queries_per_roi', 'stride', 'selected', 'max_abs_err_f32',
+            'max_abs_err_bf16', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
+    return json.dumps({k: line[k] for k in keep if k in line})
 
 
 def tiny_config():
@@ -258,7 +288,7 @@ def main():
     from virconv_tpu_torch.models.roi_heads import voxel_pool
     from virconv_tpu_torch.ops import _cuda, band_conv, roi_pool, sparse
     from virconv_tpu_torch.serve import Detector
-    from virconv_tpu_torch.utils.bench_inputs import synth_frames
+    from virconv_tpu_torch.utils.bench_inputs import FRAMES, synth_frames
 
     dev = torch.device('cuda:0')
     kind = torch.cuda.get_device_name(0)
@@ -271,28 +301,36 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.time()
-    _cuda.build_all()
-    for name in _cuda.SOURCES:
-        _cuda.load(name)
+    with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
+        list(pool.map(_cuda.load, _cuda.SOURCES))
     print(f'[phase 1] built {len(_cuda.SOURCES)} kernel libraries in '
           f'{time.time() - t0:.2f} s', flush=True)
 
-    # ---- phase 2: kernels vs plain at main-path shapes ---------------------
+    # ---- phase 2: every kernel call of one request vs its plain version ---
     det = Detector(device='cuda', seed=0)
     frames = synth_frames(FRAMES)
     with Capture() as cap:
         det.forward(frames)
         torch.cuda.synchronize()
-    need = ('subm3d_k27', 'strided3d_k27', 'subm2d_k9', 'pool_q216',
-            'pool_q64', 'subm3d_k27_widest', 'out_k3')
-    missing = [n for n in need if n not in cap.cases]
+    taps = {a[3].shape[0] for a in cap.band}
+    pools = {(a[6], a[0].q_per_roi) for a in cap.pool}
+    missing = ({27, 9, 3} - taps) | ({(8, 216), (8, 64), (4, 64)} - pools)
     if missing:
-        fail(f'warm-up forward never reached {missing}')
-    results = {}
-    for name in need[:3] + ('subm3d_k27_widest', 'out_k3'):
-        check_band_case(name, cap.cases[name], results)
-    for name in need[3:5]:
-        check_pool_case(name, cap.cases[name], results)
+        fail(f'warm-up forward never reached {sorted(missing)} '
+             '(band-conv taps / pool (stride, Q))')
+    cases = {'band_conv_fwd': [], 'roi_pool_fwd': []}
+    for i, a in enumerate(cap.band):
+        line = check_band_case(f'{i:02d} {band_kind(a[0], a[2], a[3])}', a)
+        cases['band_conv_fwd'].append(line)
+        print(f'[phase 2] band_conv {short(line)}', flush=True)
+    for i, a in enumerate(cap.pool):
+        line = check_pool_case(
+            f'{i} stride{a[6]}_q{a[0].q_per_roi}', a)
+        cases['roi_pool_fwd'].append(line)
+        print(f'[phase 2] roi_pool {short(line)}', flush=True)
+    totals = {k: per_request(v) for k, v in cases.items()}
+    print(f'[phase 2] per request, summed over its calls: '
+          f'{json.dumps(totals)}', flush=True)
     del cap
 
     # ---- phase 3: the main path --------------------------------------------
@@ -321,7 +359,7 @@ def main():
             fail(f'non-finite {k}')
     print(f'[phase 3] VirConv-T full width, {FRAMES} frames x ROT_NUM '
           f'{det.rot_num}, {N_REQUESTS} requests: ms/request '
-          f'{[round(t, 1) for t in times]}, detections/frame {dets}, '
+          f'{times}, detections/frame {dets}, '
           f'launches {counts}, conv branches {conv_branches}, pool '
           f'branches {pool_branches} (over all {N_REQUESTS} requests)',
           flush=True)
@@ -352,28 +390,14 @@ def main():
         fail('tiny config CUDA and CPU disagree')
 
     # ---- result -------------------------------------------------------------
-    head_band, q216, q64 = (results['subm3d_k27'], results['pool_q216'],
-                            results['pool_q64'])
-    kernels = [
-        {'name': 'band_conv_fwd', 'route': 'cuda',
-         'source': 'virconv_tpu_torch/csrc/band_conv.cu',
-         'replaces': 'virconv_tpu/ops/pallas/band_conv.py:139',
-         'launches': counts['band_conv_fwd'],
-         'max_abs_err': head_band['max_abs_err_f32'],
-         'ms': head_band['ms'], 'plain_ms': head_band['plain_ms'],
-         'bound_ms': head_band['bound_ms'],
-         'bound_by': head_band['bound_by'], 'library_ms': None},
-        {'name': 'roi_pool_fwd', 'route': 'cuda',
-         'source': 'virconv_tpu_torch/csrc/roi_pool.cu',
-         'replaces': 'virconv_tpu/ops/pallas/roi_pool.py:241+268',
-         'launches': counts['roi_pool_fwd'],
-         'max_abs_err': max(q216['max_abs_err_f32'],
-                            q64['max_abs_err_f32']),
-         'ms': q216['ms'], 'plain_ms': q216['plain_ms'],
-         'bound_ms': q216['bound_ms'], 'bound_by': q216['bound_by'],
-         'library_ms': None},
-    ]
-    print(json.dumps({'kernels': kernels, 'cases': results}), flush=True)
+    meta = {'band_conv_fwd': ('virconv_tpu_torch/csrc/band_conv.cu',
+                              'virconv_tpu/ops/pallas/band_conv.py:139'),
+            'roi_pool_fwd': ('virconv_tpu_torch/csrc/roi_pool.cu',
+                             'virconv_tpu/ops/pallas/roi_pool.py:241+268')}
+    kernels = [{'name': name, 'route': 'cuda', 'source': src,
+                'replaces': rep, 'launches': counts[name], **totals[name]}
+               for name, (src, rep) in meta.items()]
+    print(json.dumps({'kernels': kernels, 'cases': cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

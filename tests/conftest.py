@@ -62,6 +62,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'slow: multi-minute XLA-CPU compile; skipped unless '
                    '--run-slow (a smoke variant runs every time)')
+    config.addinivalue_line(
+        'markers', 'cuda: needs a CUDA device; skips without one')
 
 
 def pytest_collection_modifyitems(config, items):

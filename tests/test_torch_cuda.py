@@ -15,6 +15,7 @@ from virconv_tpu_torch.ops import roi_pool as trp
 from virconv_tpu_torch.ops import sparse as tsp
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
 
 
 def _cuda():

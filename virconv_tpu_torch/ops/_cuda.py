@@ -3,8 +3,7 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``virconv_tpu_torch/_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``. No
-PyTorch headers are included, so a build takes seconds. ``build_all`` starts
-one ``nvcc`` per source at once.
+PyTorch headers are included, so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 SOURCES = ('band_conv', 'roi_pool')
 
 _libs = {}
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in SOURCES}
 
 
 def _nvcc():
@@ -40,46 +39,24 @@ def _target(name):
     return src, BUILD / f'lib{name}_{digest}.so'
 
 
-def _compile(name):
-    """Start nvcc for one source; returns (Popen or None, target)."""
-    src, out = _target(name)
-    if out.exists():
-        return None, out
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return (proc, tmp), out
-
-
-def _finish(job, out):
-    if job is None:
-        return
-    proc, tmp = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed for {out.name}:\n{log}')
-    os.replace(tmp, out)
-
-
-def build_all():
-    """Compile every kernel source in parallel (no-op when built)."""
-    with _lock:
-        jobs = [_compile(n) for n in SOURCES if n not in _libs]
-        for job, out in jobs:
-            _finish(job, out)
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Calls
+    for different sources may run in parallel threads, one nvcc each."""
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is None:
-            job, out = _compile(name)
-            _finish(job, out)
-            lib = ctypes.CDLL(str(out))
-            _libs[name] = lib
+            src, out = _target(name)
+            if not out.exists():
+                BUILD.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f'nvcc failed for {out.name}:\n'
+                                       f'{proc.stdout}{proc.stderr}')
+                os.replace(tmp, out)
+            lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
 
 

@@ -1,9 +1,9 @@
 """Where the time of one full-width VirConv-T request goes, on one card.
 
-    python -m virconv_tpu_torch.profile_serve [--frames 2] [--out DIR]
+    python -m virconv_tpu_torch.profile_serve [--out DIR]
 
-Builds the kernels, serves FRAMES synthetic frames twice to warm up, then
-traces one request with ``torch.profiler`` (CPU + CUDA). Prints the
+Serves FRAMES synthetic frames twice to warm up (which builds the kernels),
+then traces one request with ``torch.profiler`` (CPU + CUDA). Prints the
 request's wall time, the device busy time (union of kernel intervals) and
 its share of the wall time, each named stage's host and device span
 (make_batch, voxelize, backbone_3d, bev, rpn, roi_head, postprocess_wbf)
@@ -30,17 +30,14 @@ STAGES = ('make_batch', 'voxelize', 'backbone_3d', 'bev', 'rpn', 'roi_head',
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--frames', type=int, default=2)
     ap.add_argument('--out', default='chiprun_out')
     args = ap.parse_args(argv)
 
-    from .ops import _cuda
     from .serve import Detector
-    from .utils.bench_inputs import synth_frames
+    from .utils.bench_inputs import FRAMES, synth_frames
     torch.set_grad_enabled(False)
-    _cuda.build_all()
     det = Detector(device='cuda', seed=0)
-    frames = synth_frames(args.frames)
+    frames = synth_frames(FRAMES)
     for _ in range(2):
         det(frames)
     torch.cuda.synchronize()
@@ -59,7 +56,7 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     report.update(card=smi.splitlines()[0] if smi else
-                  torch.cuda.get_device_name(0), frames=args.frames)
+                  torch.cuda.get_device_name(0), frames=FRAMES)
     print(json.dumps(report, indent=1))
 
 

@@ -14,6 +14,7 @@ from .calibration import Calibration
 from .synth_scene import make_scene
 
 N_LIDAR_PTS, N_FUSED_PTS = 32768, 65536
+FRAMES = 2            # frames per request, bench.py's default
 
 
 def kitti_calib():
