@@ -17,10 +17,25 @@ Phases (each prints one line; any failure exits non-zero):
   4. the tiny test configuration on CUDA (kernels) and on the CPU (plain
      versions) with the same weights, TF32 off: final boxes and scores
      compared;
-then one JSON line of per-kernel numbers (times and bounds per request,
-summed over its calls; launches over the phase 3 requests), the card's name and power limit,
-and the device JSON as the last line. It needs the repository around it:
-alone, or without a CUDA device, it exits non-zero and prints no result.
+  5. every K1 call (forward, and input gradient with transposed weights)
+     and every K4 call of one full-width VirConv-T training step
+     (``Trainer.step(train_batch())``: 2 frames x ROT_NUM 3) against its
+     plain version, f32 and bf16 operands; each K4 call run twice for
+     identical bits; kernel and plain times with f32 operands, each call's
+     bound at the f32 peak, and the sums per step;
+  6. the main training path: 3 full-width steps with every launch count
+     set to 0 just before and read just after: finite losses, no skipped
+     step, both kernels launched, no band training conv on the
+     neighbor-map fallback; ms per step and peak memory;
+  7. one training step of the tiny configuration on CUDA and on the CPU
+     with the same weights and the same random draws (drawn once on the
+     CPU), TF32 off: loss and every gradient compared;
+then one JSON line of per-kernel numbers (times and bounds per request or
+per training step, summed over its calls; launches over the phase 3
+requests and the phase 6 steps), the card's name and power limit, and the
+device JSON as the last line. Each phase prints its seconds. It needs the
+repository around it: alone, or without a CUDA device, it exits non-zero
+and prints no result.
 """
 
 import json
@@ -33,6 +48,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 N_REQUESTS = 3
+N_TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
 
@@ -55,6 +71,13 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def phase_done(n, t0):
+    """Prints phase ``n``'s seconds since ``t0``; returns the time now."""
+    now = time.time()
+    print(f'[phase {n}] {now - t0:.1f} s', flush=True)
+    return now
 
 
 def nbytes(*ts):
@@ -92,6 +115,49 @@ class Capture:
         return False
 
 
+class TrainCapture:
+    """Records the inputs of every K1 and K4 call of one training step (the
+    calls still launch the kernels). K1 calls made while the model's
+    forward runs are the convs; those after it, in the backward, are the
+    input-gradient passes."""
+
+    def __init__(self, model):
+        from virconv_tpu_torch.ops import band_conv
+        self.fwd, self.dgrad, self.dw = [], [], []
+        self._bc, self._model = band_conv, model
+        self._orig = band_conv._band_conv_cuda, band_conv._band_conv_dw_cuda
+        self._in_forward = False
+
+    def __enter__(self):
+        orig_k1, orig_k4 = self._orig
+        forward = self._model.forward
+
+        def model_forward(*a, **k):
+            self._in_forward = True
+            try:
+                return forward(*a, **k)
+            finally:
+                self._in_forward = False
+
+        def k1(feats, keys, plan, weights, scale, bias, relu, bf16):
+            calls = self.fwd if self._in_forward else self.dgrad
+            calls.append((feats, keys, plan, weights, scale, bias, relu))
+            return orig_k1(feats, keys, plan, weights, scale, bias, relu,
+                           bf16)
+
+        def k4(feats, keys, plan, g, valid_bits, bf16):
+            self.dw.append((feats, keys, plan, g, valid_bits))
+            return orig_k4(feats, keys, plan, g, valid_bits, bf16)
+        self._model.forward = model_forward
+        self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = k1, k4
+        return self
+
+    def __exit__(self, *exc):
+        self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = self._orig
+        del self._model.forward
+        return False
+
+
 def band_kind(feats, plan, w):
     k = w.shape[0]
     if k == 27:
@@ -100,10 +166,22 @@ def band_kind(feats, plan, w):
     return 'subm2d_k9' if k == 9 else f'out_k{k}'
 
 
-def check_band_case(name, args):
+def taps_hit(feats, keys, plan, valid_bits, row_valid=False):
+    """The (row, tap) pairs that have a source in this run's data; with
+    ``row_valid`` only those of rows whose row-valid bit is set (K4 skips
+    the others)."""
+    from virconv_tpu_torch.ops import band_conv as bc
+    from virconv_tpu_torch.ops.sparse import ROW_VALID_BIT
+    ok = ((valid_bits.reshape(-1) >> ROW_VALID_BIT) & 1) == 1
+    return sum(int((hit & ok).sum() if row_valid else hit.sum())
+               for _, hit in bc._tap_sources(keys, plan, valid_bits,
+                                             feats.shape[0]))
+
+
+def check_band_case(name, args, bf16_timed=True, peak=BF16_FLOPS):
     """One main-path band-conv call: kernel vs plain (f32 and bf16
-    operands), both timed with bf16 operands, and the call's bound."""
-    import torch
+    operands), both timed with the path's operands (bf16 at serve, f32 in
+    training), and the call's bound at ``peak``."""
     from virconv_tpu_torch.ops import band_conv as bc
     feats, keys, plan, w, scale, bias, relu = args
     line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': plan.n_out,
@@ -118,27 +196,57 @@ def check_band_case(name, args):
         if not err <= tol:
             fail(f'band_conv {name} bf16={bf16}: max err {err} > {tol}')
     line['ms'] = cuda_ms(lambda: bc.band_conv(feats, keys, plan, w, scale,
-                                              bias, relu, True))
+                                              bias, relu, bf16_timed))
     line['plain_ms'] = cuda_ms(lambda: bc.band_conv_plain(
-        feats, keys, plan, w, scale, bias, relu, True), reps=3, warmup=1)
+        feats, keys, plan, w, scale, bias, relu, bf16_timed), reps=3,
+        warmup=1)
     # bound: inputs read once + output written once, and 2*C*C' operations
     # per (row, tap) that has a source in this run's data
-    hits = 0
-    keys_p = torch.cat([keys, keys.new_full((plan.block,), 2 ** 31 - 1)])
-    for t, (d, g) in enumerate(zip(plan.deltas, plan.group_of)):
-        q = (plan.base_keys.long() + d).reshape(-1)
-        ws = (plan.blk[:, g].long() * plan.block)[:, None].expand(
-            plan.base_keys.shape).reshape(-1)
-        we = torch.clamp(ws + 2 * plan.block, max=feats.shape[0])
-        pos = torch.minimum(torch.maximum(torch.searchsorted(
-            keys_p.long(), q), ws), we)
-        bit = ((plan.valid_bits.reshape(-1) >> t) & 1) == 1
-        hits += int((bit & (pos < we) & (keys_p[pos].long() == q)).sum())
+    hits = taps_hit(feats, keys, plan, plan.valid_bits)
     line['taps_hit'] = hits
     line['bytes'] = (nbytes(feats, keys, plan.base_keys, plan.valid_bits,
                             plan.blk, w) + plan.n_out * w.shape[2] * 4)
     line['ops'] = 2.0 * hits * w.shape[1] * w.shape[2]
-    bound(line, BF16_FLOPS)
+    bound(line, peak)
+    return line
+
+
+def check_dw_case(name, args):
+    """One K4 call of the training step: kernel vs plain (f32 and bf16
+    operands), two kernel runs with identical bits, both timed with f32
+    operands (the training path's), and the call's bound at the f32
+    peak."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv as bc
+    feats, keys, plan, g, vb = args
+    k, c_in, c_out = len(plan.deltas), feats.shape[1], g.shape[1]
+    line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': plan.n_out,
+            'c_in': c_in, 'c_out': c_out, 'taps': k}
+    for bf16 in (False, True):
+        got = bc.band_conv_dw(feats, keys, plan, g, vb, bf16)
+        again = bc.band_conv_dw(feats, keys, plan, g, vb, bf16)
+        if not torch.equal(got, again):
+            fail(f'band_conv_dw {name} bf16={bf16}: two runs differ')
+        want = bc.band_conv_dw_plain(feats, keys, plan, g, vb, bf16)
+        err = float((got - want).abs().max())
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        line[f'max_abs_err_{"bf16" if bf16 else "f32"}'] = err
+        if not err <= tol:
+            fail(f'band_conv_dw {name} bf16={bf16}: max err {err} > {tol}')
+    line['bitwise_repeatable'] = True
+    line['ms'] = cuda_ms(lambda: bc.band_conv_dw(feats, keys, plan, g, vb,
+                                                 False))
+    line['plain_ms'] = cuda_ms(lambda: bc.band_conv_dw_plain(
+        feats, keys, plan, g, vb, False), reps=3, warmup=1)
+    # bound: inputs read once + dW written once, and 2*C*C' operations per
+    # valid (row, tap) that has a source in this run's data
+    vb = plan.valid_bits if vb is None else vb
+    hits = taps_hit(feats, keys, plan, vb, row_valid=True)
+    line['taps_hit'] = hits
+    line['bytes'] = (nbytes(feats, keys, plan.base_keys, vb, plan.blk, g)
+                     + k * c_in * c_out * 4)
+    line['ops'] = 2.0 * hits * c_in * c_out
+    bound(line, F32_FLOPS)
     return line
 
 
@@ -203,12 +311,12 @@ def bound(line, peak):
     line['library_ms'] = None      # no single PyTorch call computes it
 
 
-def per_request(lines):
-    """One kernel's numbers summed over every call of one request; the
-    bound is that of all the calls' work together."""
+def summed(lines, unit='request'):
+    """One kernel's numbers summed over every call of one request (or
+    training step); the bound is that of all the calls' work together."""
     t_bytes = sum(c['t_bytes_ms'] for c in lines)
     t_ops = sum(c['t_ops_ms'] for c in lines)
-    return {'launches_per_request': len(lines),
+    return {f'launches_per_{unit}': len(lines),
             'max_abs_err': max(max(c['max_abs_err_f32'],
                                    c['max_abs_err_bf16']) for c in lines),
             'ms': sum(c['ms'] for c in lines),
@@ -219,9 +327,10 @@ def per_request(lines):
 
 
 def short(line):
-    keep = ('case', 'rows_in', 'rows_out', 'c_in', 'c_out', 'rois',
+    keep = ('case', 'rows_in', 'rows_out', 'c_in', 'c_out', 'taps', 'rois',
             'queries_per_roi', 'stride', 'selected', 'max_abs_err_f32',
-            'max_abs_err_bf16', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
+            'max_abs_err_bf16', 'bitwise_repeatable', 'ms', 'plain_ms',
+            'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
 
 
@@ -278,6 +387,136 @@ def tiny_frames(rng, frames=2, n_pts=1500):
             'p2t': np.tile(p2t, (frames, 1, 1))}
 
 
+def tiny_train_config():
+    """tiny_config() with training sizes: NMS 128 -> 32 proposals and 32
+    sampled rois per image per stage."""
+    cfg = tiny_config()
+    rh = cfg.MODEL.ROI_HEAD
+    rh.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
+    rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 32
+    for stage in rh.TARGET_CONFIG.values():
+        if isinstance(stage, dict) and 'ROI_PER_IMAGE' in stage:
+            stage.ROI_PER_IMAGE = 32
+    return cfg
+
+
+def tiny_train_batch(rng, frames=2):
+    """tiny_frames() with two gt cars per frame and a world transform per
+    entry (each entry is its own sample)."""
+    batch = tiny_frames(rng, frames)
+    gt = np.zeros((frames, 6, 8), np.float32)
+    gt[:, 0] = [4, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
+    gt[:, 1] = [10, 3, -1, 3.9, 1.6, 1.56, -0.5, 1]
+    gt_valid = np.zeros((frames, 6), bool)
+    gt_valid[:, :2] = True
+    batch.update(gt_boxes=gt, gt_valid=gt_valid, transform_param=None,
+                 trans_params=np.tile(np.float32([[0.1, 1.0, 1.01]]),
+                                      (frames, 1)))
+    return batch
+
+
+def train_kernel_calls(trainer, batch):
+    """Phase 5: one training step under TrainCapture, every captured call
+    checked and timed. Returns the per-call lines by kernel."""
+    import torch
+    cap = TrainCapture(trainer.model)
+    with cap:
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    print(f'[phase 5] one training step: {len(cap.fwd)} K1 forward, '
+          f'{len(cap.dgrad)} K1 input-gradient, {len(cap.dw)} K4 calls',
+          flush=True)
+    if not (cap.fwd and cap.dgrad and cap.dw):
+        fail('the training step missed a kernel use')
+    cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
+             'band_conv_dw': []}
+    with torch.no_grad():
+        for key, calls in (('band_conv_fwd_train', cap.fwd),
+                           ('band_conv_fwd_train_dgrad', cap.dgrad)):
+            for i, a in enumerate(calls):
+                line = check_band_case(
+                    f'{i:02d} {band_kind(a[0], a[2], a[3])}', a,
+                    bf16_timed=False, peak=F32_FLOPS)
+                cases[key].append(line)
+                print(f'[phase 5] {key} {short(line)}', flush=True)
+        for i, a in enumerate(cap.dw):
+            line = check_dw_case(f'{i:02d} k{len(a[2].deltas)}', a)
+            cases['band_conv_dw'].append(line)
+            print(f'[phase 5] band_conv_dw {short(line)}', flush=True)
+    return cases
+
+
+def train_steps(trainer, batch, n_steps):
+    """Phase 6, the main training path: ``n_steps`` steps with every launch
+    count set to 0 just before and read just after."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv, sparse
+    band_conv.launches = band_conv.dw_launches = 0
+    sparse.branch_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, tb = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        bad = [k for k, v in tb.items() if not np.isfinite(float(v))]
+        if not np.isfinite(losses[-1]) or bad:
+            fail(f'non-finite training loss {losses[-1]} / terms {bad}')
+        if tb['nonfinite_skips'] != 0:
+            fail(f'{tb["nonfinite_skips"]} skipped steps')
+    counts = {'band_conv_fwd': band_conv.launches,
+              'band_conv_dw': band_conv.dw_launches}
+    branches = dict(sparse.branch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'[phase 6] VirConv-T training, {n_steps} steps of '
+          f'{batch["points"].shape[0]} entries: ms/step {times}, loss '
+          f'{losses}, peak memory {peak_gib:.2f} GiB, launches {counts}, '
+          f'conv branches {branches}', flush=True)
+    for k, v in counts.items():
+        if v == 0:
+            fail(f'{k} was never launched on the training path')
+    if branches.get('band_train_nmap', 0) or not branches.get('band_train'):
+        fail(f'a band training conv left the band kernels: {branches}')
+    return counts, {'ms_per_step': times, 'loss': losses,
+                    'peak_memory_gib': peak_gib, 'conv_branches': branches}
+
+
+def tiny_train_parity(devices=('cpu', 'cuda')):
+    """Phase 7: one tiny-config training step on each device with the same
+    weights and the same draws (made once, on the CPU, by the first run).
+    The loss within rtol 1e-4; each parameter's gradient within 1e-3 x its
+    max |grad| on the CPU, floored at 1e-4 x the step's largest gradient
+    (gradients that are zero in exact arithmetic are round-off)."""
+    import torch
+    from virconv_tpu_torch.train.draws import Draws
+    from virconv_tpu_torch.train.trainer import Trainer
+    cfg = tiny_train_config()
+    batch = tiny_train_batch(np.random.default_rng(0))
+    draws = Draws(torch.Generator().manual_seed(7))
+    res = {}
+    for d in devices:
+        tr = Trainer(cfg=cfg, device=d, seed=1)
+        rng = draws if not res else Draws(replay=draws.log)
+        loss, _ = tr.step(batch, rng)
+        res[d] = (float(loss), {n: p.grad.detach().cpu() for n, p in
+                                tr.model.named_parameters()})
+    (l_ref, g_ref), (l_dev, g_dev) = res[devices[0]], res[devices[1]]
+    floor = 1e-4 * max(float(g.abs().max()) for g in g_ref.values())
+    worst = max((float((g_dev[n] - g).abs().max())
+                 / max(float(g.abs().max()), floor), n)
+                for n, g in g_ref.items())
+    loss_rel = abs(l_dev - l_ref) / max(abs(l_ref), 1e-12)
+    print(f'[phase 7] tiny config training step {devices[1]} vs '
+          f'{devices[0]}: loss {l_dev:.6g} vs {l_ref:.6g} (rel err '
+          f'{loss_rel:.3g}, tol 1e-4), worst gradient {worst[1]} at '
+          f'{worst[0]:.3g} x its scale (tol 1e-3)', flush=True)
+    if not (loss_rel <= 1e-4 and worst[0] <= 1e-3):
+        fail('tiny config training step: devices disagree')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -288,9 +527,10 @@ def main():
     from virconv_tpu_torch.models.roi_heads import voxel_pool
     from virconv_tpu_torch.ops import _cuda, band_conv, roi_pool, sparse
     from virconv_tpu_torch.serve import Detector
-    from virconv_tpu_torch.utils.bench_inputs import FRAMES, synth_frames
+    from virconv_tpu_torch.train.trainer import Trainer
+    from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames,
+                                                      train_batch)
 
-    dev = torch.device('cuda:0')
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -303,10 +543,11 @@ def main():
     t0 = time.time()
     with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
         list(pool.map(_cuda.load, _cuda.SOURCES))
-    print(f'[phase 1] built {len(_cuda.SOURCES)} kernel libraries in '
-          f'{time.time() - t0:.2f} s', flush=True)
+    print(f'[phase 1] built {len(_cuda.SOURCES)} kernel libraries',
+          flush=True)
 
     # ---- phase 2: every kernel call of one request vs its plain version ---
+    t0 = phase_done(1, t0)
     det = Detector(device='cuda', seed=0)
     frames = synth_frames(FRAMES)
     with Capture() as cap:
@@ -328,12 +569,13 @@ def main():
             f'{i} stride{a[6]}_q{a[0].q_per_roi}', a)
         cases['roi_pool_fwd'].append(line)
         print(f'[phase 2] roi_pool {short(line)}', flush=True)
-    totals = {k: per_request(v) for k, v in cases.items()}
+    totals = {k: summed(v) for k, v in cases.items()}
     print(f'[phase 2] per request, summed over its calls: '
           f'{json.dumps(totals)}', flush=True)
     del cap
 
     # ---- phase 3: the main path --------------------------------------------
+    t0 = phase_done(2, t0)
     band_conv.launches = roi_pool.launches = 0
     sparse.branch_counts.clear()
     voxel_pool.branch_counts.clear()
@@ -369,6 +611,7 @@ def main():
     del raw, det
 
     # ---- phase 4: tiny config, CUDA kernels vs CPU plain -------------------
+    t0 = phase_done(3, t0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tiny_config()
@@ -389,15 +632,48 @@ def main():
     if not (valid_same and box_err <= 5e-3 and cls_err <= 2e-3):
         fail('tiny config CUDA and CPU disagree')
 
+    # ---- phase 5: every kernel call of one training step vs plain ---------
+    # (training phases run f32 with TF32 off, as set for phase 4)
+    t0 = phase_done(4, t0)
+    with torch.enable_grad():
+        trainer = Trainer(device='cuda', seed=0)
+        batch = trainer.to_device(train_batch())
+        train_cases = train_kernel_calls(trainer, batch)
+        cases.update(train_cases)
+        step_totals = {k: summed(v, 'step') for k, v in train_cases.items()}
+        print(f'[phase 5] per training step, summed over its calls: '
+              f'{json.dumps(step_totals)}', flush=True)
+
+        # ---- phase 6: the main training path --------------------------------
+        t0 = phase_done(5, t0)
+        train_counts, train_run = train_steps(trainer, batch, N_TRAIN_STEPS)
+        del trainer, batch
+
+        # ---- phase 7: tiny config training step, CUDA vs CPU ----------------
+        t0 = phase_done(6, t0)
+        tiny_train_parity(('cpu', 'cuda'))
+    phase_done(7, t0)
+
     # ---- result -------------------------------------------------------------
-    meta = {'band_conv_fwd': ('virconv_tpu_torch/csrc/band_conv.cu',
-                              'virconv_tpu/ops/pallas/band_conv.py:139'),
+    src = 'virconv_tpu_torch/csrc/band_conv.cu'
+    meta = {'band_conv_fwd': (src, 'virconv_tpu/ops/pallas/band_conv.py:139'),
             'roi_pool_fwd': ('virconv_tpu_torch/csrc/roi_pool.cu',
-                             'virconv_tpu/ops/pallas/roi_pool.py:241+268')}
-    kernels = [{'name': name, 'route': 'cuda', 'source': src,
-                'replaces': rep, 'launches': counts[name], **totals[name]}
-               for name, (src, rep) in meta.items()]
-    print(json.dumps({'kernels': kernels, 'cases': cases}), flush=True)
+                             'virconv_tpu/ops/pallas/roi_pool.py:241+268'),
+            'band_conv_dw': (src, 'virconv_tpu/ops/pallas/band_conv.py:188')}
+    launches = {**counts, 'band_conv_dw': train_counts['band_conv_dw']}
+    totals['band_conv_dw'] = step_totals['band_conv_dw']
+    kernels = [{'name': name, 'route': 'cuda', 'source': s,
+                'replaces': rep, 'launches': launches[name], **totals[name]}
+               for name, (s, rep) in meta.items()]
+    # K1 in training: forward and input-gradient calls together, and apart
+    k1_train = summed(train_cases['band_conv_fwd_train']
+                      + train_cases['band_conv_fwd_train_dgrad'], 'step')
+    kernels[0]['train'] = {
+        'launches': train_counts['band_conv_fwd'], **k1_train,
+        'forward': step_totals['band_conv_fwd_train'],
+        'input_grad': step_totals['band_conv_fwd_train_dgrad']}
+    print(json.dumps({'kernels': kernels, 'train_step': train_run,
+                      'cases': cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -94,6 +94,70 @@ def test_band_conv_kernel_matches_plain(case):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize('case', ['subm_patch_rows', 'wide64'])
+def test_band_conv_dw_kernel_matches_plain(case):
+    """K4 vs its plain version (atol 1e-4 x the output scale: f32 sums in
+    another order), f32 and bf16 operands; two runs give the same bits."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    if case == 'subm_patch_rows':
+        st = random_sparse(rng, 2, (6, 24, 20), 700, 768, 8)
+        plan, keys = tsp.subm_band_plan(st, 3, tile=32, block=32)
+        assert not bool(plan.fits.all()), 'want non-fitting tiles'
+        vb = torch.where(plan.fits[:, None], plan.valid_bits,
+                         torch.zeros_like(plan.valid_bits))
+        c_out = 12
+    else:
+        st = random_sparse(rng, 2, (10, 40, 40), 6000, 6144, 64)
+        plan, keys = tsp.subm_band_plan(st, 3)
+        vb, c_out = None, 64
+    g = torch.from_numpy(rng.standard_normal(
+        (plan.n_out, c_out)).astype(np.float32))
+    cplan = _plan_to(plan, dev)
+    cvb = None if vb is None else vb.to(dev)
+    args = (st.feats.to(dev), keys.to(dev), cplan, g.to(dev), cvb)
+    for bf16 in (False, True):
+        want = tbc.band_conv_dw(st.feats, keys, plan, g, vb, bf16)
+        n0 = tbc.dw_launches
+        got = tbc.band_conv_dw(*args, bf16)
+        again = tbc.band_conv_dw(*args, bf16)
+        torch.cuda.synchronize()
+        assert tbc.dw_launches == n0 + 2
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_band_train_conv_gradients_match_cpu():
+    """The differentiable band conv on CUDA (K1 forward, K1 with transposed
+    weights as the input gradient, K4 + patch rows for dW) vs the same conv
+    on the CPU (plain versions), on a tensor with patch rows; value and
+    input gradient at 1e-4, dW at atol 1e-3 / rtol 5e-3."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    st = random_sparse(rng, 2, (6, 24, 20), 700, 768, 8)
+    w = (rng.standard_normal((27, 8, 8)) * 0.3).astype(np.float32)
+    cot = rng.standard_normal((768, 8)).astype(np.float32)
+    res = {}
+    for d in ('cpu', dev):
+        s = _to(st, d)
+        conv = tsp.subm_conv_ctx(s, 3, tile=32, block=32, train=True)
+        f = s.feats.clone().requires_grad_(True)
+        wt = torch.from_numpy(w).to(d).requires_grad_(True)
+        n0, m0 = tbc.launches, tbc.dw_launches
+        out = conv(f, wt)
+        out.backward(torch.from_numpy(cot).to(d))
+        if d != 'cpu':
+            torch.cuda.synchronize()
+            assert (tbc.launches - n0, tbc.dw_launches - m0) == (2, 1)
+        res[str(d)] = [x.detach().cpu().numpy()
+                       for x in (out, f.grad, wt.grad)]
+    want, got = res['cpu'], res[str(dev)]
+    for a, b, (atol, rtol) in zip(want, got, ((1e-4, 1e-4),) * 2
+                                  + ((1e-3, 5e-3),)):
+        np.testing.assert_allclose(b, a, atol=atol, rtol=rtol)
+
+
 def test_band_conv_rejects_cpu_plan_with_cuda_feats():
     dev = _cuda()
     rng = np.random.default_rng(1)

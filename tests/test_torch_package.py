@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 def test_import_loads_no_jax_and_no_jax_package():
     code = (
         'import sys, virconv_tpu_torch, virconv_tpu_torch.serve, '
+        'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
         'virconv_tpu_torch.utils.jax_weights, '
         'virconv_tpu_torch.utils.synth_scene\n'
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -54,8 +55,11 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip('a CUDA device is present')
     from virconv_tpu_torch import resolve_device
     from virconv_tpu_torch.serve import Detector
+    from virconv_tpu_torch.train.trainer import Trainer
     with pytest.raises(RuntimeError, match='CUDA'):
         Detector()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        Trainer()
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device('cuda')
     assert resolve_device('cpu').type == 'cpu'

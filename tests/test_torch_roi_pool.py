@@ -142,7 +142,8 @@ def test_sa_module_matches_jax(branch, monkeypatch):
     want = mod.apply(variables, st, 1, qxyz, qc, qmask, False,
                      q_per_roi=g ** 3)
     tmod = tvp.NeighborVoxelSAModule(16, ((2, 2, 2), (4, 4, 4)), (0.4, 0.8),
-                                     (8, 8), ((8, 16), (8, 16)), VOX, PCR)
+                                     (8, 8), ((8, 16), (8, 16)), VOX,
+                                     PCR).eval()
     load_state_dict_checked(tmod, from_jax_variables(
         jax.tree_util.tree_map(np.asarray, variables)))
     if branch == 'probe':

@@ -1,4 +1,4 @@
-"""BEV modules: height compression and the 2D conv pyramid (eval).
+"""BEV modules: height compression and the 2D conv pyramid.
 Counterpart of ``virconv_tpu/models/backbones_2d/bev.py``; maps are NHWC
 at the module boundary, like the JAX package."""
 
@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as sp
-from ..layers import DenseConvBlock
+from ..layers import DenseConvBlock, FlaxBatchNorm2d
 
 
 def height_compression(st: sp.SparseTensor) -> torch.Tensor:
@@ -43,7 +43,7 @@ class BaseBEVBackbone(nn.Module):
                                bias=False)
             setattr(self, f'deblock{i}', de)
             setattr(self, f'deblock{i}_bn',
-                    nn.BatchNorm2d(num_upsample_filters[i], eps=1e-3))
+                    FlaxBatchNorm2d(num_upsample_filters[i]))
             c = nf
 
     def forward(self, x):

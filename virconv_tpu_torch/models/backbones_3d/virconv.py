@@ -1,11 +1,15 @@
-"""VirConv 3D backbones (eval): NRConv blocks, the LiDAR stack and the
+"""VirConv 3D backbones: NRConv blocks, the LiDAR stack and the
 dual-stream VirConv8x of VirConv-T. Counterpart of
 ``virconv_tpu/models/backbones_3d/virconv.py``.
 
-Transform replicas ride the batch axis (entry = b * rot_num + i). Every
-sparse conv runs through the band-window kernel (ops/band_conv.py),
+Transform replicas ride the batch axis (entry = b * rot_num + i). At eval
+every sparse conv runs through the band-window kernel (ops/band_conv.py),
 including the NRConv image-plane 2D convs, whose rows are sorted by pixel
-key, convolved with first-wins duplicate sources, and un-sorted.
+key, convolved with first-wins duplicate sources, and un-sorted. In train
+mode the convs take the JAX package's training routes: 3D submanifold
+convs the differentiable band conv, strided convs and the image-plane 2D
+convs (on the unsorted tensor) the neighbor-map conv; and the multimodal
+stream drops voxels at random (StVD).
 """
 
 from __future__ import annotations
@@ -18,6 +22,17 @@ from ...utils.calibration import project_lidar_to_img
 from ..layers import SparseDownBlock, SubMConvBlock
 
 IMG_GRID = (1600, 600)   # 2D sparse grid of the image plane (u, v)
+
+
+def layer_voxel_discard(st: sp.SparseTensor, rate: float, u):
+    """Drop the valid rows whose uniform draw ``u`` (one per row of
+    capacity) is below ``rate`` (train-time StVD)."""
+    keep = st.mask & (u >= rate)
+    return st.replace(mask=keep,
+                      coords=torch.where(keep[:, None], st.coords,
+                                         torch.full_like(st.coords, -1)),
+                      feats=torch.where(keep[:, None], st.feats,
+                                        torch.zeros_like(st.feats)))
 
 
 def voxel_centers(coords, stride: int, voxel_size, pcr):
@@ -60,7 +75,7 @@ class NRConvBlock(nn.Module):
         operands."""
         if self.stride > 1:
             st = self.down(st, out_capacity, bf16)
-        ctx3d = sp.subm_conv_ctx(st, 3, bf16=bf16)
+        ctx3d = sp.subm_conv_ctx(st, 3, bf16=bf16, train=self.training)
         d3 = self.d3_conv1(st, ctx3d)
         d3 = self.d3_conv2(d3, ctx3d)
 
@@ -88,6 +103,12 @@ class NRConvBlock(nn.Module):
         st2d = sp.SparseTensor(feats=d3.feats, coords=coords2d, mask=d3.mask,
                                spatial_shape=IMG_GRID,
                                batch_size=st.batch_size)
+        if self.training:
+            # neighbor-map conv on the unsorted tensor (the dense lookup
+            # table needs no sort); duplicate pixels resolve to the first row
+            ctx2d = sp.nmap_subm_conv_ctx(st2d, 3)
+            d2 = self.d2_conv2(self.d2_conv1(st2d, ctx2d), ctx2d)
+            return d3.replace(feats=torch.cat([d3.feats, d2.feats], -1))
         # the band kernel needs key-sorted rows: sort once, two convs with
         # first-wins duplicate sources, un-sort once
         st2s, perm = sp.sort_by_key_with_perm(st2d)
@@ -131,7 +152,7 @@ class LidarStack(nn.Module):
         caps = [_cap(st.capacity, r) for r in self.cap_ratios]
 
         def ctx(t):
-            return sp.subm_conv_ctx(t, 3, bf16=bf16)
+            return sp.subm_conv_ctx(t, 3, bf16=bf16, train=self.training)
         ctx1 = ctx(st)
         x = self.conv_input(st, ctx1)
         x1 = self.conv1(x, ctx1)
@@ -150,13 +171,16 @@ class LidarStack(nn.Module):
 
 
 class NRConvStack(nn.Module):
-    """Four NRConv blocks (layer voxel discard is train-only)."""
+    """Four NRConv blocks; in train mode StVD drops ``layer_discard_rate``
+    of the voxels of the input and of each block's output but the last."""
 
     def __init__(self, in_channels: int, num_filters=(16, 32, 64, 64),
                  voxel_size=(0.05, 0.05, 0.05),
-                 point_cloud_range=(0, -40, -3, 70.4, 40, 1)):
+                 point_cloud_range=(0, -40, -3, 70.4, 40, 1),
+                 layer_discard_rate: float = 0.15):
         super().__init__()
         nf = tuple(num_filters)
+        self.layer_discard_rate = layer_discard_rate
         kw = dict(voxel_size=voxel_size, point_cloud_range=point_cloud_range)
         self.vir_conv1 = NRConvBlock(in_channels, nf[0], stride=1, **kw)
         self.vir_conv2 = NRConvBlock(nf[0], nf[1], stride=2, **kw)
@@ -164,15 +188,24 @@ class NRConvStack(nn.Module):
         self.vir_conv4 = NRConvBlock(nf[2], nf[3], stride=2,
                                      padding=(0, 1, 1), **kw)
 
-    def forward(self, st, v2r, p2t, trans_params, bf16: bool = True):
+    def forward(self, st, v2r, p2t, trans_params, bf16: bool = True,
+                rng=None):
+        """``rng`` (train mode): the step's draws (``train.draws.Draws``)."""
+        def discard(t):
+            if not (self.training and self.layer_discard_rate > 0):
+                return t
+            u = rng.uniform((t.capacity,), t.feats.device)
+            return layer_voxel_discard(t, self.layer_discard_rate, u)
+
+        st = discard(st)
         n0 = st.capacity
         x1 = self.vir_conv1(st, v2r, p2t, trans_params, 1, None, bf16)
-        x2 = self.vir_conv2(x1, v2r, p2t, trans_params, 2, _cap(n0, 1.0),
-                            bf16)
-        x3 = self.vir_conv3(x2, v2r, p2t, trans_params, 4, _cap(n0, 0.6),
-                            bf16)
-        x4 = self.vir_conv4(x3, v2r, p2t, trans_params, 8, _cap(n0, 0.35),
-                            bf16)
+        x2 = self.vir_conv2(discard(x1), v2r, p2t, trans_params, 2,
+                            _cap(n0, 1.0), bf16)
+        x3 = self.vir_conv3(discard(x2), v2r, p2t, trans_params, 4,
+                            _cap(n0, 0.6), bf16)
+        x4 = self.vir_conv4(discard(x3), v2r, p2t, trans_params, 8,
+                            _cap(n0, 0.35), bf16)
         return {'x_conv1': x1, 'x_conv2': x2, 'x_conv3': x3, 'x_conv4': x4}
 
 
@@ -181,16 +214,17 @@ class VirConv8x(nn.Module):
 
     def __init__(self, in_channels: int, num_filters=(16, 32, 64, 64),
                  out_features: int = 64, voxel_size=(0.05, 0.05, 0.05),
-                 point_cloud_range=(0, -40, -3, 70.4, 40, 1)):
+                 point_cloud_range=(0, -40, -3, 70.4, 40, 1),
+                 layer_discard_rate: float = 0.15):
         super().__init__()
         self.lidar = LidarStack(in_channels, num_filters, out_features)
         self.mm = NRConvStack(in_channels, num_filters, voxel_size,
-                              point_cloud_range)
+                              point_cloud_range, layer_discard_rate)
 
     def forward(self, st_lidar, st_mm, v2r, p2t, trans_params,
-                bf16: bool = True):
+                bf16: bool = True, rng=None):
         lidar = self.lidar(st_lidar, bf16)
-        mm = self.mm(st_mm, v2r, p2t, trans_params, bf16)
+        mm = self.mm(st_mm, v2r, p2t, trans_params, bf16, rng)
         return {'multi_scale_3d_features': {k: lidar[k] for k in
                                             ('x_conv1', 'x_conv2', 'x_conv3',
                                              'x_conv4')},

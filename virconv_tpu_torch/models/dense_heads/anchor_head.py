@@ -1,5 +1,6 @@
-"""Anchor-based RPN head, eval forward with NMS proposals. Counterpart of
-``virconv_tpu/models/dense_heads/anchor_head.py`` (AnchorHeadSingle)."""
+"""Anchor-based RPN head with NMS proposals, its target assignment and loss.
+Counterpart of ``virconv_tpu/models/dense_heads/anchor_head.py``
+(AnchorHeadSingle)."""
 
 from __future__ import annotations
 
@@ -44,6 +45,75 @@ def generate_anchors(point_cloud_range, grid_size, stride, anchor_sizes,
     return anchors.reshape(-1, 7).astype(np.float32), (ny, nx)
 
 
+def nearest_bev_iou(boxes_a, boxes_b):
+    """AABB IoU of heading-snapped BEV boxes."""
+    def to_aabb(b):
+        rot = box_ops.limit_period(b[:, 6], 0.5, math.pi).abs()
+        dxdy = torch.where((rot < math.pi / 4)[:, None], b[:, [3, 4]],
+                           b[:, [4, 3]])
+        return torch.cat([b[:, 0:2] - dxdy / 2, b[:, 0:2] + dxdy / 2], 1)
+    a, b = to_aabb(boxes_a), to_aabb(boxes_b)
+    lt = torch.maximum(a[:, None, 0:2], b[None, :, 0:2])
+    rb = torch.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = torch.clamp(rb - lt, min=0.0).prod(-1)
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / torch.clamp(area_a[:, None] + area_b[None] - inter,
+                               min=1e-6)
+
+
+def assign_anchor_targets(anchors, gt_boxes, gt_valid, coder,
+                          matched_threshold, unmatched_threshold):
+    """One sample's axis-aligned target assignment. anchors (N, 7),
+    gt_boxes (M, 8) [box7, class], gt_valid (M,). Returns labels (N,) int32
+    (-1 ignore, 0 background, class), reg_targets (N, 7), reg_weights (N,)
+    and ious (N,)."""
+    iou = nearest_bev_iou(anchors, gt_boxes[:, :7])
+    iou = torch.where(gt_valid[None, :], iou, torch.full_like(iou, -1.0))
+    a2g_max, a2g_arg = iou.max(1)
+    g2a_max = iou.amax(0)
+    g2a_max = torch.where(g2a_max == 0, torch.full_like(g2a_max, -1.0),
+                          g2a_max)
+    force = ((iou == g2a_max[None, :]) & gt_valid[None, :]
+             & (g2a_max[None, :] > 0)).any(1)
+    gt_cls = gt_boxes[:, 7].to(torch.int32)
+    labels = torch.full((anchors.shape[0],), -1, dtype=torch.int32,
+                        device=anchors.device)
+    labels = torch.where(a2g_max < unmatched_threshold,
+                         torch.zeros_like(labels), labels)
+    labels = torch.where((a2g_max >= matched_threshold) | force,
+                         gt_cls[a2g_arg], labels)
+    labels = torch.where(gt_valid.any(), labels, torch.zeros_like(labels))
+    fg = labels > 0
+    tgt = coder.encode(gt_boxes[a2g_arg, :7], anchors)
+    return {'labels': labels,
+            'reg_targets': torch.where(fg[:, None], tgt,
+                                       torch.zeros_like(tgt)),
+            'reg_weights': fg.float(),
+            'ious': torch.clamp(a2g_max, min=0.0)}
+
+
+def sigmoid_focal_loss(logits, targets, weights, alpha=0.25, gamma=2.0):
+    """Per-element sigmoid focal loss."""
+    p = torch.sigmoid(logits)
+    alpha_w = targets * alpha + (1 - targets) * (1 - alpha)
+    pt = targets * (1 - p) + (1 - targets) * p
+    bce = (torch.clamp(logits, min=0) - logits * targets
+           + torch.log1p(torch.exp(-logits.abs())))
+    return alpha_w * pt ** gamma * bce * weights[..., None]
+
+
+def weighted_smooth_l1(preds, targets, weights, beta=1.0 / 9.0,
+                       code_weights=None):
+    diff = preds - targets
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype,
+                                      device=diff.device)
+    n = diff.abs()
+    loss = torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
+    return loss * weights[..., None]
+
+
 def compute_anchor_mask(points_xy, points_mask, point_cloud_range,
                         bev_shape):
     """(H, W) anchor occupancy mask shared across the batch: points in a
@@ -81,6 +151,8 @@ class AnchorHeadSingle(nn.Module):
                              persistent=False)
         self.point_cloud_range = tuple(point_cloud_range)
         self.num_class = num_class
+        self.matched_threshold = cfg['matched_threshold']
+        self.unmatched_threshold = cfg['unmatched_threshold']
         self.num_anchors_per_loc = (len(cfg['anchor_sizes'])
                                     * len(cfg['anchor_rotations'])
                                     * len(cfg['anchor_bottom_heights']))
@@ -93,9 +165,12 @@ class AnchorHeadSingle(nn.Module):
         self.conv_box = nn.Conv2d(in_channels, na * self.coder.code_size, 1)
         self.conv_dir = nn.Conv2d(in_channels, na * self.num_dir_bins, 1)
 
-    def forward(self, bev_feats, points_xy, points_mask, nms_cfg):
+    def forward(self, bev_feats, points_xy, points_mask, nms_cfg,
+                gt_boxes=None, gt_valid=None):
         """bev_feats (B, H, W, C); points_xy (P, 2) anchor-mask points.
-        Returns proposals (rois, roi_scores, roi_labels, roi_valid)."""
+        Returns proposals (rois, roi_scores, roi_labels, roi_valid, and the
+        NMS keep indices), and in train mode the predictions and the anchor
+        targets of gt_boxes (B, M, 8) / gt_valid (B, M) for ``loss``."""
         b = bev_feats.shape[0]
         x = bev_feats.permute(0, 3, 1, 2)
 
@@ -122,19 +197,20 @@ class AnchorHeadSingle(nn.Module):
         scores = torch.sigmoid(cls_preds.amax(-1))
         roi_labels = cls_preds.argmax(-1) + 1
         sels, valids = [], []
-        for i in range(b):
-            sel, valid = box_ops.nms_bev(
-                batch_boxes[i], scores[i], nms_cfg['thresh'],
-                pre_max=nms_cfg['pre'], post_max=nms_cfg['post'],
-                valid=amask_flat)
-            sels.append(sel)
-            valids.append(valid)
+        with torch.no_grad():                 # selection only
+            for i in range(b):
+                sel, valid = box_ops.nms_bev(
+                    batch_boxes[i], scores[i], nms_cfg['thresh'],
+                    pre_max=nms_cfg['pre'], post_max=nms_cfg['post'],
+                    valid=amask_flat)
+                sels.append(sel)
+                valids.append(valid)
         sel = torch.stack(sels)
         valid = torch.stack(valids)
         brange = torch.arange(b, device=sel.device)[:, None]
         rois = torch.where(valid[..., None], batch_boxes[brange, sel],
                            torch.zeros_like(batch_boxes[brange, sel]))
-        return {
+        out = {
             'rois': rois,
             'roi_scores': torch.where(valid, scores[brange, sel],
                                       torch.zeros_like(scores[brange, sel])),
@@ -143,3 +219,62 @@ class AnchorHeadSingle(nn.Module):
             'roi_valid': valid,
             'keep': sel,
         }
+        if self.training:
+            tgt = [assign_anchor_targets(
+                self.anchors, gt_boxes[i], gt_valid[i], self.coder,
+                self.matched_threshold, self.unmatched_threshold)
+                for i in range(b)]
+            tgt = {k: torch.stack([t[k] for t in tgt]) for k in tgt[0]}
+            tgt['labels'] = torch.where(amask_flat[None, :], tgt['labels'],
+                                        torch.full_like(tgt['labels'], -1))
+            tgt['reg_weights'] = tgt['reg_weights'] * amask_flat[None, :]
+            out.update(cls_preds=cls_preds, box_preds=box_preds,
+                       dir_preds=dir_preds, targets=tgt)
+        return out
+
+    def loss(self, out, loss_weights, code_weights):
+        """RPN loss: focal classification, smooth-L1 box regression with a
+        sin-difference heading, direction cross-entropy. Returns (total,
+        {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir})."""
+        tgt = out['targets']
+        labels = tgt['labels']
+        b = labels.shape[0]
+        positives = labels > 0
+        negatives = labels == 0
+        pos_norm = torch.clamp(positives.sum(1, keepdim=True).float(),
+                               min=1.0)
+        cls_w = (negatives | positives).float() / pos_norm
+        reg_w = positives.float() / pos_norm
+        if self.num_class == 1:
+            cls_t = positives.long()
+        else:
+            cls_t = (labels * (labels >= 0)).long()
+        one_hot = torch.nn.functional.one_hot(
+            cls_t, self.num_class + 1)[..., 1:].float()
+        cls_loss = sigmoid_focal_loss(out['cls_preds'], one_hot,
+                                      cls_w).sum() / b
+        cls_loss = cls_loss * loss_weights['cls_weight']
+
+        bp, rt = out['box_preds'], tgt['reg_targets']
+        sin_p = torch.sin(bp[..., 6:7]) * torch.cos(rt[..., 6:7])
+        sin_t = torch.cos(bp[..., 6:7]) * torch.sin(rt[..., 6:7])
+        bp2 = torch.cat([bp[..., :6], sin_p, bp[..., 7:]], -1)
+        rt2 = torch.cat([rt[..., :6], sin_t, rt[..., 7:]], -1)
+        loc_loss = weighted_smooth_l1(bp2, rt2, reg_w,
+                                      code_weights=code_weights).sum() / b
+        loc_loss = loc_loss * loss_weights['loc_weight']
+
+        rot_gt = rt[..., 6] + self.anchors[None, :, 6]
+        offset_rot = box_ops.limit_period(rot_gt - self.dir_offset, 0,
+                                          2 * math.pi)
+        dir_t = torch.clamp((offset_rot / (2 * math.pi / self.num_dir_bins))
+                            .to(torch.int64), 0, self.num_dir_bins - 1)
+        dir_oh = torch.nn.functional.one_hot(dir_t, self.num_dir_bins).float()
+        logp = torch.log_softmax(out['dir_preds'], -1)
+        dir_w = positives.float()
+        dir_w = dir_w / torch.clamp(dir_w.sum(-1, keepdim=True), min=1.0)
+        dir_loss = -(dir_oh * logp).sum(-1) * dir_w
+        dir_loss = dir_loss.sum() / b * loss_weights['dir_weight']
+        return cls_loss + loc_loss + dir_loss, {
+            'rpn_loss_cls': cls_loss, 'rpn_loss_loc': loc_loss,
+            'rpn_loss_dir': dir_loss}

@@ -1,5 +1,6 @@
-"""VoxelRCNN eval forward: voxelize -> VirConv8x -> BEV -> RPN -> TED head.
-Counterpart of ``virconv_tpu/models/detectors/voxel_rcnn.py``.
+"""VoxelRCNN: voxelize -> VirConv8x -> BEV -> RPN -> TED head, at eval and
+in train mode (``.train()``: the loss of one step). Counterpart of
+``virconv_tpu/models/detectors/voxel_rcnn.py``.
 
 Batch (tensors on one device):
     points        (B*R, P, 8)  float32   LiDAR stream
@@ -8,7 +9,9 @@ Batch (tensors on one device):
     v2r, p2t      (B*R, 4, 3)  float32   calibration matrices
     trans_params  (B*R, 3) | None         world transform of each entry
     transform_param (B, R, 3) | None      test-time replica params
-Transform replicas ride the batch axis (entry = b * R + i).
+    gt_boxes (B*R, M, 8), gt_valid (B*R, M)   train only
+Transform replicas ride the batch axis (entry = b * R + i). A training batch
+has ``transform_param`` None: each entry is its own sample.
 """
 
 from __future__ import annotations
@@ -51,17 +54,22 @@ class VoxelRCNN(nn.Module):
                 f'{bcfg.NAME}: the port runs the VirConv-T backbone only')
         nf = tuple(bcfg.NUM_FILTERS)
         self.backbone = VirConv8x(n_point_features, nf, bcfg.OUT_FEATURES,
-                                  self.voxel_size, self.pcr)
+                                  self.voxel_size, self.pcr,
+                                  bcfg.LAYER_DISCARD_RATE)
         b2 = mcfg.BACKBONE_2D
         self.bev_backbone = BaseBEVBackbone(
             mcfg.MAP_TO_BEV.NUM_BEV_FEATURES, b2.LAYER_NUMS,
             b2.LAYER_STRIDES, b2.NUM_FILTERS, b2.UPSAMPLE_STRIDES,
             b2.NUM_UPSAMPLE_FILTERS)
         bev_c = sum(b2.NUM_UPSAMPLE_FILTERS)
-        rnms = mcfg.ROI_HEAD.NMS_CONFIG.TEST
-        self.nms_cfg = dict(pre=rnms.NMS_PRE_MAXSIZE,
-                            post=rnms.NMS_POST_MAXSIZE,
-                            thresh=rnms.NMS_THRESH)
+        rnms = mcfg.ROI_HEAD.NMS_CONFIG
+        self.nms_cfg = {mode: dict(pre=c.NMS_PRE_MAXSIZE,
+                                   post=c.NMS_POST_MAXSIZE,
+                                   thresh=c.NMS_THRESH)
+                        for mode, c in (('train', rnms.TRAIN),
+                                        ('test', rnms.TEST))}
+        self.loss_weights = (mcfg.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS,
+                             mcfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS)
         self.dense_head = AnchorHeadSingle(mcfg.DENSE_HEAD, bev_c, num_class,
                                            self.grid_size[:2], self.pcr)
         rh = mcfg.ROI_HEAD
@@ -70,27 +78,34 @@ class VoxelRCNN(nn.Module):
                                             'x_conv4': nf[3]}, bev_c)
         self.eval()
 
-    def voxelize(self, points, valid, n_entries, indicator_max):
+    def voxelize(self, points, valid, n_entries, indicator_max, mode='test'):
         """(E, P, C) padded points -> SparseTensor with the reference's +1
-        z padding of the sparse shape."""
+        z padding of the sparse shape; ``mode`` picks the voxel cap."""
         p = points.reshape(-1, points.shape[-1])
         bidx = torch.arange(n_entries, dtype=torch.int32,
                             device=points.device).repeat_interleave(
                                 points.shape[1])
         st = sp.voxelize(p, valid.reshape(-1), self.pcr, self.voxel_size,
-                         max_voxels=self.max_voxels['test'] * n_entries,
+                         max_voxels=self.max_voxels[mode] * n_entries,
                          max_points_per_voxel=self.max_pts_per_voxel,
                          batch_size=n_entries, batch_idx=bidx,
                          indicator_max=indicator_max)
         d, h, w = st.spatial_shape
         return st.replace(spatial_shape=(d + 1, h, w))
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, Any], bf16: bool = True):
-        """Eval forward. ``bf16``: bf16 operands in the sparse conv and ROI
-        pooling kernels (f32 accumulation), as on the TPU."""
-        if self.training:
-            raise RuntimeError('VoxelRCNN is eval-only; call .eval()')
+    def forward(self, batch: Dict[str, Any], bf16: bool = True, rng=None):
+        """Eval forward (no gradients), or in train mode the loss of one
+        step. ``bf16``: bf16 operands in the eval sparse conv and ROI
+        pooling kernels (f32 accumulation), as on the TPU; training is f32.
+        ``rng`` (train mode): the step's random draws (``train.draws``)."""
+        if not self.training:
+            with torch.no_grad():
+                return self._forward(batch, bf16, None)
+        return self._forward(batch, False, rng)
+
+    def _forward(self, batch, bf16, rng):
+        train = self.training
+        mode = 'train' if train else 'test'
         points = batch['points']
         n_entries = points.shape[0]
         tp = batch.get('transform_param')
@@ -98,13 +113,14 @@ class VoxelRCNN(nn.Module):
         b = n_entries // n_rep
         with record_function('voxelize'):
             st = self.voxelize(points, batch['points_valid'], n_entries,
-                               self.indicator_max)
+                               self.indicator_max, mode)
             # the multimodal stream keeps the plain mean (no indicator max)
             st_mm = self.voxelize(batch['points_mm'],
-                                  batch['points_mm_valid'], n_entries, False)
+                                  batch['points_mm_valid'], n_entries, False,
+                                  mode)
         with record_function('backbone_3d'):
             bb = self.backbone(st, st_mm, batch['v2r'], batch['p2t'],
-                               batch.get('trans_params'), bf16)
+                               batch.get('trans_params'), bf16, rng)
 
         # BEV path uses replica 0 only
         enc = bb['encoded_spconv_tensor']
@@ -127,14 +143,30 @@ class VoxelRCNN(nn.Module):
         pv0 = batch['points_valid'].reshape(b, n_rep, -1)[:, 0]
         with record_function('rpn'):
             rpn = self.dense_head(bev_feats, pts0[..., 0:2].reshape(-1, 2),
-                                  pv0.reshape(-1), self.nms_cfg)
+                                  pv0.reshape(-1), self.nms_cfg[mode],
+                                  batch.get('gt_boxes'),
+                                  batch.get('gt_valid'))
         with record_function('roi_head'):
             roi_out = self.roi_head(
                 bb['multi_scale_3d_features'],
                 bb['multi_scale_3d_features_mm'],
-                bb['multi_scale_3d_strides'], rpn, bev_feats, tp, bf16)
-        return {'batch_box_preds': roi_out['batch_box_preds'],
-                'batch_cls_preds': roi_out['batch_cls_preds'],
-                'roi_valid': roi_out['roi_valid'],
-                'rois': rpn['rois'], 'roi_scores': rpn['roi_scores'],
-                'bev_feats': bev_feats, 'backbone': bb}
+                bb['multi_scale_3d_strides'], rpn, bev_feats, tp, bf16,
+                batch.get('gt_boxes'), batch.get('gt_valid'), rng)
+        out = {'batch_box_preds': roi_out['batch_box_preds'],
+               'batch_cls_preds': roi_out['batch_cls_preds'],
+               'roi_valid': roi_out['roi_valid'],
+               'rois': rpn['rois'], 'roi_scores': rpn['roi_scores'],
+               'keep': rpn['keep'], 'keep_valid': rpn['roi_valid'],
+               'bev_feats': bev_feats, 'backbone': bb}
+        if train:
+            rpn_lw, rcnn_lw = self.loss_weights
+            with record_function('loss'):
+                rpn_loss, rpn_tb = self.dense_head.loss(
+                    rpn, rpn_lw, rpn_lw['code_weights'])
+                rcnn_loss, rcnn_tb = self.roi_head.loss(
+                    roi_out['stage_targets'], rcnn_lw,
+                    rcnn_lw['code_weights'])
+            out['loss'] = rpn_loss + rcnn_loss
+            out['tb'] = {**rpn_tb, **rcnn_tb}
+            out['stage_targets'] = roi_out['stage_targets']
+        return out

@@ -1,4 +1,6 @@
-"""Masked sparse-row BatchNorm (eval) and the sparse and dense conv blocks.
+"""Masked sparse-row BatchNorm and the sparse and dense conv blocks, in
+eval mode (BN folded into the conv epilogue) and train mode (``.train()``:
+conv, batch-statistics BN, ReLU, nothing fused).
 
 Parameter names follow the flax module paths of ``virconv_tpu/models/
 layers.py`` (``kernel``, ``MaskedBatchNorm_0``, ``Conv_0``, ``BatchNorm_0``)
@@ -17,25 +19,53 @@ from ..ops import sparse as sp
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid rows of (N, C) features, eval mode (running
-    statistics; eps 1e-3)."""
+    """BatchNorm over valid rows of (N, C) features (eps 1e-3). Train mode
+    normalizes by the masked batch moments and moves the running statistics
+    by momentum 0.01 towards the mean and the unbiased variance, as torch's
+    BatchNorm1d (and the JAX package) do."""
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    def __init__(self, features: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
 
     def fold(self):
-        """(mult, bias') of the folded affine y = x * mult + bias'."""
-        mult = self.weight / torch.sqrt(self.running_var + self.eps)
-        return mult, self.bias - self.running_mean * mult
+        """(mult, bias') of the folded running-statistics affine
+        y = x * mult + bias'."""
+        return self.fold_moments(self.running_mean, self.running_var)
+
+    def fold_moments(self, mean, var, count=None):
+        """(mult, bias') of the affine that normalizes by ``mean`` / ``var``.
+        With ``count`` (train mode) these are batch moments over ``count``
+        rows, and the running statistics move towards them."""
+        if count is not None:
+            self._update_running(mean, var, count)
+        mult = self.weight / torch.sqrt(var + self.eps)
+        return mult, self.bias - mean * mult
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, count):
+        unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
 
     def forward(self, x, mask):
-        mult, bias = self.fold()
-        y = x * mult + bias
+        if not self.training:
+            mult, bias = self.fold()
+            y = x * mult + bias
+            return torch.where(mask[:, None], y, torch.zeros_like(y))
+        w = mask.to(x.dtype)[:, None]
+        cnt = torch.clamp(w.sum(), min=1.0)
+        mean = (x * w).sum(0) / cnt
+        var = ((x - mean) ** 2 * w).sum(0) / cnt
+        self._update_running(mean, var, cnt)
+        y = (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[:, None], y, torch.zeros_like(y))
 
 
@@ -53,7 +83,14 @@ class SubMConvBlock(nn.Module):
 
     def forward(self, st: sp.SparseTensor, conv):
         """``conv``: the conv function of st's key set
-        (``sp.subm_conv_ctx``)."""
+        (``sp.subm_conv_ctx``; in train mode one built with ``train=True``
+        or ``sp.nmap_subm_conv_ctx``)."""
+        if self.training:
+            feats = self.MaskedBatchNorm_0(conv(st.feats, self.kernel),
+                                           st.mask)
+            if self.use_relu:
+                feats = torch.relu(feats)
+            return st.replace(feats=feats)
         mult, bias = self.MaskedBatchNorm_0.fold()
         feats = conv(st.feats, self.kernel, scale=mult, bias=bias,
                          relu=self.use_relu)
@@ -61,7 +98,9 @@ class SubMConvBlock(nn.Module):
 
 
 class SparseDownBlock(nn.Module):
-    """Strided sparse conv + folded BN + ReLU (band kernel path)."""
+    """Strided sparse conv + BN + ReLU: the band kernel with the BN folded
+    in at eval, the neighbor-map conv with batch-statistics BN in train
+    mode."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size=(3, 3, 3), stride=(2, 2, 2), padding=(1, 1, 1)):
@@ -80,12 +119,42 @@ class SparseDownBlock(nn.Module):
         cap = out_capacity or st.capacity
         st_out = sp.downsample_coords(st, self.stride, self.padding,
                                       self.kernel_size, cap)
+        if self.training:
+            conv = sp.nmap_strided_conv_ctx(st, st_out, self.stride,
+                                            self.padding, self.kernel_size)
+            feats = self.MaskedBatchNorm_0(conv(st.feats, self.kernel),
+                                           st_out.mask)
+            return st_out.replace(feats=torch.relu(feats))
         conv = sp.strided_conv_ctx(st, st_out, self.stride, self.padding,
                                    self.kernel_size, bf16=bf16)
         mult, bias = self.MaskedBatchNorm_0.fold()
         feats = conv(st.feats, self.kernel, scale=mult, bias=bias,
                          relu=True)
         return st_out.replace(feats=feats)
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-3) whose train mode follows flax
+    ``nn.BatchNorm(momentum=0.99)``, the JAX package's dense BN: batch
+    variance E[x^2] - E[x]^2 (biased) both to normalize and in the running
+    statistics, which move by 0.01 per step. (torch's train mode puts the
+    unbiased variance in the running statistics.)"""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-3)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        axes = (0, 2, 3)
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.99 * self.running_mean + 0.01 * mean)
+            self.running_var.copy_(0.99 * self.running_var + 0.01 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 class DenseConvBlock(nn.Module):
@@ -99,7 +168,7 @@ class DenseConvBlock(nn.Module):
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel, stride=stride,
                                 padding=tuple(k // 2 for k in kernel),
                                 bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-3)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         """x (B, H, W, C) -> (B, H', W', C')."""

@@ -1,12 +1,16 @@
-"""TED multimodal cascade ROI head (TEDMHead), eval. Counterpart of
+"""TED multimodal cascade ROI head (TEDMHead) and its loss. Counterpart of
 ``virconv_tpu/models/roi_heads/ted_head.py``.
 
 Per cascade stage i the rois are re-expressed in transform replica i's
 frame, grid-pooled from the LiDAR and multimodal streams (replica i is
 batch entry b * rot_num + i), passed through shared FCs, cross-attended
-against the earlier stages, and classified / regressed by three branches;
-a BEV "PART" confidence sampled at 7x7 in-box points is added to the
-logits. The final prediction is the mean over stages.
+against the earlier stages, and classified / regressed by three branches
+(fused, multimodal-only, LiDAR-only; eval uses the fused one); a BEV "PART"
+confidence sampled at 7x7 in-box points is added to the logits. The final
+prediction is the mean over stages. In train mode each stage first samples
+its rois against the gt boxes (``target_assign.proposal_targets``) and FC
+dropout is on; nothing is detached, so the losses reach the RPN's box
+branch through the proposals, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ...config import CfgNode
 from ...ops import boxes as box_ops
 from ...utils import transforms as tr
 from ..layers import DenseConvBlock, MaskedBatchNorm
+from .target_assign import proposal_targets
 from .voxel_pool import NeighborVoxelSAModule, build_pool_tables
 
 
@@ -90,11 +95,15 @@ class CrossAttention(nn.Module):
 
 
 class FCStack(nn.Module):
-    """Linear + masked BN + ReLU stack with an optional final projection."""
+    """Linear + masked BN + ReLU stack with an optional final projection;
+    in train mode dropout after every layer but the last, its keep mask
+    drawn from ``rng``."""
 
-    def __init__(self, in_features: int, widths, out_features=None):
+    def __init__(self, in_features: int, widths, out_features=None,
+                 dp_ratio: float = 0.0):
         super().__init__()
         self.n = len(widths)
+        self.dp_ratio = dp_ratio
         c = in_features
         for i, w in enumerate(widths):
             setattr(self, f'fc{i}', nn.Linear(c, w, bias=False))
@@ -102,10 +111,14 @@ class FCStack(nn.Module):
             c = w
         self.out = nn.Linear(c, out_features) if out_features else None
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, rng=None):
         for i in range(self.n):
             x = getattr(self, f'fc{i}')(x)
             x = torch.relu(getattr(self, f'bn{i}')(x, mask))
+            if self.training and self.dp_ratio > 0 and i != self.n - 1:
+                keep_p = 1.0 - self.dp_ratio
+                keep = rng.uniform(x.shape, x.device) < keep_p
+                x = torch.where(keep, x / keep_p, torch.zeros_like(x))
         return self.out(x) if self.out is not None else x
 
 
@@ -189,17 +202,18 @@ class TEDMHead(nn.Module):
             pooled_c[name] = total * pool_cfg.GRID_SIZE ** 3
         shared = tuple(cfg.SHARED_FC)
         hid = shared[-1]
-        self.shared_fc = FCStack(pooled_c['pool'], shared)
-        self.shared_fc_mm = FCStack(pooled_c['pool_mm'], shared)
+        dp = cfg.DP_RATIO
+        self.shared_fc = FCStack(pooled_c['pool'], shared, dp_ratio=dp)
+        self.shared_fc_mm = FCStack(pooled_c['pool_mm'], shared, dp_ratio=dp)
         self.cross_attn = CrossAttention(hid)
         self.cross_attn_mm = CrossAttention(hid)
         cs = code_size * num_class
-        self.cls_head = FCStack(4 * hid, cfg.CLS_FC, num_class)
-        self.reg_head = FCStack(4 * hid, cfg.REG_FC, cs)
-        self.cls_head_pi = FCStack(2 * hid, cfg.CLS_FC, num_class)
-        self.reg_head_pi = FCStack(2 * hid, cfg.REG_FC, cs)
-        self.cls_head_p = FCStack(2 * hid, cfg.CLS_FC, num_class)
-        self.reg_head_p = FCStack(2 * hid, cfg.REG_FC, cs)
+        self.cls_head = FCStack(4 * hid, cfg.CLS_FC, num_class, dp)
+        self.reg_head = FCStack(4 * hid, cfg.REG_FC, cs, dp)
+        self.cls_head_pi = FCStack(2 * hid, cfg.CLS_FC, num_class, dp)
+        self.reg_head_pi = FCStack(2 * hid, cfg.REG_FC, cs, dp)
+        self.cls_head_p = FCStack(2 * hid, cfg.CLS_FC, num_class, dp)
+        self.reg_head_p = FCStack(2 * hid, cfg.REG_FC, cs, dp)
         self.use_part = cfg.get('PART', None) is not None
         if self.use_part:
             self.part_conv1 = DenseConvBlock(bev_channels, cfg.PART.IN_CHANNEL)
@@ -263,11 +277,18 @@ class TEDMHead(nn.Module):
         return flat.reshape(b, n, -1)
 
     def forward(self, feats_lidar, feats_mm, strides, proposals, bev_feats,
-                transform_params, bf16: bool = True):
+                transform_params, bf16: bool = True, gt_boxes=None,
+                gt_valid=None, rng=None):
         """feats_lidar / feats_mm: multi-scale SparseTensors (entries
         b * n_replicas + i); proposals from the anchor head; bev_feats
-        (B, H, W, C); transform_params (B, n_replicas, 3) or None."""
+        (B, H, W, C); transform_params (B, n_replicas, 3) or None. Train
+        mode: gt_boxes (B, M, 8) / gt_valid (B, M), ``rng`` the step's
+        draws; the output adds the per-stage ``stage_targets`` of
+        ``loss``."""
+        train = self.training
         rois = proposals['rois'][..., :7]
+        roi_scores = proposals['roi_scores']
+        roi_labels = proposals['roi_labels']
         roi_valid = proposals['roi_valid']
         b = rois.shape[0]
         n_rep = transform_params.shape[1] if transform_params is not None \
@@ -280,7 +301,7 @@ class TEDMHead(nn.Module):
             parts_feat = self.part_conv2(x.permute(0, 3, 1, 2)).permute(
                 0, 2, 3, 1)
         tables = {}
-        all_preds, all_scores = [], []
+        all_preds, all_scores, stage_targets = [], [], []
         hist, hist_mm = [], []
 
         def per_sample(fn, boxes):
@@ -293,6 +314,18 @@ class TEDMHead(nn.Module):
                 rois = per_sample(lambda bx, p: tr.transform_boxes(
                     tr.transform_boxes(bx, p[prev], inverse=True), p[cur]),
                     rois)
+            tgt = None
+            if train:
+                stage_cfg = self.cfg.TARGET_CONFIG.get(
+                    f'STAGE{i}', self.cfg.TARGET_CONFIG.STAGE0)
+                tgt = proposal_targets(rng, rois, roi_scores, roi_labels,
+                                       gt_boxes, gt_valid, stage_cfg)
+                rois = tgt['rois'][..., :7]
+                roi_labels = tgt['roi_labels']
+                roi_valid = torch.ones(rois.shape[:2], dtype=torch.bool,
+                                       device=rois.device)
+            if i >= 1 and transform_params is not None:
+                cur = min(i, n_rep - 1)
                 rois_score = per_sample(lambda bx, p: tr.transform_boxes(
                     tr.transform_boxes(bx, p[cur], inverse=True), p[0]),
                     rois)
@@ -310,22 +343,29 @@ class TEDMHead(nn.Module):
                 'pool_mm', self.cfg.ROI_GRID_POOL_MM, feats_mm, strides,
                 rois, roi_valid, entry, tables, bf16)
 
-            shared = self.shared_fc(pooled, pmask)[None]
+            shared = self.shared_fc(pooled, pmask, rng)[None]
             hist.append(shared)
             cur = self.cross_attn(torch.cat(hist, 0), shared)
             cur = torch.cat([cur, shared], -1)[0]
-            shared_mm = self.shared_fc_mm(pooled_mm, pmask)[None]
+            shared_mm = self.shared_fc_mm(pooled_mm, pmask, rng)[None]
             hist_mm.append(shared_mm)
             cur_mm = self.cross_attn_mm(torch.cat(hist_mm, 0), shared_mm)
             cur_mm = torch.cat([cur_mm, shared_mm], -1)[0]
 
             final = torch.cat([cur_mm, cur], -1)
-            rcnn_cls = self.cls_head(final, pmask)
-            rcnn_reg = self.reg_head(final, pmask)
-            if part_scores is not None:
-                rcnn_cls = rcnn_cls + part_scores
-            boxes = self.decode_boxes(rois, rcnn_reg)
-            scores = rcnn_cls.reshape(b, -1, self.num_class)
+            heads = {'': (self.cls_head, self.reg_head, final)}
+            if train:
+                heads['_pi'] = (self.cls_head_pi, self.reg_head_pi, cur_mm)
+                heads['_p'] = (self.cls_head_p, self.reg_head_p, cur)
+            preds = {}
+            for br, (cls_head, reg_head, feat) in heads.items():
+                cls = cls_head(feat, pmask, rng)
+                preds[f'rcnn_reg{br}'] = reg_head(feat, pmask, rng)
+                if part_scores is not None:
+                    cls = cls + part_scores
+                preds[f'rcnn_cls{br}'] = cls
+            boxes = self.decode_boxes(rois, preds['rcnn_reg'])
+            scores = preds['rcnn_cls'].reshape(b, -1, self.num_class)
             outs = boxes
             if transform_params is not None:
                 cur_p = min(i, n_rep - 1)
@@ -333,7 +373,73 @@ class TEDMHead(nn.Module):
                     bx, p[cur_p], inverse=True), boxes)
             all_preds.append(outs)
             all_scores.append(scores)
+            if train:
+                stage_targets.append({'targets': tgt, 'rois': rois, **preds})
             rois = boxes
-        return {'batch_box_preds': torch.stack(all_preds).mean(0),
-                'batch_cls_preds': torch.stack(all_scores).mean(0),
-                'roi_valid': roi_valid}
+            roi_scores = scores.squeeze(-1)
+        out = {'batch_box_preds': torch.stack(all_preds).mean(0),
+               'batch_cls_preds': torch.stack(all_scores).mean(0),
+               'roi_valid': roi_valid}
+        if train:
+            out['stage_targets'] = stage_targets
+        return out
+
+    def loss(self, stage_targets, loss_weights, code_weights):
+        """Cascade loss over stages and the three branches (fused 1.0,
+        multimodal-only and LiDAR-only 0.5 each). Returns (total, tb)."""
+        total = 0.0
+        tb = {}
+        for s, st_t in enumerate(stage_targets):
+            tgt = st_t['targets']
+            for branch, w in (('', 1.0), ('_pi', 0.5), ('_p', 0.5)):
+                c = self._cls_loss(st_t[f'rcnn_cls{branch}'], tgt) \
+                    * loss_weights['rcnn_cls_weight']
+                r, terms = self._reg_loss(st_t[f'rcnn_reg{branch}'],
+                                          st_t['rois'], tgt, loss_weights,
+                                          code_weights)
+                total = total + w * (c + r)
+                if branch == '':
+                    for name, val in terms.items():
+                        tb[f'rcnn_reg_{name}_s{s}'] = val
+            tb[f'rcnn_cls_s{s}'] = self._cls_loss(st_t['rcnn_cls'], tgt)
+        tb['rcnn_loss'] = total
+        return total, tb
+
+    @staticmethod
+    def _cls_loss(rcnn_cls, tgt):
+        labels = tgt['rcnn_cls_labels'].reshape(-1)
+        logits = rcnn_cls.reshape(-1)
+        bce = (torch.clamp(logits, min=0) - logits * labels
+               + torch.log1p(torch.exp(-logits.abs())))
+        valid = (labels >= 0).float()
+        return (bce * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+    def _reg_loss(self, rcnn_reg, rois, tgt, loss_weights, code_weights):
+        from ..dense_heads.anchor_head import weighted_smooth_l1
+        code = self.code_size
+        gt_ct = tgt['gt_of_rois'][..., :code].reshape(-1, code)
+        fg = (tgt['reg_valid_mask'].reshape(-1) > 0).float()
+        fg_sum = torch.clamp(fg.sum(), min=1.0)
+        flat = rois.reshape(-1, code)
+        zero = torch.zeros_like(flat[:, 0:3])
+        rois_anchor = torch.cat([zero, flat[:, 3:6], zero[:, :1],
+                                 flat[:, 7:]], -1)
+        reg_targets = self.coder.encode(gt_ct, rois_anchor)
+        l1 = weighted_smooth_l1(rcnn_reg[None], reg_targets[None], fg[None],
+                                code_weights=code_weights)
+        l1_term = l1.sum() / fg_sum * loss_weights['rcnn_reg_weight']
+        # decode every row (static shapes), with the reg of background rows
+        # zeroed so a wild exp() there cannot reach the masked sum as NaN
+        reg_fg = rcnn_reg.reshape(-1, code) * fg[:, None]
+        dec = self.decode_boxes(rois.reshape(1, -1, code),
+                                reg_fg.reshape(1, -1, code))[0]
+        gt_src = tgt['gt_of_rois_src'][..., :code].reshape(-1, code)
+        corner = box_ops.corner_loss(dec, gt_src)
+        corner_term = (corner * fg).sum() / fg_sum \
+            * loss_weights['rcnn_corner_weight']
+        canon = self.coder.decode(reg_fg, rois_anchor)
+        bb_term = (box_ops.bb_loss(canon, gt_ct) * fg).sum() / (fg.sum()
+                                                                 + 1.0)
+        return l1_term + corner_term + bb_term, {
+            'l1': l1_term, 'corner': corner_term, 'bb': bb_term,
+            'fg': fg.sum()}

@@ -1,12 +1,14 @@
-"""Voxel-query ROI grid pooling (eval). Counterpart of
+"""Voxel-query ROI grid pooling. Counterpart of
 ``virconv_tpu/models/roi_heads/voxel_pool.py``.
 
 Two branches select the same voxels: the per-query probe path
 (``voxel_query_groups``: a packed-occupancy window probe, first ``nsample``
 in-radius hits in (dz, dy, dx) scan order) and the ROI-local pooling kernel
-(ops/roi_pool.py). The kernel runs whenever its plan's capacity caps hold;
-at stride 8 (x_conv4) they normally do, at stride 4 (x_conv3) they normally
-do not and the probe path runs.
+(ops/roi_pool.py). At eval the kernel runs whenever its plan's capacity caps
+hold; at stride 8 (x_conv4) they normally do, at stride 4 (x_conv3) they
+normally do not and the probe path runs. Training always takes the probe
+path, with batch-statistics BN (the position BN from algebraic moments of
+the 3-wide relative positions) and plain autograd gathers.
 """
 
 from __future__ import annotations
@@ -230,6 +232,9 @@ class NeighborVoxelSAModule(nn.Module):
         specs = tuple((self.query_ranges[g], self.radii[g], self.nsamples[g])
                       for g in range(len(self.query_ranges)))
         n_g = len(specs)
+        if self.training:
+            return self._train_pool(st, stride, query_xyz, query_coords,
+                                    query_mask, table_fn, specs)
         feats_g, w_eff, b_eff = [], [], []
         for g in range(n_g):
             f = getattr(self, f'mlp_in{g}')(st.feats)
@@ -282,3 +287,55 @@ class NeighborVoxelSAModule(nn.Module):
             x = torch.where(valid[..., None], x, torch.zeros_like(x))
             outs.append(x.amax(1))
         return torch.stack(outs)
+
+    def _train_pool(self, st, stride, query_xyz, query_coords, query_mask,
+                    table_fn, specs):
+        """Train-mode pooling: the probe selects (no gradient), then per
+        group the gathered features plus the batch-normalized position
+        encoding, ReLU, max over the samples."""
+        tbl = table_fn() if table_fn is not None else build_pool_tables(st)
+        with torch.no_grad():
+            queries = voxel_query_groups(st, tbl, query_xyz.detach(),
+                                         query_coords, query_mask, specs,
+                                         self.voxel_size, stride,
+                                         self.point_cloud_range)
+        outs = []
+        for g, (idx, valid, centers) in enumerate(queries):
+            f = getattr(self, f'mlp_in{g}')(st.feats)
+            f = getattr(self, f'mlp_in_bn{g}')(f, st.mask)
+            x = self._group_body(g, f, idx, valid, centers, query_xyz,
+                                 query_mask)
+            x = getattr(self, f'mlp_out{g}')(x)
+            outs.append(torch.relu(getattr(self, f'mlp_out_bn{g}')(
+                x, query_mask)))
+        return torch.cat(outs, -1)
+
+    def _group_body(self, g, feats, idx, valid, centers, query_xyz,
+                    query_mask):
+        """Gather, position-encode and max-reduce one group (M, mid). The
+        position BN's batch moments come algebraically from the (M, S, 3)
+        relative positions (pos = rel @ W is linear in rel): mean =
+        mean(rel) @ W and var = diag(W^T cov(rel) W), over the samples of
+        valid queries, as the JAX package computes them. The rows are
+        gathered with ``index_select``, whose backward is an ``index_add_``
+        (atomic adds): the backward of ``feats[idx]`` (a sort-based
+        ``index_put_``) serializes the many queries of one voxel and took
+        13 of the 16.7 s of a full-width step on an H100."""
+        w_pos = getattr(self, f'mlp_pos{g}').kernel
+        rel = (centers - query_xyz[:, None, :]) * valid[..., None]
+        qm = query_mask[:, None] & torch.ones_like(valid)
+        qmf = qm[..., None].to(rel.dtype)
+        cnt = torch.clamp(qm.sum().float(), min=1.0)
+        mean_rel = (rel * qmf).reshape(-1, 3).sum(0) / cnt
+        rc = ((rel - mean_rel) * qmf).reshape(-1, 3)
+        var = torch.clamp(torch.einsum('ic,ic->c', w_pos,
+                                       (rc.T @ rc / cnt) @ w_pos), min=0.0)
+        mult, bias = getattr(self, f'mlp_pos_bn{g}').fold_moments(
+            mean_rel @ w_pos, var, cnt)
+        pos = rel @ (w_pos * mult) + bias
+        pos = torch.where(qm[..., None], pos, torch.zeros_like(pos))
+        rows = feats.index_select(0, idx.reshape(-1)).reshape(
+            *idx.shape, feats.shape[1])
+        x = torch.relu(rows * valid[..., None].to(feats.dtype) + pos)
+        x = torch.where(valid[..., None], x, torch.zeros_like(x))
+        return x.amax(1)

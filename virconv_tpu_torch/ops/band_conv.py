@@ -1,5 +1,5 @@
-"""Band-window sparse convolution: plan, plain PyTorch version and the CUDA
-kernel wrapper.
+"""Band-window sparse convolution: plan, plain PyTorch versions and the CUDA
+kernel wrappers of the forward (K1) and the weight gradient (K4).
 
 Replaces ``virconv_tpu/ops/pallas/band_conv.py::_kernel`` (driver
 ``band_conv``). Rows are sorted by the (b, y, x, z) key, so the neighbors of
@@ -18,6 +18,12 @@ source (callers zero the other rows of a run, as the JAX package does).
 ``out = epilogue(sum_k feats[src_k] @ W[k])`` with epilogue = affine, ReLU,
 times row-valid bit. ``bf16`` rounds feats and W to bf16 before the f32
 multiply-add, as the TPU kernel's bf16 operands do.
+
+The weight gradient (``band_conv_dw``, replacing ``_dw_kernel``) uses the
+same sources: ``dW[k] = sum over rows r with a tap-k source s of
+feats[s]^T (g[r] * row_valid[r])``, with an optional ``valid_bits``
+override (callers zero the rows of non-fitting tiles and add those rows'
+exact contribution from the gather patch).
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import torch
 
 from .sparse import INVALID_KEY, ROW_VALID_BIT
 
-# kernel launches (CUDA tensors only), reset and read by chip_smoke.py
+# kernel launches (CUDA tensors only) of K1 and K4, reset and read by
+# chip_smoke.py
 launches = 0
+dw_launches = 0
 
 
 class BandPlan(NamedTuple):
@@ -100,33 +108,40 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
-                    bias=None, relu=False, bf16=True):
-    """Plain PyTorch version of the kernel contract (module docstring)."""
+def _tap_sources(keys, plan: BandPlan, valid_bits, n_in):
+    """Per tap: (src, hit) over the n_tiles * tile plan rows -- the
+    lower-bound row of the tap's key in the tile's window, and whether the
+    tap bit is set and the key is there."""
     tile, block = plan.tile, plan.block
-    n_in = feats.shape[0]
     n_tiles = plan.base_keys.shape[0]
-    dev = feats.device
-    f = feats.float()
-    w = weights.float()
-    if bf16:
-        f, w = _bf16(f), _bf16(w)
     keys_p = torch.cat([keys, torch.full((block,), INVALID_KEY,
-                                         dtype=torch.int32, device=dev)])
-    q = plan.base_keys.long()                                 # (nt, T)
-    row_ok = ((plan.valid_bits >> ROW_VALID_BIT) & 1).float()
-    out = torch.zeros((n_tiles * tile, w.shape[2]), dtype=torch.float32,
-                      device=dev)
+                                         dtype=torch.int32,
+                                         device=keys.device)]).long()
+    q = plan.base_keys.long()
+    bits = valid_bits.reshape(-1)
     for t, (d, g) in enumerate(zip(plan.deltas, plan.group_of)):
         qk = (q + d).reshape(-1)
         ws = (plan.blk[:, g].long() * block)[:, None].expand(
             n_tiles, tile).reshape(-1)
         we = torch.clamp(ws + 2 * block, max=n_in)
-        pos = torch.searchsorted(keys_p.long(), qk)
-        pos = torch.minimum(torch.maximum(pos, ws), we)
-        bit = ((plan.valid_bits.reshape(-1) >> t) & 1) == 1
-        hit = bit & (pos < we) & (keys_p[pos].long() == qk)
-        src = torch.where(hit, pos, torch.zeros_like(pos))
+        pos = torch.minimum(torch.maximum(torch.searchsorted(keys_p, qk),
+                                          ws), we)
+        hit = (((bits >> t) & 1) == 1) & (pos < we) & (keys_p[pos] == qk)
+        yield torch.where(hit, pos, torch.zeros_like(pos)), hit
+
+
+def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
+                    bias=None, relu=False, bf16=True):
+    """Plain PyTorch version of the kernel contract (module docstring)."""
+    f = feats.float()
+    w = weights.float()
+    if bf16:
+        f, w = _bf16(f), _bf16(w)
+    row_ok = ((plan.valid_bits >> ROW_VALID_BIT) & 1).float()
+    out = torch.zeros((plan.base_keys.numel(), w.shape[2]),
+                      dtype=torch.float32, device=feats.device)
+    for t, (src, hit) in enumerate(_tap_sources(keys, plan, plan.valid_bits,
+                                                feats.shape[0])):
         out += (f[src] * hit[:, None].float()) @ w[t]
     if scale is not None:
         out = out * scale + bias
@@ -134,6 +149,25 @@ def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
         out = torch.relu(out)
     out = out * row_ok.reshape(-1, 1)
     return out[:plan.n_out]
+
+
+def band_conv_dw_plain(feats, keys, plan: BandPlan, g, valid_bits=None,
+                       bf16=True):
+    """Plain PyTorch version of the weight-gradient contract: (K, C, C')
+    f32 (module docstring)."""
+    vb = plan.valid_bits if valid_bits is None else valid_bits
+    f = feats.float()
+    n_rows = plan.base_keys.numel()
+    row_ok = ((vb.reshape(-1) >> ROW_VALID_BIT) & 1).float()
+    gp = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32,
+                     device=g.device)
+    gp[:plan.n_out] = g.float()
+    gp = gp * row_ok[:, None]
+    if bf16:
+        f, gp = _bf16(f), _bf16(gp)
+    return torch.stack([(f[src] * hit[:, None].float()).T @ gp
+                        for src, hit in _tap_sources(keys, plan, vb,
+                                                     feats.shape[0])])
 
 
 def band_conv(feats, keys, plan: BandPlan, weights, scale=None, bias=None,
@@ -147,8 +181,18 @@ def band_conv(feats, keys, plan: BandPlan, weights, scale=None, bias=None,
                            bf16)
 
 
+def band_conv_dw(feats, keys, plan: BandPlan, g, valid_bits=None,
+                 bf16: bool = True):
+    """Weight gradient of a band conv, (K, C, C') f32: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not feats.is_cuda:
+        return band_conv_dw_plain(feats, keys, plan, g, valid_bits, bf16)
+    return _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16)
+
+
 # CUDA kernel limits (csrc/band_conv.cu): one thread per output row.
 MAX_TAPS, MAX_TILE, MAX_CIN = 27, 256, 128
+DW_TILES_PER_CHUNK = 16
 _geometry_cache = {}
 
 
@@ -218,4 +262,59 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
     if err != 0:
         raise RuntimeError(f'band_conv_fwd launch failed: CUDA error {err}')
     launches += 1
+    return out
+
+
+def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
+    """Launch ``band_conv_dw`` (csrc/band_conv.cu): per (tap, 64 input x 16
+    output channel slab, chunk of DW_TILES_PER_CHUNK tiles) one CTA sums the
+    outer products of its hit rows in registers into a partial; a second
+    kernel adds the partials in chunk order.
+
+    Replaces virconv_tpu/ops/pallas/band_conv.py::_dw_kernel, whose single
+    resident (K*C, C') accumulator over a sequential grid has no
+    counterpart across unordered CTAs. Bound: 2*C*C' flops per (row, tap)
+    hit against one gathered feats row and one g row, so compute-bound in
+    principle; this version runs f32 FMAs on CUDA cores, re-gathers each
+    row once per output-channel slab, and moves the partials (chunks x K x
+    C x C' floats) through memory once."""
+    global dw_launches
+    from . import _cuda
+    dev = feats.device
+    n_in, c_in = feats.shape
+    k = len(plan.deltas)
+    c_out = g.shape[1]
+    vb = plan.valid_bits if valid_bits is None else valid_bits
+    _cuda.check_cuda_tensor(feats, 'feats', torch.float32, 2)
+    _cuda.check_cuda_tensor(keys, 'keys', torch.int32, 1, dev)
+    _cuda.check_cuda_tensor(g, 'g', torch.float32, 2, dev)
+    for name, t in (('base_keys', plan.base_keys), ('valid_bits', vb),
+                    ('blk', plan.blk)):
+        _cuda.check_cuda_tensor(t, name, torch.int32, 2, dev)
+    if keys.shape[0] != n_in or g.shape[0] != plan.n_out \
+            or vb.shape != plan.base_keys.shape:
+        raise ValueError('band_conv_dw: inconsistent feats/keys/g/plan')
+    if k > MAX_TAPS or plan.tile > MAX_TILE:
+        raise ValueError(f'band_conv_dw kernel limits: K={k} '
+                         f'tile={plan.tile}')
+    n_tiles = plan.base_keys.shape[0]
+    n_chunks = -(-n_tiles // DW_TILES_PER_CHUNK)
+    partial = torch.empty((max(n_chunks, 1), k, c_in, c_out),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((k, c_in, c_out), dtype=torch.float32, device=dev)
+    lib = _cuda.load('band_conv')
+    fn = lib.band_conv_dw
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 3)
+    err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
+             _cuda.ptr(vb), _cuda.ptr(plan.blk), _cuda.ptr(g),
+             n_in, c_in, c_out, k, max(plan.group_of) + 1,
+             _cuda.ptr(_geometry(plan, dev)), int(bf16), plan.tile,
+             plan.block, n_tiles, plan.n_out, DW_TILES_PER_CHUNK,
+             _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f'band_conv_dw launch failed: CUDA error {err}')
+    dw_launches += 1
     return out

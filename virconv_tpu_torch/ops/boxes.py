@@ -1,8 +1,10 @@
-"""Box geometry on tensors (eval subset): rotated BEV overlap by Green's
-theorem, greedy rotated NMS and the residual box coder. Counterpart of
-``virconv_tpu/ops/boxes.py``; boxes are (x, y, z, dx, dy, dz, heading) in
-the LiDAR frame. All products are elementwise f32 (no matmuls), which keeps
-the parallel-edge tests of the overlap exact on every device."""
+"""Box geometry on tensors: rotated BEV overlap by Green's theorem, 3D IoU,
+greedy rotated NMS, the residual box coder and the box losses of training
+(corner loss, bb loss). Counterpart of ``virconv_tpu/ops/boxes.py``; boxes
+are (x, y, z, dx, dy, dz, heading) in the LiDAR frame. All products are
+elementwise f32 (no matmuls), which keeps the parallel-edge tests of the
+overlap exact on every device. Everything is differentiable where the JAX
+version is (training backpropagates through the proposals)."""
 
 from __future__ import annotations
 
@@ -42,6 +44,17 @@ def boxes_to_corners_bev(boxes):
     x = corners[..., 0] * cosa - corners[..., 1] * sina
     y = corners[..., 0] * sina + corners[..., 1] * cosa
     return torch.stack([x, y], -1) + boxes[:, None, 0:2]
+
+
+def boxes_to_corners_3d(boxes):
+    """All 8 corners (N, 8, 3), in the reference box_utils order."""
+    template = torch.tensor([
+        [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+        [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1],
+    ], dtype=boxes.dtype, device=boxes.device) / 2.0
+    corners = boxes[:, None, 3:6] * template[None]
+    corners = rotate_points_along_z(corners, boxes[:, 6])
+    return corners + boxes[:, None, 0:3]
 
 
 def _rect_halfplanes(boxes):
@@ -111,6 +124,21 @@ def boxes_iou_bev(boxes_a, boxes_b, row_chunk: int | None = None):
     return inter / torch.clamp(area_a + area_b - inter, min=EPS)
 
 
+def boxes_iou3d(boxes_a, boxes_b):
+    """Pairwise 3D IoU (N, M): BEV overlap x z overlap / union."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    za1 = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    za2 = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    zb1 = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    zb2 = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    zi = torch.clamp(torch.minimum(za2[:, None], zb2[None])
+                     - torch.maximum(za1[:, None], zb1[None]), min=0.0)
+    inter = inter_bev * zi
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=EPS)
+
+
 def nms_bev(boxes, scores, thresh: float, pre_max: int, post_max: int,
             valid=None, num_iters: int = 8):
     """Rotated NMS by fixed-point suppression (``virconv_tpu.ops.boxes.
@@ -148,11 +176,27 @@ def nms_bev(boxes, scores, thresh: float, pre_max: int, post_max: int,
 
 
 class ResidualCoder:
-    """Anchor-residual box decoder (with the JAX package's symmetric
-    log-dim clamp at +-10)."""
+    """Anchor-residual box coder (with the JAX package's symmetric log-dim
+    clamp at +-10 in the decoder)."""
 
     def __init__(self, code_size=7):
         self.code_size = code_size
+
+    def encode(self, boxes, anchors):
+        anchors = torch.cat([anchors[..., :3],
+                             torch.clamp(anchors[..., 3:6], min=1e-5),
+                             anchors[..., 6:]], -1)
+        boxes = torch.cat([boxes[..., :3],
+                           torch.clamp(boxes[..., 3:6], min=1e-5),
+                           boxes[..., 6:]], -1)
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, -1)
+        xg, yg, zg, dxg, dyg, dzg, rg = torch.split(boxes[..., :7], 1, -1)
+        diag = torch.sqrt(dxa ** 2 + dya ** 2)
+        cts = [boxes[..., 7 + i:8 + i] - anchors[..., 7 + i:8 + i]
+               for i in range(boxes.shape[-1] - 7)]
+        return torch.cat([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+                          torch.log(dxg / dxa), torch.log(dyg / dya),
+                          torch.log(dzg / dza), rg - ra, *cts], -1)
 
     def decode(self, encodings, anchors):
         xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, -1)
@@ -169,3 +213,45 @@ class ResidualCoder:
         cgs = [encodings[..., self.code_size + i:self.code_size + i + 1]
                + anchors[..., 7 + i:8 + i] for i in range(rest)]
         return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], -1)
+
+
+def corner_loss(pred_boxes, gt_boxes):
+    """Per-box Huber (delta 1) of the corner distances to the gt box or its
+    heading-flipped twin, whichever is nearer, averaged over corners."""
+    pred_c = boxes_to_corners_3d(pred_boxes)
+    gt_c = boxes_to_corners_3d(gt_boxes)
+    gt_flip = torch.cat([gt_boxes[:, :6], gt_boxes[:, 6:7] + math.pi,
+                         gt_boxes[:, 7:]], -1)
+    gt_cf = boxes_to_corners_3d(gt_flip)
+    d = torch.minimum(torch.linalg.norm(pred_c - gt_c, dim=-1),
+                      torch.linalg.norm(pred_c - gt_cf, dim=-1))
+    abs_d = d.abs()
+    loss = torch.where(abs_d < 1.0, 0.5 * d ** 2, abs_d - 0.5)
+    return loss.mean(1)
+
+
+def _axis_overlap_ratio(c1, w1, c2, w2):
+    """1D overlap / total span of two centered intervals."""
+    hi = torch.minimum(c1 + w1 / 2, c2 + w2 / 2)
+    lo = torch.maximum(c1 - w1 / 2, c2 - w2 / 2)
+    span_hi = torch.maximum(c1 + w1 / 2, c2 + w2 / 2)
+    span_lo = torch.minimum(c1 - w1 / 2, c2 - w2 / 2)
+    return torch.clamp(hi - lo, min=0.0) / torch.clamp(span_hi - span_lo,
+                                                       min=EPS)
+
+
+def bb_loss(pred_boxes, gt_boxes):
+    """Per-box loss of the rcnn reg branch: 1 - (product of per-axis overlap
+    ratios x (1 - |sin dr|)) + 1.25 (1 - |cos dr|) + squared center
+    distance, all x 1.5."""
+    iou = (_axis_overlap_ratio(pred_boxes[:, 0], pred_boxes[:, 3],
+                               gt_boxes[:, 0], gt_boxes[:, 3])
+           * _axis_overlap_ratio(pred_boxes[:, 1], pred_boxes[:, 4],
+                                 gt_boxes[:, 1], gt_boxes[:, 4])
+           * _axis_overlap_ratio(pred_boxes[:, 2], pred_boxes[:, 5],
+                                 gt_boxes[:, 2], gt_boxes[:, 5]))
+    dr = pred_boxes[:, 6] - gt_boxes[:, 6]
+    iou = iou * (1.0 - torch.sin(dr).abs())
+    angle_factor = 1.25 * (1.0 - torch.cos(dr).abs())
+    center_sq = ((gt_boxes[:, 0:3] - pred_boxes[:, 0:3]) ** 2).sum(-1)
+    return (1.0 - iou + angle_factor + center_sq) * 1.5

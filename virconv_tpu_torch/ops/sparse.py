@@ -1,5 +1,7 @@
 """Sparse voxel tensor substrate (PyTorch counterpart of
-``virconv_tpu/ops/sparse.py``, eval path).
+``virconv_tpu/ops/sparse.py``): eval conv contexts and the training ones
+(band conv with a K1 + K4 backward, neighbor-map convs with a gather-only
+backward).
 
 A sparse tensor is a fixed-capacity triple:
 
@@ -108,6 +110,34 @@ def sort_by_key(st: SparseTensor) -> SparseTensor:
     return sort_by_key_with_perm(st)[0]
 
 
+def dedup_sorted(st: SparseTensor) -> SparseTensor:
+    """Drop duplicate-key rows of an already-sorted tensor (keep first)."""
+    keys = st.keys()
+    is_first = torch.ones_like(keys, dtype=torch.bool)
+    is_first[1:] = keys[1:] != keys[:-1]
+    new_mask = st.mask & is_first
+    return st.replace(mask=new_mask,
+                      coords=torch.where(new_mask[:, None], st.coords,
+                                         torch.full_like(st.coords, -1)),
+                      feats=torch.where(new_mask[:, None], st.feats,
+                                        torch.zeros_like(st.feats)))
+
+
+def compact_sorted(st: SparseTensor, capacity: int) -> SparseTensor:
+    """Re-sort (invalid rows last) and truncate or pad to ``capacity``."""
+    st = sort_by_key(st)
+    n = st.capacity
+    if capacity <= n:
+        return st.replace(feats=st.feats[:capacity],
+                          coords=st.coords[:capacity],
+                          mask=st.mask[:capacity])
+    pad = capacity - n
+    return st.replace(
+        feats=torch.nn.functional.pad(st.feats, (0, 0, 0, pad)),
+        coords=torch.nn.functional.pad(st.coords, (0, 0, 0, pad), value=-1),
+        mask=torch.nn.functional.pad(st.mask, (0, pad)))
+
+
 def lookup(sorted_keys, query_keys):
     """Row index of each query key in a sorted key array, -1 if absent.
     Duplicate keys resolve to the first row of their run."""
@@ -188,19 +218,62 @@ def build_subm_neighbor_map(st: SparseTensor, kernel_size):
     return make_lookup(st)(nkey.reshape(-1)).reshape(nkey.shape)
 
 
+def _gather(feats, idx):
+    """feats rows at ``idx``, zero where idx is -1."""
+    return feats[idx.clamp(min=0).long()] * (idx >= 0)[:, None].to(
+        feats.dtype)
+
+
+def _gathered_conv_raw(feats, neighbor_map, weights):
+    out = None
+    for j in range(neighbor_map.shape[1]):
+        contrib = _gather(feats, neighbor_map[:, j]).float() \
+            @ weights[j].float()
+        out = contrib if out is None else out + contrib
+    return out
+
+
 def gathered_conv(feats, neighbor_map, weights, out_mask):
     """Sparse conv from a neighbor map: one gather + matmul per tap.
 
     feats (N_in, C), neighbor_map (N_out, K) with -1 = no contribution,
     weights (K, C, C'), out_mask (N_out,). Returns (N_out, C') float32."""
-    out = None
-    for j in range(neighbor_map.shape[1]):
-        idx = neighbor_map[:, j]
-        g = feats[idx.clamp(min=0).long()] * (idx >= 0)[:, None].to(
-            feats.dtype)
-        contrib = g.float() @ weights[j].float()
-        out = contrib if out is None else out + contrib
+    out = _gathered_conv_raw(feats, neighbor_map, weights)
     return out * out_mask[:, None].to(out.dtype)
+
+
+class _GatheredConvTrain(torch.autograd.Function):
+    """``gathered_conv`` with the gather-only backward of the JAX package's
+    ``gathered_conv_train``: dfeats is the transpose conv over the
+    transpose map, ``dfeats[p] = sum_k g[tmap[p, k]] @ W[k]^T``, and
+    ``dW[k] = gather_k(feats)^T @ g``; no scatter."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nmap, tmap, out_mask, in_mask):
+        ctx.save_for_backward(feats, weights, nmap, tmap, out_mask, in_mask)
+        return gathered_conv(feats, nmap, weights, out_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, w, nmap, tmap, out_mask, in_mask = ctx.saved_tensors
+        g = g * out_mask[:, None].to(g.dtype)
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            dfeats = _gathered_conv_raw(g, tmap, w.transpose(1, 2)) \
+                * in_mask[:, None].to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.stack([_gather(feats, nmap[:, j]).T @ g
+                              for j in range(nmap.shape[1])])
+        return dfeats, dw, None, None, None, None
+
+
+def gathered_conv_train(feats, weights, neighbor_map, transpose_map,
+                        out_mask, in_mask):
+    """Differentiable neighbor-map conv (see ``_GatheredConvTrain``).
+    ``transpose_map`` (N_in, K): the output row whose tap k reads each
+    input row, -1 if none."""
+    return _GatheredConvTrain.apply(feats, weights, neighbor_map,
+                                    transpose_map, out_mask, in_mask)
 
 
 def downsample_coords(st: SparseTensor, stride, padding, kernel_size,
@@ -295,6 +368,55 @@ def build_strided_neighbor_map(st_in, st_out, stride, padding, kernel_size):
         nkey = nkey + neigh[:, :, i] * s
     nkey = torch.where(ok, nkey, _full_like_invalid(nkey))
     return make_lookup(st_in)(nkey.reshape(-1)).reshape(nkey.shape)
+
+
+def build_strided_transpose_map(st_in, st_out, stride, padding,
+                                kernel_size):
+    """(N_in, K) map of the strided-conv transpose: the output row whose tap
+    k reads input row p, at ``(coords_in[p] + pad - offset_k) / stride``
+    when that division is exact and in bounds, else -1."""
+    ndim = st_in.ndim
+    stride = _triple(stride, ndim)
+    padding = _triple(padding, ndim)
+    kernel_size = _triple(kernel_size, ndim)
+    dev = st_in.coords.device
+    offsets = torch.as_tensor(_kernel_offsets(kernel_size, centered=False),
+                              device=dev)
+    num = (st_in.coords[:, None, 1:]
+           + torch.tensor(padding, dtype=torch.int32, device=dev)
+           - offsets[None])
+    sv = torch.tensor(stride, dtype=torch.int32, device=dev)
+    q = torch.div(num, sv, rounding_mode='floor')
+    ok = st_in.mask[:, None] & (num % sv == 0).all(-1) & (q >= 0).all(-1)
+    for i, s in enumerate(st_out.spatial_shape):
+        ok = ok & (q[:, :, i] < s)
+    strides_out, m = key_strides(st_out.spatial_shape)
+    qkey = st_in.coords[:, None, 0] * m
+    for i, s in enumerate(strides_out):
+        qkey = qkey + q[:, :, i] * s
+    qkey = torch.where(ok, qkey, _full_like_invalid(qkey))
+    return make_lookup(st_out)(qkey.reshape(-1)).reshape(qkey.shape)
+
+
+def nmap_subm_conv_ctx(st: SparseTensor, kernel_size):
+    """Training conv function ``conv(feats, weights)`` of a submanifold conv
+    on the neighbor map (any row order; the NRConv 2D image-plane tensor).
+    The transpose map of a centered kernel is the tap-reversed map."""
+    nmap = build_subm_neighbor_map(st, kernel_size)
+    tmap = nmap.flip(1)
+    return lambda feats, weights: gathered_conv_train(
+        feats, weights, nmap, tmap, st.mask, st.mask)
+
+
+def nmap_strided_conv_ctx(st_in, st_out, stride, padding, kernel_size):
+    """Training conv function ``conv(feats, weights)`` of a strided conv on
+    the neighbor map, with the transpose map for its backward."""
+    nmap = build_strided_neighbor_map(st_in, st_out, stride, padding,
+                                      kernel_size)
+    tmap = build_strided_transpose_map(st_in, st_out, stride, padding,
+                                       kernel_size)
+    return lambda feats, weights: gathered_conv_train(
+        feats, weights, nmap, tmap, st_out.mask, st_in.mask)
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +543,20 @@ def _band_patch(plan, lookup_fn, first_index=None, patch_cap=None,
     return idx, valid, pnmap, cnt, cap
 
 
+def _band_patched(feats, weights, keys, plan, patch, bf16, scale=None,
+                  bias=None, relu=False):
+    """Band kernel output with the rows of non-fitting tiles replaced by
+    the exact gather patch ``(pidx, pvalid, pnmap)``."""
+    from .band_conv import band_conv
+    pidx, pvalid, pnmap = patch
+    out = band_conv(feats, keys, plan, weights, scale=scale, bias=bias,
+                    relu=relu, bf16=bf16)
+    fix = _epilogue(gathered_conv(feats, pnmap, weights, pvalid), pvalid,
+                    scale, bias, relu)
+    out[pidx] = torch.where(pvalid[:, None], fix, out[pidx])
+    return out
+
+
 def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
               first_index=None, fraction=None):
     """The conv function of one (key set, geometry) context, shared by the
@@ -432,7 +568,6 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
     of tiles whose window does not fit. If the patch overflows (or the keys
     are unsorted) every conv of the context takes the full neighbor-map
     branch instead."""
-    from .band_conv import band_conv
     pidx, pvalid, pnmap, bad_cnt, pcap = _band_patch(
         plan, lambda qk: lookup(keys, qk), first_index, fraction=fraction)
     fast_ok = bool(plan.keys_sorted) and int(bad_cnt) <= pcap
@@ -443,13 +578,9 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
             src_sel, feats, torch.zeros_like(feats))
         if fast_ok:
             branch_counts['band'] += 1
-            out = band_conv(src, keys, plan, weights, scale=scale,
-                            bias=bias, relu=relu, bf16=bf16)
-            patch = _epilogue(gathered_conv(src, pnmap, weights, pvalid),
-                              pvalid, scale, bias, relu)
-            rows = out[pidx]
-            out[pidx] = torch.where(pvalid[:, None], patch, rows)
-            return out
+            return _band_patched(src, weights, keys, plan,
+                                 (pidx, pvalid, pnmap), bf16, scale, bias,
+                                 relu)
         branch_counts['nmap_slow'] += 1
         if slow_map[0] is None:
             slow_map[0] = slow_nmap()
@@ -458,17 +589,96 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
     return conv
 
 
+class _BandTrain(torch.autograd.Function):
+    """Exact submanifold band conv (K1 + gather patch), f32, with the
+    backward of the JAX package's ``_band_train``: the input gradient is the
+    same conv with tap-reversed, transposed weights ``W_T[k] = W[K-1-k]^T``
+    (offset_{K-1-k} == -offset_k, so plan, windows and patch are reused as
+    they are); the weight gradient is K4 over the rows of fitting tiles
+    (``bits_dw``) plus the patch rows' exact contribution."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, keys, plan, bits_dw, patch):
+        ctx.save_for_backward(feats, weights)
+        ctx.rest = keys, plan, bits_dw, patch
+        return _band_patched(feats, weights, keys, plan, patch, bf16=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .band_conv import band_conv_dw
+        feats, weights = ctx.saved_tensors
+        keys, plan, bits_dw, patch = ctx.rest
+        g = g.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = weights.flip(0).transpose(1, 2).contiguous()
+            dfeats = _band_patched(g, wt, keys, plan, patch, bf16=False)
+        if ctx.needs_input_grad[1]:
+            pidx, pvalid, pnmap = patch
+            dw = band_conv_dw(feats, keys, plan, g, valid_bits=bits_dw,
+                              bf16=False)
+            g_patch = g[pidx] * pvalid[:, None].to(g.dtype)
+            dw = dw + torch.stack([
+                _gather(feats, torch.where(pvalid, pnmap[:, j],
+                                           torch.full_like(pnmap[:, j], -1))
+                        ).T @ g_patch
+                for j in range(pnmap.shape[1])])
+        return dfeats, dw, None, None, None, None
+
+
+def _subm_conv_train_ctx(st, kernel_size, tile, block):
+    """Training conv function ``conv(feats, weights)`` of a 3D submanifold
+    conv: ``_BandTrain`` when the keys are sorted and the gather patch holds
+    every row of the non-fitting tiles, else the neighbor-map conv.
+
+    StVD leaves its dropped rows (INVALID keys) between valid ones; such a
+    tensor is convolved in key order and its rows are put back, so the
+    band kernels run where the JAX package's ctx would fall back to the
+    neighbor map (same values)."""
+    keys = st.keys()
+    if not bool((keys[1:] >= keys[:-1]).all()):
+        st_s, perm = sort_by_key_with_perm(st)
+        inv = torch.argsort(perm)
+        conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block)
+        return lambda feats, weights: conv_s(feats[perm], weights)[inv]
+    plan, keys = subm_band_plan(st, kernel_size, tile, block)
+    pidx, pvalid, pnmap, bad_cnt, pcap = _band_patch(
+        plan, lambda qk: lookup(keys, qk))
+    fast_ok = bool(plan.keys_sorted) and int(bad_cnt) <= pcap
+    bits_dw = torch.where(plan.fits[:, None], plan.valid_bits,
+                          torch.zeros_like(plan.valid_bits))
+    patch = (pidx, pvalid, pnmap)
+    slow = [None]
+
+    def conv(feats, weights):
+        if fast_ok:
+            branch_counts['band_train'] += 1
+            return _BandTrain.apply(feats, weights, keys, plan, bits_dw,
+                                    patch)
+        branch_counts['band_train_nmap'] += 1
+        if slow[0] is None:
+            slow[0] = nmap_subm_conv_ctx(st, kernel_size)
+        return slow[0](feats, weights)
+    return conv
+
+
 def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
                   block: int = 256, first_wins_sources: bool = False,
-                  bf16: bool = True):
-    """Eval conv function (see ``_band_ctx``) of a submanifold conv on
-    ``st`` (sorted by key).
+                  bf16: bool = True, train: bool = False):
+    """Conv function of a submanifold conv on ``st`` (sorted by key): eval
+    (see ``_band_ctx``), or with ``train`` the differentiable band conv
+    ``conv(feats, weights)`` in f32 (``_subm_conv_train_ctx``).
 
-    ``first_wins_sources``: for key sets with duplicates (the NRConv 2D
-    image-plane tensor) all but the first row of each key are zeroed as
-    sources, so the kernel's lower-bound search and the patch agree on one
-    representative per key."""
+    ``first_wins_sources`` (eval only): for key sets with duplicates (the
+    NRConv 2D image-plane tensor) all but the first row of each key are
+    zeroed as sources, so the kernel's lower-bound search and the patch
+    agree on one representative per key."""
     kernel_size = _triple(kernel_size, st.ndim)
+    if train:
+        if first_wins_sources:
+            raise ValueError('the band training conv takes no duplicate-key '
+                             'sources')
+        return _subm_conv_train_ctx(st, kernel_size, tile, block)
     plan, keys = subm_band_plan(st, kernel_size, tile, block)
     src_sel = first_index = None
     if first_wins_sources:

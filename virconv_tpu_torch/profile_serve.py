@@ -60,9 +60,10 @@ def main(argv=None):
     print(json.dumps(report, indent=1))
 
 
-def summarize(trace, wall_ms, top=15):
+def summarize(trace, wall_ms, top=15, stages=STAGES):
     """Device busy time (union of kernel intervals), per-stage host and
-    device spans, and the kernels with the most device time."""
+    device spans of the named ``stages``, and the kernels with the most
+    device time."""
     ev = trace['traceEvents'] if isinstance(trace, dict) else trace
     kernels = [e for e in ev if e.get('cat') == 'kernel']
     busy, end = 0.0, None
@@ -77,16 +78,17 @@ def summarize(trace, wall_ms, top=15):
     for e in kernels:
         by_name[e['name']][0] += e['dur'] / 1e3
         by_name[e['name']][1] += 1
-    stages = {}
+    spans = {}
     for e in ev:
-        if e.get('name') in STAGES and e.get('cat') in (
+        if e.get('name') in stages and e.get('cat') in (
                 'user_annotation', 'gpu_user_annotation'):
             side = 'host' if e['cat'] == 'user_annotation' else 'device'
-            stages.setdefault(e['name'], {})[side + '_ms'] = e['dur'] / 1e3
+            span = spans.setdefault(e['name'], {})
+            span[side + '_ms'] = span.get(side + '_ms', 0.0) + e['dur'] / 1e3
     return {
         'request_wall_ms': wall_ms, 'kernel_launches': len(kernels),
         'device_busy_ms': busy / 1e3, 'device_busy_share': busy / 1e3
-        / wall_ms, 'stages': stages,
+        / wall_ms, 'stages': spans,
         'top_kernels_ms_launches': sorted(
             ([n[:100], round(v[0], 3), v[1]] for n, v in by_name.items()),
             key=lambda x: -x[1])[:top]}

@@ -12,6 +12,10 @@ one layout rule per leaf kind:
   flipped (torch's transposed-conv kernel is the flip of flax's);
 * BN ``scale / bias / mean / var`` -> ``weight / bias / running_mean /
   running_var``.
+
+Every rule is linear (reshape, transpose, flip), so ``from_jax_variables(
+{'params': grads})`` carries a JAX gradient tree across too: it gives each
+port parameter the ``.grad`` the port should compute.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ def _convert_kernel(path, k):
 
 
 def from_jax_variables(variables) -> dict:
-    """Flax eval variables -> a state_dict of the port's VoxelRCNN."""
+    """Flax variables (or a gradient tree under 'params') -> a state_dict
+    of the port's VoxelRCNN."""
     sd = {}
     for path, v in _walk(variables['params']):
         name = path[-1]
