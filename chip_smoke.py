@@ -30,12 +30,20 @@ Phases (each prints one line; any failure exits non-zero):
   7. one training step of the tiny configuration on CUDA and on the CPU
      with the same weights and the same random draws (drawn once on the
      CPU), TF32 off: loss and every gradient compared;
+  8. the windowed gather convs K5 (``fused_gather_conv``, f32, tile 512)
+     and K6 (``onehot_gather_conv``, tile 256, block 2048) on the neighbor
+     maps of all 24 submanifold convs of one full-width request (captured
+     from a warm-up forward), once each with every launch count set to 0
+     just before and read just after; then per conv: kernel vs plain
+     (identical misses; K6 with bf16 and f32 operands), agreement with K1's
+     raw output on the rows of tiles with no misses, kernel, plain and K1
+     times, the bound; sums per request and misses per layer;
 then one JSON line of per-kernel numbers (times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
-requests and the phase 6 steps), the card's name and power limit, and the
-device JSON as the last line. Each phase prints its seconds. It needs the
-repository around it: alone, or without a CUDA device, it exits non-zero
-and prints no result.
+requests, the phase 6 steps and the phase 8 path), the card's name and
+power limit, and the device JSON as the last line. Each phase prints its
+seconds. It needs the repository around it: alone, or without a CUDA
+device, it exits non-zero and prints no result.
 """
 
 import json
@@ -51,6 +59,7 @@ N_REQUESTS = 3
 N_TRAIN_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
+K5_TILE, K6_TILE = 512, 256        # fused/onehot_gather_conv's default tiles
 
 
 def fail(msg):
@@ -300,6 +309,191 @@ def check_pool_case(name, args):
     return line
 
 
+class SubmCapture:
+    """Records every ``sparse.subm_conv_ctx`` call of one forward (its
+    sorted tensor, kernel size and whether duplicate keys take first-wins
+    sources) and the (feats, weights) of each conv made on it; the convs
+    still run."""
+
+    def __init__(self):
+        from virconv_tpu_torch.ops import sparse
+        self.contexts, self.convs = [], []
+        self._sp, self._orig = sparse, sparse.subm_conv_ctx
+
+    def __enter__(self):
+        orig = self._orig
+
+        def ctx(st, kernel_size, *a, **kw):
+            conv = orig(st, kernel_size, *a, **kw)
+            i = len(self.contexts)
+            self.contexts.append(
+                (st, kernel_size, kw.get('first_wins_sources', False)))
+
+            def recorded(feats, weights, *ca, **ckw):
+                self.convs.append((i, feats, weights.detach()))
+                return conv(feats, weights, *ca, **ckw)
+            return recorded
+        self._sp.subm_conv_ctx = ctx
+        return self
+
+    def __exit__(self, *exc):
+        self._sp.subm_conv_ctx = self._orig
+        return False
+
+
+def gather_layers(cap):
+    """The operands of each captured conv: its sources (for the 2D tensor
+    the non-first duplicate rows zeroed, as ``subm_conv_ctx`` does), the
+    neighbor map, K5's copies padded to its tile (zero rows, -1 map rows),
+    and K1's plan and keys of the same layer."""
+    import torch
+    from virconv_tpu_torch.ops import sparse as sp
+    per_ctx, layers = {}, []
+    for j, (i, feats, w) in enumerate(cap.convs):
+        st, ks, first_wins = cap.contexts[i]
+        if i not in per_ctx:
+            plan, keys = sp.subm_band_plan(st, ks)
+            sel = st.mask
+            if first_wins:
+                is_first = torch.ones_like(keys, dtype=torch.bool)
+                is_first[1:] = keys[1:] != keys[:-1]
+                sel = sel & is_first
+            per_ctx[i] = (plan, keys, sp.build_subm_neighbor_map(st, ks),
+                          sel)
+        plan, keys, nmap, sel = per_ctx[i]
+        src = torch.where(sel[:, None], feats, torch.zeros_like(feats))
+        k, n = w.shape[0], src.shape[0]
+        pad = max(-(-n // K5_TILE) * K5_TILE, K5_TILE * k) - n
+        layers.append({
+            'case': f'{j:02d} ctx{i:02d} {"subm3d" if k == 27 else "subm2d"}'
+                    f'_k{k}',
+            'src': src, 'nmap': nmap, 'w': w, 'plan': plan, 'keys': keys,
+            'src5': torch.nn.functional.pad(src, (0, 0, 0, pad)),
+            'nmap5': torch.nn.functional.pad(nmap, (0, 0, 0, pad), value=-1)})
+    return layers
+
+
+def check_windowed(line, label, got, want, k1_out, fits, tile):
+    """One windowed gather conv, kernel ``got`` vs plain ``want`` (each
+    (out, misses)): identical misses, outputs within 1e-4 x max(1,
+    max|plain|); and on the rows of tiles with no misses whose K1 tile
+    fits, K1's raw output on the same operands within the same tolerance.
+    Returns the misses."""
+    import torch
+    (out, miss), (p_out, p_miss) = got, want
+    name = f'{line["case"]} {label}'
+    if not torch.equal(miss, p_miss):
+        fail(f'{name}: kernel and plain misses differ')
+    err = float((out - p_out).abs().max())
+    tol = 1e-4 * max(1.0, float(p_out.abs().max()))
+    if not err <= tol:
+        fail(f'{name}: max err {err} > {tol}')
+    n = k1_out.shape[0]
+    rows = (miss == 0).repeat_interleave(tile)[:n] & fits
+    err1 = (float((out[:n][rows] - k1_out[rows]).abs().max())
+            if bool(rows.any()) else 0.0)
+    tol1 = 1e-4 * max(1.0, float(k1_out.abs().max()))
+    if not err1 <= tol1:
+        fail(f'{name}: max err vs K1 {err1} > {tol1}')
+    line[f'max_abs_err_{label}'] = err
+    line[f'k1_rows_{label}'] = int(rows.sum())
+    line[f'k1_err_{label}'] = err1
+    return miss
+
+
+def check_gather_case(lay, k5, k6):
+    """One submanifold conv through K5 (f32, tile 512) and K6 (tile 256,
+    block 2048; bf16 and f32 operands), given the main-path outputs ``k5``
+    and ``k6`` (K6 bf16): each against its plain version and K1; times of
+    the kernels with their default operands, of their plain versions and
+    of K1 with the same operand type; each call's bound.
+    Returns (K5 line, K6 line)."""
+    from virconv_tpu_torch.ops import band_conv as bc
+    from virconv_tpu_torch.ops import gather_conv as gc
+    from virconv_tpu_torch.ops import onehot_conv as oc
+    src, nmap, w, plan, keys = (lay[k] for k in ('src', 'nmap', 'w', 'plan',
+                                                 'keys'))
+    src5, nmap5 = lay['src5'], lay['nmap5']
+    n, (k, c_in, c_out) = src.shape[0], w.shape
+    fits = plan.fits.repeat_interleave(plan.tile)[:n]
+    k1 = {b: bc.band_conv(src, keys, plan, w, bf16=b) for b in (False, True)}
+    valid = int((nmap >= 0).sum())
+    common = {'case': lay['case'], 'rows': n, 'c_in': c_in, 'c_out': c_out,
+              'taps': k}
+    l5 = dict(common, rows_padded=src5.shape[0])
+    miss5 = check_windowed(l5, 'f32', k5, gc.fused_gather_conv_plain(
+        src5, nmap5, w), k1[False], fits, K5_TILE)
+    l6 = dict(common)
+    miss6 = check_windowed(l6, 'bf16', k6, oc.onehot_gather_conv_plain(
+        src, nmap, w), k1[True], fits, K6_TILE)
+    check_windowed(l6, 'f32', oc.onehot_gather_conv(src, nmap, w, bf16=False),
+                   oc.onehot_gather_conv_plain(src, nmap, w, bf16=False),
+                   k1[False], fits, K6_TILE)
+    l5['ms'] = cuda_ms(lambda: gc.fused_gather_conv(src5, nmap5, w))
+    l5['plain_ms'] = cuda_ms(lambda: gc.fused_gather_conv_plain(
+        src5, nmap5, w), reps=3, warmup=1)
+    l5['k1_ms'] = cuda_ms(lambda: bc.band_conv(src, keys, plan, w,
+                                               bf16=False))
+    l6['ms'] = cuda_ms(lambda: oc.onehot_gather_conv(src, nmap, w))
+    l6['plain_ms'] = cuda_ms(lambda: oc.onehot_gather_conv_plain(
+        src, nmap, w), reps=3, warmup=1)
+    l6['k1_ms'] = cuda_ms(lambda: bc.band_conv(src, keys, plan, w,
+                                               bf16=True))
+    # bound: features, map and weights read once, output and misses
+    # written once; 2*C*C' operations per in-window (row, tap) hit, at the
+    # f32 peak for K5 and the bf16 peak for K6
+    for line, f, m, miss, peak in ((l5, src5, nmap5, miss5, F32_FLOPS),
+                                   (l6, src, nmap, miss6, BF16_FLOPS)):
+        line['misses'] = int(miss.sum())
+        line['taps_hit'] = valid - line['misses']
+        line['bytes'] = (nbytes(f, m, w, miss)
+                         + f.shape[0] * c_out * 4)
+        line['ops'] = 2.0 * line['taps_hit'] * c_in * c_out
+        bound(line, peak)
+    return l5, l6
+
+
+def gather_conv_phase(det, frames):
+    """Phase 8: K5 and K6 over the neighbor maps of every submanifold conv
+    of one request (captured from a warm-up forward of ``det``). The path
+    (``fused_gather_conv`` and ``onehot_gather_conv`` once per conv, with
+    their defaults) runs with both launch counts set to 0 just before and
+    read just after; then every call is checked and timed. Returns
+    (counts, per-call lines by kernel)."""
+    import torch
+    from virconv_tpu_torch.ops import gather_conv as gc
+    from virconv_tpu_torch.ops import onehot_conv as oc
+    with SubmCapture() as cap:
+        det.forward(frames)
+        torch.cuda.synchronize()
+    layers = gather_layers(cap)
+    taps = [lay['w'].shape[0] for lay in layers]
+    print(f'[phase 8] one request: {len(cap.contexts)} submanifold '
+          f'contexts, {len(layers)} convs ({taps.count(27)} with K=27, '
+          f'{taps.count(9)} with K=9)', flush=True)
+    if (len(layers), taps.count(27), taps.count(9)) != (24, 16, 8):
+        fail('expected 24 submanifold convs: 16 with K=27, 8 with K=9')
+    gc.launches = oc.launches = 0
+    outs = [(gc.fused_gather_conv(lay['src5'], lay['nmap5'], lay['w']),
+             oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w']))
+            for lay in layers]
+    torch.cuda.synchronize()
+    counts = {'gather_conv_fwd': gc.launches,
+              'onehot_conv_fwd': oc.launches}
+    print(f'[phase 8] launches over the 24 convs {counts}', flush=True)
+    for name, v in counts.items():
+        if v != len(layers):
+            fail(f'{name} launched {v} times over {len(layers)} convs')
+    cases = {'gather_conv_fwd': [], 'onehot_conv_fwd': []}
+    for lay, (k5, k6) in zip(layers, outs):
+        l5, l6 = check_gather_case(lay, k5, k6)
+        cases['gather_conv_fwd'].append(l5)
+        cases['onehot_conv_fwd'].append(l6)
+        print(f'[phase 8] gather_conv {short(l5)}', flush=True)
+        print(f'[phase 8] onehot_conv {short(l6)}', flush=True)
+    return counts, cases
+
+
 def bound(line, peak):
     """Sets the case's bound: the larger of its bytes over the memory rate
     and its operations over ``peak``."""
@@ -317,8 +511,8 @@ def summed(lines, unit='request'):
     t_bytes = sum(c['t_bytes_ms'] for c in lines)
     t_ops = sum(c['t_ops_ms'] for c in lines)
     return {f'launches_per_{unit}': len(lines),
-            'max_abs_err': max(max(c['max_abs_err_f32'],
-                                   c['max_abs_err_bf16']) for c in lines),
+            'max_abs_err': max(v for c in lines for k, v in c.items()
+                               if k.startswith('max_abs_err')),
             'ms': sum(c['ms'] for c in lines),
             'plain_ms': sum(c['plain_ms'] for c in lines),
             'bound_ms': max(t_bytes, t_ops),
@@ -327,9 +521,10 @@ def summed(lines, unit='request'):
 
 
 def short(line):
-    keep = ('case', 'rows_in', 'rows_out', 'c_in', 'c_out', 'taps', 'rois',
-            'queries_per_roi', 'stride', 'selected', 'max_abs_err_f32',
-            'max_abs_err_bf16', 'bitwise_repeatable', 'ms', 'plain_ms',
+    keep = ('case', 'rows_in', 'rows_out', 'rows', 'c_in', 'c_out', 'taps',
+            'rois', 'queries_per_roi', 'stride', 'selected', 'misses',
+            'max_abs_err_f32', 'max_abs_err_bf16', 'k1_err_f32',
+            'k1_err_bf16', 'bitwise_repeatable', 'ms', 'plain_ms', 'k1_ms',
             'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
 
@@ -652,16 +847,39 @@ def main():
         # ---- phase 7: tiny config training step, CUDA vs CPU ----------------
         t0 = phase_done(6, t0)
         tiny_train_parity(('cpu', 'cuda'))
-    phase_done(7, t0)
+
+    # ---- phase 8: K5 and K6 on every submanifold conv of one request -------
+    # (TF32 still off: the plain versions' f32 products are exact f32)
+    t0 = phase_done(7, t0)
+    gather_counts, gather_cases = gather_conv_phase(
+        Detector(device='cuda', seed=0), frames)
+    cases.update(gather_cases)
+    gather_totals = {k: summed(v) for k, v in gather_cases.items()}
+    for k, v in gather_totals.items():
+        v['k1_ms'] = sum(c['k1_ms'] for c in gather_cases[k])
+    misses = {a['case']: {'gather_conv_fwd': a['misses'],
+                          'onehot_conv_fwd': b['misses']}
+              for a, b in zip(*gather_cases.values())}
+    print(f'[phase 8] per request, summed over its 24 convs (k1_ms: K1 on '
+          f'the same layers, f32 beside K5, bf16 beside K6): '
+          f'{json.dumps(gather_totals)}', flush=True)
+    print(f'[phase 8] misses per layer: {json.dumps(misses)}', flush=True)
+    phase_done(8, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
     meta = {'band_conv_fwd': (src, 'virconv_tpu/ops/pallas/band_conv.py:139'),
             'roi_pool_fwd': ('virconv_tpu_torch/csrc/roi_pool.cu',
                              'virconv_tpu/ops/pallas/roi_pool.py:241+268'),
-            'band_conv_dw': (src, 'virconv_tpu/ops/pallas/band_conv.py:188')}
-    launches = {**counts, 'band_conv_dw': train_counts['band_conv_dw']}
+            'band_conv_dw': (src, 'virconv_tpu/ops/pallas/band_conv.py:188'),
+            'gather_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
+                                'virconv_tpu/ops/pallas/gather_conv.py:42'),
+            'onehot_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
+                                'virconv_tpu/ops/pallas/onehot_conv.py:40')}
+    launches = {**counts, 'band_conv_dw': train_counts['band_conv_dw'],
+                **gather_counts}
     totals['band_conv_dw'] = step_totals['band_conv_dw']
+    totals.update(gather_totals)
     kernels = [{'name': name, 'route': 'cuda', 'source': s,
                 'replaces': rep, 'launches': launches[name], **totals[name]}
                for name, (s, rep) in meta.items()]

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from virconv_tpu_torch.ops import band_conv as tbc
+from virconv_tpu_torch.ops import gather_conv as tgc
+from virconv_tpu_torch.ops import onehot_conv as toc
 from virconv_tpu_torch.ops import roi_pool as trp
 from virconv_tpu_torch.ops import sparse as tsp
 
@@ -226,3 +228,62 @@ def test_roi_pool_kernel_matches_plain_and_selects_identically():
         got = trp.roi_pool_apply(cplan, *args_d, bf16=bf16)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=1e-5, rtol=1e-5)
+
+
+def _near_diagonal(rng, n, k, spread, p_valid=0.8):
+    idx = np.arange(n)[:, None] + rng.integers(-spread, spread + 1, (n, k))
+    return np.where(rng.random((n, k)) < p_valid, np.clip(idx, 0, n - 1),
+                    -1).astype(np.int32)
+
+
+@pytest.mark.parametrize('case', ['k5_k3', 'k5_k27_wide', 'k6_k9_ragged',
+                                  'k6_k27_wide'])
+def test_gather_conv_kernels_match_plain(case):
+    """K5 and K6 vs their plain versions: identical misses, outputs within
+    1e-4 x the output scale (f32 sums in another order); K6 with bf16 and
+    f32 operands and rows past a multiple of block (its padded tail); two
+    runs give identical misses and the same bits."""
+    dev = _cuda()
+    k, n, spread, c, c_out = {'k5_k3': (3, 1024, 384, 8, 8),
+                              'k5_k27_wide': (27, 1024, 900, 40, 72),
+                              'k6_k9_ragged': (9, 700, 150, 8, 12),
+                              'k6_k27_wide': (27, 1100, 300, 64, 64)}[case]
+    rng = np.random.default_rng(k + n)
+    nmap = torch.from_numpy(_near_diagonal(rng, n, k, spread))
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    if case.startswith('k5'):
+        mod, modes = tgc, [dict(tile=128 if k == 3 else 32)]
+        fn = tgc.fused_gather_conv
+    else:
+        mod, fn = toc, toc.onehot_gather_conv
+        modes = [dict(tile=64, block=128, bf16=b) for b in (False, True)]
+    args = (feats.to(dev), nmap.to(dev), w.to(dev))
+    for kw in modes:
+        want = fn(feats, nmap, w, **kw)
+        n0 = mod.launches
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert mod.launches == n0 + 2
+        assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+        assert int(want[1].sum()) > 0
+        np.testing.assert_allclose(
+            got[0].cpu().numpy(), want[0].numpy(), rtol=0,
+            atol=1e-4 * max(1.0, float(want[0].abs().max())))
+
+
+def test_gather_conv_kernels_reject_bad_cuda_operands():
+    """A CUDA tensor the kernels do not take raises; nothing falls back."""
+    dev = _cuda()
+    feats = torch.zeros(512, 4, device=dev)
+    nmap = torch.full((512, 3), -1, dtype=torch.int64, device=dev)
+    w = torch.zeros(3, 4, 4, device=dev)
+    before = tgc.launches, toc.launches
+    with pytest.raises(ValueError):
+        tgc.fused_gather_conv(feats, nmap, w, 128)
+    with pytest.raises(ValueError):
+        toc.onehot_gather_conv(feats, nmap, w, 64, 128)
+    assert (tgc.launches, toc.launches) == before

@@ -26,7 +26,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         'import sys, virconv_tpu_torch, virconv_tpu_torch.serve, '
         'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
         'virconv_tpu_torch.utils.jax_weights, '
-        'virconv_tpu_torch.utils.synth_scene\n'
+        'virconv_tpu_torch.utils.synth_scene, '
+        'virconv_tpu_torch.ops.gather_conv, '
+        'virconv_tpu_torch.ops.onehot_conv\n'
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton'))\n"
         'print(bad)\n'

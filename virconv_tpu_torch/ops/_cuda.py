@@ -20,7 +20,7 @@ CSRC = _PKG / 'csrc'
 BUILD = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false']
-SOURCES = ('band_conv', 'roi_pool')
+SOURCES = ('band_conv', 'roi_pool', 'gather_conv')
 
 _libs = {}
 _locks = {name: threading.Lock() for name in SOURCES}

@@ -1,0 +1,128 @@
+"""Gather convolution over per-(tile, tap) two-block windows (K6): the
+entry function's index work, its plain PyTorch version and the CUDA kernel
+wrapper.
+
+Replaces ``virconv_tpu/ops/pallas/onehot_conv.py::_kernel`` (entry
+function ``onehot_gather_conv``), with its contract: feats (N0, C),
+nmap (N0, K) int32 row indices (-1 = missing), weights (K, C, C'), ``block``
+a multiple of ``tile``. Rows are padded by ``(-N0) % block + block`` (zero
+features, -1 map rows), so the padded count N is a multiple of ``block``
+with at least one block past the data. Per (row tile, tap), ``lo`` is the
+least valid index of the tile's column (0 if none), ``blk = clip(lo //
+block, 0, N/block - 2)`` and the window is ``[blk*block, blk*block +
+2*block)``. A neighbor counts when it is >= 0 and inside the window; any
+other valid index is a miss, counted per tile of the padded rows. With
+``bf16`` features and weights are rounded to bf16 and the products summed in
+f32 (the TPU kernel's one-hot gather is exact). Returns ((N0, C') f32,
+misses (N/tile,) int32).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .gather_conv import MAX_TAPS
+from .sparse import _gathered_conv_raw
+
+# kernel launches (CUDA tensors only), reset and read by chip_smoke.py
+launches = 0
+
+
+def _check(feats, nmap, weights, tile, block):
+    n0, c_in = feats.shape
+    k = nmap.shape[1]
+    if nmap.shape[0] != n0 or weights.shape[:2] != (k, c_in) or k < 1:
+        raise ValueError(f'onehot_gather_conv: feats {tuple(feats.shape)}, '
+                         f'nmap {tuple(nmap.shape)}, weights '
+                         f'{tuple(weights.shape)} disagree')
+    if tile < 1 or block % tile:
+        raise ValueError(f'onehot_gather_conv: block={block} is not a '
+                         f'multiple of tile={tile}')
+
+
+def window_blocks(nmap, tile: int, block: int):
+    """The entry function's index work: (blk (N/tile, K) int32 window start
+    blocks, the padded map (N/tile, tile, K) int64)."""
+    n0, k = nmap.shape
+    pad = (-n0) % block + block
+    n = n0 + pad
+    nm = torch.nn.functional.pad(nmap, (0, 0, 0, pad), value=-1)
+    nm = nm.reshape(n // tile, tile, k).long()
+    big = 2 ** 30
+    lo = torch.where(nm >= 0, nm, torch.full_like(nm, big)).amin(1)
+    lo = torch.where(lo == big, torch.zeros_like(lo), lo)
+    blk = torch.clamp(torch.div(lo, block, rounding_mode='floor'), 0,
+                      n // block - 2)
+    return blk.to(torch.int32), nm
+
+
+def onehot_gather_conv_plain(feats, nmap, weights, tile: int = 256,
+                             block: int = 2048, bf16: bool = True):
+    """Plain PyTorch version of the contract (module docstring): the padded
+    map with out-of-window entries set to -1 through the neighbor-map
+    conv."""
+    _check(feats, nmap, weights, tile, block)
+    n0 = feats.shape[0]
+    blk, nm = window_blocks(nmap, tile, block)
+    local = nm - (blk.long() * block)[:, None, :]
+    valid = nm >= 0
+    inside = valid & (local >= 0) & (local < 2 * block)
+    misses = (valid & ~inside).sum((1, 2)).to(torch.int32)
+    masked = torch.where(inside, nm, torch.full_like(nm, -1)).reshape(
+        -1, nm.shape[2])
+    f = torch.nn.functional.pad(feats.float(),
+                                (0, 0, 0, masked.shape[0] - n0))
+    w = weights.float()
+    if bf16:
+        f = f.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).float()
+    return _gathered_conv_raw(f, masked, w)[:n0], misses
+
+
+def onehot_gather_conv(feats, nmap, weights, tile: int = 256,
+                       block: int = 2048, bf16: bool = True):
+    """Two-block windowed gather conv: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Returns ((N0, C') f32, misses)."""
+    _check(feats, nmap, weights, tile, block)
+    if not feats.is_cuda:
+        return onehot_gather_conv_plain(feats, nmap, weights, tile, block,
+                                        bf16)
+    return _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16)
+
+
+def _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16):
+    """Launch ``onehot_conv_fwd`` (csrc/gather_conv.cu) on the window table
+    of ``window_blocks``.
+
+    Replaces virconv_tpu/ops/pallas/onehot_conv.py::_kernel: the one-hot
+    matmul over two VMEM blocks is an exact gather, done here as a direct
+    row read under the same window rule. Bound: 2*C*C' operations per
+    in-window (row, tap) hit, at the bf16 tensor-core rate for bf16
+    operands; this version runs f32 multiply-adds of the bf16-rounded
+    operands on CUDA cores, one CTA per 64 rows x 64 output channels."""
+    global launches
+    from . import _cuda
+    dev = feats.device
+    n0, c_in = feats.shape
+    k, _, c_out = weights.shape
+    _cuda.check_cuda_tensor(feats, 'feats', torch.float32, 2)
+    _cuda.check_cuda_tensor(nmap, 'nmap', torch.int32, 2, dev)
+    _cuda.check_cuda_tensor(weights, 'weights', torch.float32, 3, dev)
+    if k > MAX_TAPS or c_out < 1:
+        raise ValueError(f'onehot_conv kernel limits: K={k} C\'={c_out}')
+    blk = window_blocks(nmap, tile, block)[0].contiguous()
+    out = torch.empty((n0, c_out), dtype=torch.float32, device=dev)
+    misses = torch.zeros((blk.shape[0],), dtype=torch.int32, device=dev)
+    fn = _cuda.load('gather_conv').onehot_conv_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights),
+             _cuda.ptr(blk), n0, c_in, c_out, k, tile, block, int(bf16),
+             _cuda.ptr(out), _cuda.ptr(misses), _cuda.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f'onehot_conv_fwd launch failed: CUDA error {err}')
+    launches += 1
+    return out, misses
