@@ -67,7 +67,7 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps=10, warmup=2):
+def cuda_ms(fn, reps=20, warmup=3):
     import torch
     for _ in range(warmup):
         fn()
@@ -378,7 +378,8 @@ def check_windowed(line, label, got, want, k1_out, fits, tile):
     (out, misses)): identical misses, outputs within 1e-4 x max(1,
     max|plain|); and on the rows of tiles with no misses whose K1 tile
     fits, K1's raw output on the same operands within the same tolerance.
-    Returns the misses."""
+    That is no bit-equality: K1 sums bf16 operands on the tensor cores, in
+    another order than K6's fmaf chain. Returns the misses."""
     import torch
     (out, miss), (p_out, p_miss) = got, want
     name = f'{line["case"]} {label}'

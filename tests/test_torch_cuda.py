@@ -287,3 +287,173 @@ def test_gather_conv_kernels_reject_bad_cuda_operands():
     with pytest.raises(ValueError):
         toc.onehot_gather_conv(feats, nmap, w, 64, 128)
     assert (tgc.launches, toc.launches) == before
+
+
+def _band_edge_case(case):
+    """(feats, keys, plan, weights) of one K1 edge case at the main path's
+    geometry (tile 128: two 64-row CTAs per tile; block 256)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    c_in, c_out, n_valid, cap = {
+        'cout8': (16, 8, 1500, 1536), 'cout16': (16, 16, 1500, 1536),
+        'cout24': (16, 24, 1500, 1536), 'cout128': (32, 128, 1500, 1536),
+        'cin8': (8, 16, 1500, 1536), 'cin128': (128, 32, 1500, 1536),
+        'cin6': (6, 8, 1500, 1536), 'cin18': (18, 24, 1500, 1536),
+        'wide64': (64, 64, 6000, 6144),
+        'half_tile_invalid': (16, 16, 1500, 1536),
+        'tap_unhit': (16, 16, 1500, 1536), 'ragged': (16, 24, 650, 700),
+        'dgrad': (40, 24, 1500, 1536)}.get(case, (16, 16, 0, 0))
+    if case == 'dup_first_wins':
+        n = 1400
+        c = np.stack([rng.integers(0, 2, n), rng.integers(0, 60, n),
+                      rng.integers(0, 16, n)], -1).astype(np.int32)
+        st = tsp.sort_by_key(tsp.SparseTensor(
+            torch.from_numpy(rng.standard_normal((n, c_in)).astype(
+                np.float32)), torch.from_numpy(c),
+            torch.ones(n, dtype=torch.bool), (60, 16), 2))
+        plan, keys = tsp.subm_band_plan(st, 3)
+        first = torch.ones_like(keys, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        assert not bool(first.all()), 'want duplicate keys'
+        feats = st.feats * first[:, None]
+        k = 9
+    else:
+        st = random_sparse(rng, 2, (8, 30, 30), n_valid, cap, c_in)
+        plan, keys = tsp.subm_band_plan(st, 3)
+        feats, k = st.feats, 27
+    if case == 'half_tile_invalid':
+        vb = plan.valid_bits.clone()
+        vb[0, 64:] = 0           # the second CTA of tile 0 has no valid row
+        plan = plan._replace(valid_bits=vb)
+    if case == 'tap_unhit':
+        vb = plan.valid_bits.clone()
+        vb[:, :64] &= ~((1 << 13) | 1)   # no row of a first half hits 0, 13
+        plan = plan._replace(valid_bits=vb)
+    if case == 'dgrad':      # the input-gradient call: W[K-1-k]^T
+        w = (rng.standard_normal((k, c_out, c_in)) * 0.3).astype(np.float32)
+        w = np.ascontiguousarray(w[::-1].transpose(0, 2, 1))
+    else:
+        w = (rng.standard_normal((k, c_in, c_out)) * 0.3).astype(np.float32)
+    return feats, keys, plan, torch.from_numpy(w)
+
+
+@pytest.mark.parametrize('case', [
+    'cout8', 'cout16', 'cout24', 'cout128', 'cin8', 'cin128', 'cin6',
+    'cin18', 'wide64', 'half_tile_invalid', 'tap_unhit', 'ragged',
+    'dup_first_wins', 'dgrad'])
+def test_band_conv_kernel_edge_cases(case):
+    """K1 vs its plain version at tile 128 / block 256, f32 and bf16
+    operands, with and without the affine + ReLU epilogue: partial and
+    double output slabs, narrow and wide inputs (and two not a multiple of
+    4: row and tile mode), a half tile with no valid row, taps no row of a
+    half tile hits,
+    n_out not a multiple of the tile, first-wins duplicates and the
+    transposed input-gradient weights. Tolerance 1e-4 x the output scale
+    (sums in another order)."""
+    dev = _cuda()
+    feats, keys, plan, w = _band_edge_case(case)
+    c_out = w.shape[2]
+    rng = np.random.default_rng(5)
+    scale = torch.from_numpy(rng.uniform(0.5, 2, c_out).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(c_out).astype(np.float32))
+    cplan = _plan_to(plan, dev)
+    for bf16 in (False, True):
+        for epi in ((None, None, False), (scale, bias, True)):
+            want = tbc.band_conv_plain(feats, keys, plan, w, *epi, bf16)
+            n0 = tbc.launches
+            got = tbc.band_conv(feats.to(dev), keys.to(dev), cplan,
+                                w.to(dev), *[None if x is None else x.to(dev)
+                                             for x in epi[:2]],
+                                epi[2], bf16)
+            torch.cuda.synchronize()
+            assert tbc.launches == n0 + 1
+            assert got.shape == want.shape == (plan.n_out, c_out)
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want.numpy(), rtol=0,
+                atol=1e-4 * max(1.0, float(want.abs().max())))
+    if case == 'half_tile_invalid':
+        assert not bool(got[64:128].cpu().any())
+
+
+def _pool_scene(grid, rng):
+    """A sparse grid with a dense 7^3 cluster (so the nsample truncation
+    binds), a cell-free box around one ROI (no candidates), an ROI with no
+    valid query and random invalid queries; the main path's group specs
+    (ranges 2 and 4, nsample 16)."""
+    from virconv_tpu_torch.models.roi_heads.ted_head import dense_grid_points
+    pcr, vox = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0), (0.1, 0.1, 0.1)
+    cells = np.stack([rng.integers(0, 40, 4000), rng.integers(0, 160, 4000),
+                      rng.integers(0, 160, 4000)], -1)
+    empty = (np.abs(cells[:, 1] - 140) < 20) & (np.abs(cells[:, 2] - 140) < 20)
+    cells = cells[~empty]
+    zz, yy, xx = np.meshgrid(*[np.arange(-3, 4)] * 3, indexing='ij')
+    cluster = np.stack([zz + 20, yy + 80, xx + 80], -1).reshape(-1, 3)
+    cells = np.unique(np.concatenate([cluster, cells]), axis=0)
+    n = len(cells)
+    coords = np.concatenate([np.zeros((n, 1), np.int64), cells], 1)
+    st = tsp.sort_by_key(tsp.SparseTensor(
+        torch.zeros((n, 1)), torch.from_numpy(coords.astype(np.int32)),
+        torch.ones(n, dtype=torch.bool), (40, 160, 160), 1))
+    rois = np.zeros((8, 7), np.float32)
+    rois[:, 0] = rng.uniform(2, 12, 8)
+    rois[:, 1] = rng.uniform(-6, 4, 8)
+    rois[:, 2] = rng.uniform(-2.5, 0.5, 8)
+    rois[:, 3:6] = rng.uniform(0.6, 1.6, (8, 3))
+    rois[:, 6] = rng.uniform(-np.pi, np.pi, 8)
+    rois[0, :3] = (8.05, 0.05, -0.95)       # on the cluster
+    rois[1, :3] = (14.05, 6.05, -0.95)      # in the cell-free box
+    qxyz = dense_grid_points(torch.from_numpy(rois), grid).reshape(-1, 3)
+    qcell = torch.floor((qxyz - torch.tensor(pcr[:3]))
+                        / torch.tensor(vox)).to(torch.int32)
+    qc = torch.cat([torch.zeros((len(qxyz), 1), dtype=torch.int32),
+                    qcell[:, [2, 1, 0]]], 1)
+    q = grid ** 3
+    qmask = torch.from_numpy(rng.random(len(qxyz)) > 0.1)
+    qmask[2 * q:3 * q] = False              # an ROI with no valid query
+    specs = (((2, 2, 2), 0.4, 16), ((4, 4, 4), 0.8, 16))
+    return st, qxyz, qc, qmask, q, specs, vox, pcr
+
+
+@pytest.mark.parametrize('grid', [6, 4])
+def test_roi_pool_kernel_edge_cases(grid):
+    """K2+K3 vs the plain version at Q = 216 and Q = 64 with the main
+    path's specs: identical selections (sel_out) where the nsample
+    truncation binds, an ROI with no candidates, an ROI with no valid
+    query and random invalid queries; pooled features within 1e-5 with f32
+    and bf16 features; zeros where nothing is selected."""
+    dev = _cuda()
+    rng = np.random.default_rng(grid)
+    st, qxyz, qc, qmask, q, specs, vox, pcr = _pool_scene(grid, rng)
+    mid = 32
+    fg = [torch.from_numpy(rng.standard_normal((st.feats.shape[0], mid))
+                           .astype(np.float32)) for _ in specs]
+    we = [torch.from_numpy(rng.standard_normal((3, mid)).astype(np.float32))
+          for _ in specs]
+    be = [torch.from_numpy(rng.standard_normal(mid).astype(np.float32))
+          for _ in specs]
+    plan = trp.roi_pool_plan(st, qxyz, qc, qmask, q, specs[-1][0], vox, 1,
+                             pcr)
+    assert bool(plan.ok)
+    cplan = trp.roi_pool_plan(_to(st, dev), qxyz.to(dev), qc.to(dev),
+                              qmask.to(dev), q, specs[-1][0], vox, 1, pcr)
+    want_sel = trp.roi_pool_selection(plan, specs, vox, 1, pcr)
+    wide = tuple((rg, rad, 32) for rg, rad, _ in specs)
+    assert any(bool(((s >= 0).sum(1) > 16).any()) for s in
+               trp.roi_pool_selection(plan, wide, vox, 1, pcr)), \
+        'want a query whose hits exceed nsample'
+    args_d = ([f.to(dev) for f in fg], [w.to(dev) for w in we],
+              [b.to(dev) for b in be], specs, vox, 1, pcr)
+    got_sel = trp.roi_pool_kernel_selection(cplan, *args_d)
+    for a, b in zip(want_sel, got_sel):
+        assert torch.equal(a, b.cpu())
+    empty = [int((s[q:2 * q] >= 0).sum()) for s in want_sel]
+    assert empty == [0, 0], 'want an ROI with no candidates'
+    for bf16 in (False, True):
+        want = trp.roi_pool_apply(plan, fg, we, be, specs, vox, 1, pcr, bf16)
+        n0 = trp.launches
+        got = trp.roi_pool_apply(cplan, *args_d, bf16=bf16)
+        torch.cuda.synchronize()
+        assert trp.launches == n0 + 1
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        assert not bool(got[:, q:3 * q].cpu().any())
+        assert not bool(got[:, ~qmask.to(dev)].cpu().any())

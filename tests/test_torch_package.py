@@ -1,11 +1,14 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse a missing CUDA device instead of falling back, its
 shipped config equals the YAML, flax weights carry across by name at the
-full VirConv-T width, and the serving entry point runs end to end on the
-CPU when asked to."""
+full VirConv-T width, the serving entry point runs end to end on the CPU
+when asked to, the CUDA build digest covers every header a source
+includes, and each kernel wrapper's limits are the ones its ``.cu`` file
+declares."""
 import functools
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +17,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+
+from virconv_tpu_torch.ops import _cuda, band_conv, gather_conv, roi_pool
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'virconv_tpu_torch'
@@ -148,7 +153,6 @@ def _tiny_detector_cfg():
 
 def test_detector_serves_frames_on_cpu():
     from test_model_forward import make_batch
-    from virconv_tpu_torch.ops import band_conv, roi_pool
     from virconv_tpu_torch.serve import Detector
     from virconv_tpu.utils.calibration import identity_calib
     det = Detector(cfg=_tiny_detector_cfg(), device='cpu', seed=3)
@@ -174,3 +178,52 @@ def test_detector_serves_frames_on_cpu():
         assert r['boxes'].shape == (len(r['scores']), 7)
         assert np.isfinite(r['boxes']).all()
         assert np.isfinite(r['scores']).all()
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    copy = tmp_path / 'csrc'
+    shutil.copytree(_cuda.CSRC, copy)
+    monkeypatch.setattr(_cuda, 'CSRC', copy)
+    return copy
+
+
+@pytest.mark.parametrize('name', _cuda.SOURCES)
+def test_build_target_changes_with_an_included_header(csrc_copy, name):
+    """Editing a header the source includes renames its library, so a stale
+    build is never loaded; a file it does not include changes nothing."""
+    src, lib = _cuda._target(name)
+    headers = [p for p in _cuda._sources(src) if p.suffix == '.cuh']
+    assert headers, f'{name}.cu includes no csrc header'
+    (csrc_copy / 'unused.cuh').write_text('// not included\n')
+    assert _cuda._target(name)[1] == lib
+    for h in headers:
+        h.write_text(h.read_text() + '\n// edited\n')
+        edited = _cuda._target(name)[1]
+        assert edited != lib
+        lib = edited
+    src.write_text(src.read_text() + '\n// edited\n')
+    assert _cuda._target(name)[1] != lib
+
+
+def _constexprs(name):
+    text = (_cuda.CSRC / f'{name}.cu').read_text()
+    return {m[0]: int(m[1]) for m in
+            re.findall(r'constexpr int (k\w+) = (\d+);', text)}
+
+
+def _cuda_name(py_name):
+    """MAX_CIN -> kMaxCin, DW_MAX_TILE -> kDwMaxTile."""
+    return 'k' + ''.join(w.capitalize() for w in py_name.split('_'))
+
+
+@pytest.mark.parametrize('module,source', [
+    (band_conv, 'band_conv'), (roi_pool, 'roi_pool'),
+    (gather_conv, 'gather_conv')])
+def test_wrapper_limits_match_kernel_constexprs(module, source):
+    limits = {n: getattr(module, n) for n in dir(module)
+              if re.fullmatch(r'(DW_)?MAX_[A-Z_]+', n)}
+    assert limits
+    consts = _constexprs(source)
+    for py_name, value in limits.items():
+        assert consts.get(_cuda_name(py_name)) == value, py_name

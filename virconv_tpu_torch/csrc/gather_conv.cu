@@ -32,9 +32,7 @@
 // row of C values, so compute-bound at the model's widths; this version runs
 // the multiply-adds on CUDA cores, not tensor cores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -43,10 +41,6 @@ constexpr int kCols = 64;      // output channels per CTA
 constexpr int kCi = 32;        // input channels staged at once
 constexpr int kThreads = 256;  // 16 x 16: 4 rows x 4 channels each
 constexpr int kMaxTaps = 64;
-
-__device__ __forceinline__ float maybe_bf16(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
 
 // kOneHot selects K6's window (blk table) over K5's (tile position).
 template <bool kOneHot>

@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``virconv_tpu_torch/_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``. No
-PyTorch headers are included, so a build takes seconds.
+PyTorch headers are included, so a build takes seconds. A library's name
+carries a digest of its source, of every ``csrc`` header the source
+includes and of the flags, so an edit to any of them builds anew.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -22,6 +25,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false']
 SOURCES = ('band_conv', 'roi_pool', 'gather_conv')
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
 _libs = {}
 _locks = {name: threading.Lock() for name in SOURCES}
 
@@ -32,11 +37,24 @@ def _nvcc():
     return str(cand) if cand.exists() else 'nvcc'
 
 
+def _sources(src):
+    """``src`` and every local header it includes, transitively."""
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.add(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return sorted(seen)
+
+
 def _target(name):
     src = CSRC / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD / f'lib{name}_{digest}.so'
+    h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b'\0' + path.read_bytes())
+    return src, BUILD / f'lib{name}_{h.hexdigest()[:12]}.so'
 
 
 def load(name: str) -> ctypes.CDLL:

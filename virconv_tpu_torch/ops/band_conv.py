@@ -190,8 +190,11 @@ def band_conv_dw(feats, keys, plan: BandPlan, g, valid_bits=None,
     return _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16)
 
 
-# CUDA kernel limits (csrc/band_conv.cu): one thread per output row.
-MAX_TAPS, MAX_TILE, MAX_CIN = 27, 256, 128
+# CUDA kernel limits (csrc/band_conv.cu): K1's tile mode stages 2 * block
+# keys per tap group and up to MAX_CIN input channels per row in shared
+# memory; K4 runs one thread per tile row.
+MAX_TAPS, MAX_CIN, MAX_GROUPS, MAX_BLOCK = 30, 128, 3, 2048
+DW_MAX_TILE = 256
 DW_TILES_PER_CHUNK = 16
 _geometry_cache = {}
 
@@ -207,17 +210,21 @@ def _geometry(plan, dev):
 
 
 def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
-    """Launch ``band_conv_fwd`` (csrc/band_conv.cu).
+    """Launch ``band_conv_fwd`` (csrc/band_conv.cu): a prep kernel lays the
+    weights out (bf16: rounded), then in tile mode one CTA per 64 rows of a
+    plan tile and output-channel slab searches its sources in the tile's
+    window keys staged in shared memory, gathers the hit rows tap by tap
+    with cp.async into a ring of stages, and sums on the tensor cores
+    (bf16, mma.sync) or in f32 on CUDA cores; in row mode (C <= 8, C' <= 16)
+    a thread per row sums the rows its taps hit against weights resident
+    in shared memory.
 
     Replaces virconv_tpu/ops/pallas/band_conv.py::_kernel. Bound: at the
-    main path's widths (C, C' <= 64) the work is ~2*K*C*C' flops per row
-    against ~(K*C + C')*4 bytes of gathered rows, so the ideal kernel is
-    compute-bound on the tensor cores; this first version instead runs the
-    multiply-adds on CUDA cores, one thread per output row, with W[k]
-    staged 16 output channels at a time in shared memory (the full W is
-    442 KB in f32 and does not fit). The row gather is a lower-bound binary
-    search of the tile's 2-block window: no one-hot matmul, no neighbor
-    map."""
+    main path's widths (C, C' <= 64) the work is 2*C*C' operations per
+    (row, tap) hit against one gathered row of C floats: bytes at the bf16
+    peak (serving), operations at the f32 peak (training). The row gather
+    is a lower-bound binary search of the tile's 2-block window: no one-hot
+    matmul, no neighbor map."""
     global launches
     from . import _cuda
     dev = feats.device
@@ -232,9 +239,11 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
     if keys.shape[0] != n_in or weights.shape[1] != c_in \
             or k != len(plan.deltas):
         raise ValueError('band_conv: inconsistent feats/keys/weights/plan')
-    if k > MAX_TAPS or plan.tile > MAX_TILE or c_in > MAX_CIN:
-        raise ValueError(f'band_conv kernel limits: K={k} tile={plan.tile} '
-                         f'C={c_in}')
+    n_groups = max(plan.group_of) + 1
+    if (k > MAX_TAPS or c_in > MAX_CIN or n_groups > MAX_GROUPS
+            or plan.block > MAX_BLOCK):
+        raise ValueError(f'band_conv kernel limits: K={k} C={c_in} '
+                         f'groups={n_groups} block={plan.block}')
     affine = scale is not None
     if affine:
         scale = scale.float().contiguous()
@@ -245,20 +254,26 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
     geo = _geometry(plan, dev)
     out = torch.empty((plan.n_out, c_out), dtype=torch.float32, device=dev)
     lib = _cuda.load('band_conv')
+    size = lib.band_conv_fwd_scratch_bytes
+    size.restype = ctypes.c_long
+    size.argtypes = [ctypes.c_int] * 4
+    wprep = torch.empty((size(c_in, c_out, k, int(bf16)),),
+                        dtype=torch.uint8, device=dev)
     fn = lib.band_conv_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 3)
     null = ctypes.c_void_p(0)
     err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
              _cuda.ptr(plan.valid_bits), _cuda.ptr(plan.blk),
              _cuda.ptr(weights),
-             n_in, c_in, c_out, k, max(plan.group_of) + 1,
+             n_in, c_in, c_out, k, n_groups,
              _cuda.ptr(geo), _cuda.ptr(scale) if affine else null,
              _cuda.ptr(bias) if affine else null,
              int(affine), int(relu), int(bf16), plan.tile, plan.block,
-             n_tiles, plan.n_out, _cuda.ptr(out), _cuda.stream_ptr(dev))
+             n_tiles, plan.n_out, _cuda.ptr(wprep), _cuda.ptr(out),
+             _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'band_conv_fwd launch failed: CUDA error {err}')
     launches += 1
@@ -294,7 +309,7 @@ def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
     if keys.shape[0] != n_in or g.shape[0] != plan.n_out \
             or vb.shape != plan.base_keys.shape:
         raise ValueError('band_conv_dw: inconsistent feats/keys/g/plan')
-    if k > MAX_TAPS or plan.tile > MAX_TILE:
+    if k > MAX_TAPS or plan.tile > DW_MAX_TILE:
         raise ValueError(f'band_conv_dw kernel limits: K={k} '
                          f'tile={plan.tile}')
     n_tiles = plan.base_keys.shape[0]

@@ -282,22 +282,24 @@ def roi_pool_apply(plan, feats_groups, w_eff, b_eff, specs, voxel_size,
                           voxel_size, stride, point_cloud_range, bf16)
 
 
-# CUDA kernel limits (csrc/roi_pool.cu)
-MAX_GROUPS, MAX_MID, MAX_Q, MAX_RZ = 2, 32, 256, 4
+# CUDA kernel limits (csrc/roi_pool.cu): one warp per query, lanes over
+# candidate slots, then over channels (j and j + 32) and selected slots.
+MAX_GROUPS, MAX_MID, MAX_Q, MAX_RZ, MAX_NS, MAX_CBLK = 2, 64, 4096, 4, 32, 512
 
 
 def _roi_pool_cuda(plan, feats_groups, w_eff, b_eff, specs, voxel_size,
                    stride, point_cloud_range, bf16, sel_out=None):
     """Launch ``roi_pool_fwd`` (csrc/roi_pool.cu): both passes of the TPU
-    kernels in one kernel, one CTA per ROI looping over its own candidate
-    blocks, so the TPU's sequential-grid carries become loop state.
+    kernels in one walk, one warp per (ROI, query) with 8 queries of one
+    ROI per CTA; the lanes take 32 candidate slots at a time (ranks from
+    warp ballots), then the channels of each selected hit.
 
     Replaces virconv_tpu/ops/pallas/roi_pool.py::_count_kernel and
-    ::_kernel. Bound: the compare work, Q * candidates * G per ROI, on the
-    CUDA cores; the bytes (candidates, queries, <= nsample feature rows per
-    query and group) are small. Ranks are exact integer prefix counts, and
-    the center and distance arithmetic uses round-to-nearest intrinsics in
-    the JAX order, so selections are bit-equal to the probe path."""
+    ::_kernel. Bound: the bytes (candidates, queries, <= nsample feature
+    rows per query and group) and the compare work, Q * candidates * G per
+    ROI, are both small. Ranks are exact integer counts, and the center and
+    distance arithmetic uses round-to-nearest intrinsics in the JAX order,
+    so selections are bit-equal to the probe path."""
     global launches
     from . import _cuda
     dev = plan.q_pack.device
@@ -305,9 +307,11 @@ def _roi_pool_cuda(plan, feats_groups, w_eff, b_eff, specs, voxel_size,
     mid = feats_groups[0].shape[1]
     kspecs = _kernel_specs(specs)
     if (g_n > MAX_GROUPS or mid > MAX_MID or plan.q_per_roi > MAX_Q
-            or any(rg[0] > MAX_RZ for rg, _, _ in kspecs)):
+            or plan.cblk > MAX_CBLK
+            or any(rg[0] > MAX_RZ or ns > MAX_NS for rg, _, ns in kspecs)):
         raise ValueError(f'roi_pool kernel limits: G={g_n} mid={mid} '
-                         f'Q={plan.q_per_roi}')
+                         f'Q={plan.q_per_roi} cblk={plan.cblk} '
+                         f'specs={kspecs}')
     feats = torch.stack([f.float() for f in feats_groups]).contiguous()
     wb = torch.cat([torch.cat([w_eff[g].float(),
                                b_eff[g].float().reshape(1, mid)], 0)
