@@ -21,8 +21,9 @@ Phases (each prints one line; any failure exits non-zero):
      and every K4 call of one full-width VirConv-T training step
      (``Trainer.step(train_batch())``: 2 frames x ROT_NUM 3) against its
      plain version, f32 and bf16 operands; each K4 call run twice for
-     identical bits; kernel and plain times with f32 operands, each call's
-     bound at the f32 peak, and the sums per step;
+     identical bits and named by its CTA layout (chunks x taps x slabs);
+     kernel and plain times with f32 operands, each call's bound at the
+     f32 peak, and the sums per step;
   6. the main training path: 3 full-width steps with every launch count
      set to 0 just before and read just after: finite losses, no skipped
      step, both kernels launched, no band training conv on the
@@ -35,9 +36,10 @@ Phases (each prints one line; any failure exits non-zero):
      maps of all 24 submanifold convs of one full-width request (captured
      from a warm-up forward), once each with every launch count set to 0
      just before and read just after; then per conv: kernel vs plain
-     (identical misses; K6 with bf16 and f32 operands), agreement with K1's
-     raw output on the rows of tiles with no misses, kernel, plain and K1
-     times, the bound; sums per request and misses per layer;
+     (identical misses; K6 with bf16 and f32 operands, named by the mode
+     its bf16 call took), agreement with K1's raw output on the rows of
+     tiles with no misses, kernel, plain and K1 times, the bound; sums per
+     request and misses per layer;
 then one JSON line of per-kernel numbers (times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
 requests, the phase 6 steps and the phase 8 path), the card's name and
@@ -229,8 +231,13 @@ def check_dw_case(name, args):
     from virconv_tpu_torch.ops import band_conv as bc
     feats, keys, plan, g, vb = args
     k, c_in, c_out = len(plan.deltas), feats.shape[1], g.shape[1]
+    n_tiles = plan.base_keys.shape[0]
+    per_chunk = bc.dw_tiles_per_chunk(n_tiles, plan.tile, k, c_out)
     line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': plan.n_out,
-            'c_in': c_in, 'c_out': c_out, 'taps': k}
+            'c_in': c_in, 'c_out': c_out, 'taps': k,
+            'layout': f'{-(-n_tiles // per_chunk)} chunks of {per_chunk} '
+                      f'tiles x {k} taps x {-(-c_out // bc.DW_MAX_SLAB)} '
+                      f'slab(s)'}
     for bf16 in (False, True):
         got = bc.band_conv_dw(feats, keys, plan, g, vb, bf16)
         again = bc.band_conv_dw(feats, keys, plan, g, vb, bf16)
@@ -424,7 +431,7 @@ def check_gather_case(lay, k5, k6):
     l5 = dict(common, rows_padded=src5.shape[0])
     miss5 = check_windowed(l5, 'f32', k5, gc.fused_gather_conv_plain(
         src5, nmap5, w), k1[False], fits, K5_TILE)
-    l6 = dict(common)
+    l6 = dict(common, mode=oc.kernel_mode(c_in, c_out, True))
     miss6 = check_windowed(l6, 'bf16', k6, oc.onehot_gather_conv_plain(
         src, nmap, w), k1[True], fits, K6_TILE)
     check_windowed(l6, 'f32', oc.onehot_gather_conv(src, nmap, w, bf16=False),
@@ -523,8 +530,8 @@ def summed(lines, unit='request'):
 
 def short(line):
     keep = ('case', 'rows_in', 'rows_out', 'rows', 'c_in', 'c_out', 'taps',
-            'rois', 'queries_per_roi', 'stride', 'selected', 'misses',
-            'max_abs_err_f32', 'max_abs_err_bf16', 'k1_err_f32',
+            'layout', 'mode', 'rois', 'queries_per_roi', 'stride',
+            'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16', 'k1_err_f32',
             'k1_err_bf16', 'bitwise_repeatable', 'ms', 'plain_ms', 'k1_ms',
             'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})

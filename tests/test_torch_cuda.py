@@ -457,3 +457,132 @@ def test_roi_pool_kernel_edge_cases(grid):
                                    atol=1e-5, rtol=1e-5)
         assert not bool(got[:, q:3 * q].cpu().any())
         assert not bool(got[:, ~qmask.to(dev)].cpu().any())
+
+
+def _dw_edge_case(case):
+    """(feats, keys, plan, g, valid_bits) of one K4 edge case at the
+    training geometry (tile 128, block 256)."""
+    rng = np.random.default_rng(sum(map(ord, case)) + 11)
+    c_in, c_out, n_valid, cap = {
+        'cout1': (16, 1, 1500, 1536), 'cin6': (6, 16, 1500, 1536),
+        'cin8_cout16': (8, 16, 1500, 1536), 'cin16': (16, 16, 1500, 1536),
+        'wide64': (64, 64, 6000, 6144), 'cin128': (128, 24, 1500, 1536),
+        'cin128_cout64': (128, 64, 1500, 1536),
+        'cout72': (16, 72, 1500, 1536), 'no_hit_tiles': (16, 16, 6000, 6144),
+        'ragged': (16, 24, 5950, 6000), 'override': (36, 40, 1500, 1536),
+        'misaligned': (16, 16, 1500, 1536)}[case]
+    st = random_sparse(rng, 2, (10, 40, 40), n_valid, cap, c_in)
+    plan, keys = tsp.subm_band_plan(st, 3)
+    feats, vb = st.feats, None
+    if case == 'no_hit_tiles':       # whole chunks without a valid row
+        vb = plan.valid_bits.clone()
+        vb[:12] = 0
+    if case == 'override':           # callers zero non-fitting tiles' rows
+        vb = plan.valid_bits.clone()
+        vb[1::3] = 0
+        vb[:, ::5] &= ~(1 << 4)
+    g = torch.from_numpy(rng.standard_normal(
+        (plan.n_out, c_out)).astype(np.float32))
+    return feats, keys, plan, g, vb
+
+
+@pytest.mark.parametrize('case', [
+    'cout1', 'cin6', 'cin8_cout16', 'cin16', 'wide64', 'cin128',
+    'cin128_cout64', 'cout72', 'no_hit_tiles', 'ragged', 'override',
+    'misaligned'])
+def test_band_conv_dw_kernel_edge_cases(case):
+    """K4 vs its plain version at tile 128 / block 256, f32 and bf16
+    operands, each run twice with identical bits: one output channel,
+    inputs not a multiple of 4 and a feats pointer off 16 bytes (4-byte
+    copies), narrow blocks (4 x 4 micro-tiles, many thread groups over the
+    hit rows), 64 -> 64 (8 x 8), 128 input channels (one thread group of
+    4 x 4 tiles; 8 x 8 with 64 outputs), two output slabs, widths that
+    pad the 8 x 8 tiles (36 -> 40), chunks with no hit row, a row count
+    that ends mid-tile and mid-chunk, and valid_bits overrides. Tolerance
+    1e-4 x max(1, the output scale): f32 sums in another order."""
+    dev = _cuda()
+    feats, keys, plan, g, vb = _dw_edge_case(case)
+    n_tiles = plan.base_keys.shape[0]
+    per_chunk = tbc.dw_tiles_per_chunk(n_tiles, plan.tile, len(plan.deltas),
+                                       g.shape[1])
+    if case == 'ragged':
+        assert plan.n_out % plan.tile and n_tiles % per_chunk
+    cf = feats.to(dev)
+    if case == 'misaligned':
+        buf = torch.zeros(cf.numel() + 1, device=dev)
+        buf[1:] = cf.reshape(-1)
+        cf = buf[1:].view(cf.shape)
+        assert cf.is_contiguous() and cf.data_ptr() % 16
+    cplan = _plan_to(plan, dev)
+    args = (cf, keys.to(dev), cplan, g.to(dev),
+            None if vb is None else vb.to(dev))
+    for bf16 in (False, True):
+        want = tbc.band_conv_dw_plain(feats, keys, plan, g, vb, bf16)
+        n0 = tbc.dw_launches
+        got = tbc.band_conv_dw(*args, bf16)
+        again = tbc.band_conv_dw(*args, bf16)
+        torch.cuda.synchronize()
+        assert tbc.dw_launches == n0 + 2
+        assert torch.equal(got, again)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.numpy(), rtol=0,
+            atol=1e-4 * max(1.0, float(want.abs().max())))
+    if case == 'no_hit_tiles':
+        assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize('case', [
+    'cout12', 'cout72', 'cin5', 'row_cin8', 'row_cin3', 'misses',
+    'past_end', 'empty_tap', 'wide64_default_geometry'])
+def test_onehot_conv_bf16_edge_cases(case):
+    """K6's bf16 modes (and the f32 body beside them) vs the plain
+    version: output slabs not a multiple of 8 and two slabs, an input width
+    not a multiple of 4, row mode (C <= 8, C' <= 16), rows with misses
+    (identical counts), window indices in the zero padding past the
+    feature rows (no misses), a tap no row hits, and the default tile 256 /
+    block 2048. Each run twice with identical bits; outputs within 1e-4 x
+    max(1, the output scale)."""
+    dev = _cuda()
+    k, n, spread, c, c_out, tile, block, mode = {
+        'cout12': (27, 1100, 300, 16, 12, 64, 128, 'tile'),
+        'cout72': (9, 900, 150, 32, 72, 64, 128, 'tile'),
+        'cin5': (9, 900, 150, 5, 24, 64, 128, 'tile'),
+        'row_cin8': (27, 1100, 150, 8, 16, 64, 128, 'row'),
+        'row_cin3': (9, 700, 150, 3, 5, 64, 128, 'row'),
+        'misses': (27, 1100, 300, 16, 16, 64, 128, 'tile'),
+        'past_end': (9, 700, 100, 16, 8, 64, 128, 'tile'),
+        'empty_tap': (27, 1100, 100, 8, 8, 64, 128, 'row'),
+        'wide64_default_geometry': (27, 6000, 900, 64, 64, 256, 2048,
+                                    'tile')}[case]
+    assert toc.kernel_mode(c, c_out, True) == mode
+    rng = np.random.default_rng(sum(map(ord, case)))
+    nmap = _near_diagonal(rng, n, k, spread)
+    if case == 'empty_tap':
+        nmap[:, 5] = -1
+    if case == 'past_end':         # padding rows of the last block
+        nmap[-40:, 2] = n + rng.integers(0, 30, 40)
+    nmap = torch.from_numpy(nmap)
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    args = (feats.to(dev), nmap.to(dev), w.to(dev), tile, block)
+    for bf16 in (True, False):
+        want = toc.onehot_gather_conv(feats, nmap, w, tile, block, bf16)
+        n0 = toc.launches
+        got = toc.onehot_gather_conv(*args, bf16)
+        again = toc.onehot_gather_conv(*args, bf16)
+        torch.cuda.synchronize()
+        assert toc.launches == n0 + 2
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+        np.testing.assert_allclose(
+            got[0].cpu().numpy(), want[0].numpy(), rtol=0,
+            atol=1e-4 * max(1.0, float(want[0].abs().max())))
+        if case == 'misses':
+            assert int(want[1].sum()) > 0
+        if case == 'past_end':
+            blk, nm = toc.window_blocks(nmap, tile, block)
+            local = nm[..., 2] - blk[:, None, 2].long() * block
+            assert bool(((nm[..., 2] >= n) & (local >= 0)
+                         & (local < 2 * block)).any())

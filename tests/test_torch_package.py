@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from virconv_tpu_torch.ops import _cuda, band_conv, gather_conv, roi_pool
+from virconv_tpu_torch.ops import (_cuda, band_conv, gather_conv,
+                                   onehot_conv, roi_pool)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'virconv_tpu_torch'
@@ -207,9 +208,13 @@ def test_build_target_changes_with_an_included_header(csrc_copy, name):
 
 
 def _constexprs(name):
-    text = (_cuda.CSRC / f'{name}.cu').read_text()
-    return {m[0]: int(m[1]) for m in
-            re.findall(r'constexpr int (k\w+) = (\d+);', text)}
+    """The integer constexprs of ``csrc/<name>.cu`` and of every header it
+    includes."""
+    consts = {}
+    for path in _cuda._sources(_cuda.CSRC / f'{name}.cu'):
+        consts.update((m[0], int(m[1])) for m in re.findall(
+            r'constexpr int (k\w+) = (\d+);', path.read_text()))
+    return consts
 
 
 def _cuda_name(py_name):
@@ -219,11 +224,49 @@ def _cuda_name(py_name):
 
 @pytest.mark.parametrize('module,source', [
     (band_conv, 'band_conv'), (roi_pool, 'roi_pool'),
-    (gather_conv, 'gather_conv')])
+    (gather_conv, 'gather_conv'), (onehot_conv, 'gather_conv')])
 def test_wrapper_limits_match_kernel_constexprs(module, source):
     limits = {n: getattr(module, n) for n in dir(module)
-              if re.fullmatch(r'(DW_)?MAX_[A-Z_]+', n)}
+              if re.fullmatch(r'([A-Z]+_)?MAX_[A-Z_]+', n)}
     assert limits
     consts = _constexprs(source)
     for py_name, value in limits.items():
         assert consts.get(_cuda_name(py_name)) == value, py_name
+
+
+def test_onehot_mode_numbers_match_kernel():
+    consts = _constexprs('gather_conv')
+    for name, number in onehot_conv.MODES.items():
+        assert consts[f'kMode{name.capitalize()}'] == number, name
+
+
+@pytest.mark.parametrize('c_in,c_out,bf16,mode', [
+    (8, 16, True, 'row'), (3, 5, True, 'row'), (8, 17, True, 'tile'),
+    (9, 16, True, 'tile'), (64, 64, True, 'tile'), (128, 200, True, 'tile'),
+    (129, 16, True, 'fma'), (8, 16, False, 'fma'), (64, 64, False, 'fma')])
+def test_onehot_kernel_mode(c_in, c_out, bf16, mode):
+    """K6's body by widths: a thread per row for C <= 8 and C' <= 16 with
+    bf16 operands, the tensor-core tile mode for other bf16 inputs of at
+    most MAX_CIN channels, the CUDA-core body otherwise."""
+    assert onehot_conv.kernel_mode(c_in, c_out, bf16) == mode
+
+
+@pytest.mark.parametrize('n_tiles,tile,n_taps,c_out,min_ctas', [
+    (448, 128, 27, 64, 2 * 132),    # the widest training call
+    (750, 128, 27, 16, 2 * 132),    # the first training layers
+    (31, 128, 27, 64, 0), (12, 128, 27, 16, 0), (1, 128, 27, 8, 0),
+    (0, 128, 27, 8, 0), (3000, 32, 9, 130, 0), (5, 256, 3, 1, 0)])
+def test_dw_tiles_per_chunk(n_tiles, tile, n_taps, c_out, min_ctas):
+    """K4's chunks: at most DW_MAX_CHUNK rows each; at least half of the
+    DW_TARGET_CTAS CTAs where the tiles allow, else a tile per chunk; two
+    CTAs per SM or more at the training widths."""
+    per = band_conv.dw_tiles_per_chunk(n_tiles, tile, n_taps, c_out)
+    assert per >= 1 and per * tile <= band_conv.DW_MAX_CHUNK
+    slabs = -(-c_out // band_conv.DW_MAX_SLAB)
+    chunks = -(-n_tiles // per)
+    full = -(-band_conv.DW_TARGET_CTAS // (n_taps * slabs))
+    if n_tiles >= full:
+        assert 2 * chunks >= full
+    elif n_tiles:
+        assert per == 1
+    assert chunks * n_taps * slabs >= min_ctas

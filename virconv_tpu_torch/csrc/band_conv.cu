@@ -1,7 +1,7 @@
 // Band-window sparse convolution: the forward (K1: one CTA per 64 output
 // rows of a plan tile and output-channel slab, or a thread per row for
-// narrow layers) and the weight gradient (K4, one CTA per tap, channel slab
-// and tile chunk).
+// narrow layers) and the weight gradient (K4: a source pass, then one CTA
+// per chunk of rows and tap).
 //
 // K1 replaces virconv_tpu/ops/pallas/band_conv.py::_kernel. The TPU kernel
 // gathers each tap's rows with a one-hot matmul built from key equality over
@@ -48,13 +48,31 @@
 // K4 replaces virconv_tpu/ops/pallas/band_conv.py::_dw_kernel:
 // dW[k] = gather_k(feats)^T @ (g * row_ok), summed over every tile. The TPU
 // kernel keeps the whole (K*C, C') f32 sum resident and revisits it across a
-// sequential grid; CTAs here run in no order and the full dW (442 KB at
-// C = C' = 64) does not fit one SM, so each CTA owns dW[k][ci0:+64][co0:+16]
-// for one chunk of tiles, compacts the rows of each tile that hit a source
-// (warp ballots, in row order), stages their feats and g rows in shared
-// memory and accumulates the outer products in registers on CUDA cores. A
-// second kernel sums the per-chunk partials in chunk order. No float
-// atomics: the result has the same bits on every run.
+// sequential grid; CTAs here run in no order, so the rows are cut into
+// chunks and each CTA sums one chunk's part of one tap's C x C' block.
+// Bound: 2*C*C' operations per valid (row, tap) hit against one feats row
+// and one g row: the f32 operations on CUDA cores (training's operands).
+// What the design does about it:
+//  - a source pass (a CTA per plan tile) stages the tile's window keys in
+//    shared memory, runs every (row, tap) lower-bound search there once,
+//    as K1's tile mode does, and writes src[K][rows] (-1: no source, an
+//    invalid row or a row past n_out) to scratch;
+//  - one CTA per (chunk of rows, tap, slab of at most 64 output channels:
+//    one slab at the training widths) owns the whole C x slab block. It
+//    lists the chunk's hit rows in row order in shared memory (ballots),
+//    then copies their feats and g rows with cp.async into a ring of 3
+//    stages, each hit row once per tap. Each thread keeps an 8 x 8
+//    micro-tile of the block in registers: per hit row four float4 shared
+//    loads and 64 fmaf, half the shared bytes per FMA of a 4 x 4 tile.
+//    When C or C' is below 32 a 4 x 4 tile is faster (smaller group sums,
+//    more threads per block). Thread groups take interleaved hit rows and
+//    add their partials in shared memory in group order. bf16 operands are
+//    rounded in shared memory by the thread that copied them;
+//  - the chunk count is chosen by the caller (about three waves of two
+//    CTAs per SM: taps hit unevenly, the centre tap every row, and smaller
+//    chunks even the waves out); a third kernel sums the per-chunk partials
+//    in chunk order. No float atomics: the result has the same bits on
+//    every run.
 
 #include "common.cuh"
 
@@ -65,15 +83,6 @@ constexpr int kMaxCin = 128;
 constexpr int kMaxGroups = 3;      // dy groups of a 3-wide kernel
 constexpr int kMaxBlock = 2048;
 constexpr int kRowValidBit = 30;
-constexpr int kRows = 64;          // output rows per CTA
-constexpr int kThreads = 128;      // warp w owns rows 16w .. 16w + 15
-constexpr int kMaxSlab = 64;       // output channels per CTA
-constexpr int kMaxStages = 4;
-constexpr int kStageBudget = 24 * 1024;  // tile mode's ring
-constexpr int kRowMaxCin = 8;            // row mode's widest input
-constexpr int kRowMaxCout = 16;          // and output
-constexpr int kRowThreads = 128;
-constexpr int kSmemMax = 232448 - 4096;  // dynamic, beside the static
 
 // Lower-bound row of key q in the window [ws, min(ws + 2 * block, n_in)) of
 // the sorted keys, or -1 when q is not there (K4 and K1's row mode).
@@ -91,210 +100,73 @@ __device__ __forceinline__ int band_source(const int* __restrict__ keys,
   return (lo < end && keys[lo] == q) ? (int)lo : -1;
 }
 
-// The launch geometry of one K1 call, shared by the entry point and the
-// kernels. Row mode (C <= kRowMaxCin, C' <= kRowMaxCout): a thread per
-// output row walks the taps its row hits and multiplies the rows it
-// gathers with every tap's weights resident in shared memory. Tile mode: a
-// CTA ring of n_stages (64 gathered rows, W[k] tile) stages over the taps
-// any row of the CTA hits, each warp multiplying its 16 rows.
-struct Layout {
-  int ck;          // input channels rounded up to a power of two >= 16
-  int slab;        // output channels per CTA
-  int n_slabs;
-  int n_pad;       // n_slabs * slab: columns of the prepped weights
-  int row_mode;
-  int a_stride;    // floats per gathered row (bf16: ck + 8, conflict-free
-                   // fragments)
-  int w_tap;       // bytes of one tap's weight tile
-  int n_stages;    // tile mode's ring depth
-  int tile_pitch;  // bytes of one stage: gathered rows, then W[k]
-  long area_off;   // window keys, then the resident weights or the ring
-  long smem;       // dynamic shared bytes
-};
-
-__host__ __device__ inline Layout layout_of(int c_in, int c_out, int n_taps,
-                                            int n_groups, int block,
-                                            bool bf16) {
-  Layout l;
-  l.ck = 16;
-  while (l.ck < c_in) l.ck *= 2;
-  l.n_slabs = (c_out + kMaxSlab - 1) / kMaxSlab;
-  l.slab = ((c_out + l.n_slabs - 1) / l.n_slabs + 7) / 8 * 8;
-  l.n_pad = l.n_slabs * l.slab;
-  l.row_mode = c_in <= kRowMaxCin && c_out <= kRowMaxCout;
-  l.a_stride = bf16 ? l.ck + 8 : l.ck;
-  const long src_bytes = (long)kRows * n_taps * sizeof(int);
-  const long keys_bytes = (long)n_groups * 2 * block * sizeof(int);
-  l.area_off = src_bytes;
-  if (l.row_mode) {
-    // W (K, c_in, 8 or 16) f32, all of it
-    l.ck = c_in;
-    l.slab = l.n_pad = c_out <= 8 ? 8 : kRowMaxCout;
-    l.n_slabs = 1;
-    l.w_tap = c_in * l.slab * 4;
-    l.n_stages = 0;
-    l.tile_pitch = 0;
-    l.smem = (long)n_taps * l.w_tap;
-  } else {
-    // bf16: W^T tile (slab, ck + 8); f32: W tile (ck, slab)
-    l.w_tap = bf16 ? l.slab * (l.ck + 8) * 2 : l.ck * l.slab * 4;
-    l.tile_pitch = kRows * l.a_stride * 4 + l.w_tap;
-    l.n_stages = kStageBudget / l.tile_pitch;
-    l.n_stages = l.n_stages < 2 ? 2
-               : (l.n_stages > kMaxStages ? kMaxStages : l.n_stages);
-    const long ring = (long)l.n_stages * l.tile_pitch;
-    l.smem = src_bytes + (keys_bytes > ring ? keys_bytes : ring);
-  }
-  return l;
-}
-
-// The weights of one call rearranged once, zero-padded: for the tile
-// mode's bf16 copies (K, n_pad, ck) = W[k]^T rounded to bf16; else
-// (K, ck, n_pad) f32 (row mode: ck = C, n_pad = 8 or 16), rounded to
-// bf16 values when `round`.
-__global__ void band_conv_prep_kernel(const float* __restrict__ w,
-                                      int n_taps, int c_in, int c_out,
-                                      int ck, int n_pad, int transposed,
-                                      int round, void* __restrict__ wprep) {
-  const long total = (long)n_taps * ck * n_pad;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    int k, c, n;
-    if (transposed) {
-      c = (int)(i % ck);
-      n = (int)((i / ck) % n_pad);
-    } else {
-      n = (int)(i % n_pad);
-      c = (int)((i / n_pad) % ck);
-    }
-    k = (int)(i / ((long)ck * n_pad));
-    const float v = (c < c_in && n < c_out)
-        ? w[((long)k * c_in + c) * c_out + n] : 0.0f;
-    if (transposed)
-      static_cast<__nv_bfloat16*>(wprep)[i] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(wprep)[i] = maybe_bf16(v, round);
+// Stages the window keys [blk_t[g] * block, +2 * block) of each group g
+// (clipped to the n_in keys) at keys_s + g * 2 * block; thread t of nt.
+__device__ __forceinline__ void stage_windows(int* keys_s, int* win_lo,
+                                              int* win_len,
+                                              const int* __restrict__ keys,
+                                              const int* __restrict__ blk_t,
+                                              int n_groups, int n_in,
+                                              int block, int t, int nt) {
+  const int wlen = 2 * block;
+  for (int g = 0; g < n_groups; ++g) {
+    const long ws = (long)blk_t[g] * block;
+    const long lo = ws < 0 ? 0 : ws;
+    long hi = ws + wlen;
+    if (hi > n_in) hi = n_in;
+    const int len = hi > lo ? (int)(hi - lo) : 0;
+    if (t == 0) { win_lo[g] = (int)lo; win_len[g] = len; }
+    for (int i = t; i < len; i += nt) keys_s[g * wlen + i] = keys[lo + i];
   }
 }
 
-// Copies tap k's weight tile of the slab at n0 into dst; thread t of nt.
-template <bool kBf16>
-__device__ __forceinline__ void copy_w_tile(unsigned char* dst,
-                                            const void* wprep, int k,
-                                            int n0, const Layout& L, int t,
-                                            int nt) {
-  if (kBf16) {
-    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(wprep) +
-                             ((long)k * L.n_pad + n0) * L.ck;
-    __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
-    const int sh = __ffs(L.ck / 8) - 1;  // 16-byte chunks per row: 2^sh
-    for (int i = t; i < L.slab << sh; i += nt) {
-      const int n = i >> sh, c = (i - (n << sh)) * 8;
-      cp_async16_cg(d + n * (L.ck + 8) + c, g + (long)n * L.ck + c);
-    }
-  } else {
-    const float* g = static_cast<const float*>(wprep) +
-                     (long)k * L.ck * L.n_pad + n0;
-    float* d = reinterpret_cast<float*>(dst);
-    const int chunks = L.slab / 4;
-    for (int i = t; i < L.ck * chunks; i += nt) {
-      const int c = i / chunks, j = (i - c * chunks) * 4;
-      cp_async16_cg(d + c * L.slab + j, g + (long)c * L.n_pad + j);
-    }
-  }
-}
-
-// Copies the first c_in floats of feats[src[r]] into row r of a, for the
-// 64 rows whose 16-row fragment bit is set in frag_mask (zeros where
-// src[r] is -1). The pad columns stay as they are (zero).
-__device__ __forceinline__ void gather_rows(float* a, int a_stride,
-                                            const int* src, int frag_mask,
-                                            const float* __restrict__ feats,
-                                            int c_in, int vec4, int t) {
-  const int width = vec4 ? c_in >> 2 : c_in;  // copies per row
-  const bool pow2 = (width & (width - 1)) == 0;
-  const int sh = __ffs(width) - 1;
-  for (int i = t; i < kRows * width; i += kThreads) {
-    const int rr = pow2 ? i >> sh : i / width;
-    if (!((frag_mask >> (rr >> 4)) & 1)) continue;
-    const int s = src[rr];
-    if (vec4) {
-      const int c = (i - rr * width) * 4;
-      cp_async16_ca(a + rr * a_stride + c,
-                    s >= 0 ? feats + (long)s * c_in + c : feats,
-                    s >= 0 ? 16 : 0);
-    } else {
-      const int c = i - rr * width;
-      cp_async4(a + rr * a_stride + c,
-                s >= 0 ? feats + (long)s * c_in + c : feats,
-                s >= 0 ? 4 : 0);
-    }
-  }
-}
-
-// acc += (16 gathered rows at a16) @ (one tap's weight tile w) for the
-// calling warp. bf16: mma.sync m16n8k16, acc[4 nt + e] = element e of
-// column tile nt's C fragment (rows g, g + 8; columns 8 nt + 2q + (0, 1));
-// f32: fmaf in channel order, acc[kNT r + j] = row ty + 4r, column
-// tx + 8j.
-template <bool kBf16, int kNT>
-__device__ __forceinline__ void tap_product(float* acc, const float* a16,
-                                            const unsigned char* w,
-                                            const Layout& L, int c_in,
-                                            int lane) {
-  const int n_tiles = L.slab / 8;
-  if (kBf16) {
-    const int g = lane >> 2, q = lane & 3;
-    const float* a0 = a16 + g * L.a_stride + 2 * q;
-    const float* a1 = a0 + 8 * L.a_stride;
-    const __nv_bfloat16* wb =
-        reinterpret_cast<const __nv_bfloat16*>(w) + g * (L.ck + 8) + 2 * q;
-    const int k_end = (c_in + 15) & ~15;  // further columns are zeros
-    for (int kk = 0; kk < k_end; kk += 16) {
-      const float2 x00 = *reinterpret_cast<const float2*>(a0 + kk);
-      const float2 x10 = *reinterpret_cast<const float2*>(a1 + kk);
-      const float2 x01 = *reinterpret_cast<const float2*>(a0 + kk + 8);
-      const float2 x11 = *reinterpret_cast<const float2*>(a1 + kk + 8);
-      const uint32_t A0 = pack_bf16x2(x00.x, x00.y);
-      const uint32_t A1 = pack_bf16x2(x10.x, x10.y);
-      const uint32_t A2 = pack_bf16x2(x01.x, x01.y);
-      const uint32_t A3 = pack_bf16x2(x11.x, x11.y);
+// One row's sources for taps k_first, k_first + k_step, ...: lower-bound
+// searches of base key qk + delta[k] in the staged window of the tap's
+// group, four independent searches in flight; the source row, or -1 (tap
+// bit clear or key absent), goes to out[k * stride].
+__device__ __forceinline__ void search_taps(const int* keys_s, int wlen,
+                                            const int* win_lo,
+                                            const int* win_len,
+                                            const int* geo_s, int n_taps,
+                                            int bits, int qk, int k_first,
+                                            int k_step, int* out,
+                                            long stride) {
+  for (int k0 = k_first; k0 < n_taps; k0 += 4 * k_step) {
+    int lo[4], n[4], q[4], g[4];
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        if (nt < n_tiles) {
-          const __nv_bfloat16* b = wb + nt * 8 * (L.ck + 8) + kk;
-          mma_bf16_16816(acc + 4 * nt, A0, A1, A2, A3,
-                         *reinterpret_cast<const uint32_t*>(b),
-                         *reinterpret_cast<const uint32_t*>(b + 8));
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + k_step * u;
+      const bool on = k < n_taps && ((bits >> k) & 1);
+      g[u] = on ? geo_s[n_taps + k] : 0;
+      q[u] = on ? qk + geo_s[k] : 0;
+      lo[u] = 0;
+      n[u] = on ? win_len[g[u]] : 0;
+    }
+    bool busy = true;
+    while (busy) {
+      busy = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (n[u] > 0) {
+          const int half = n[u] >> 1;
+          if (keys_s[g[u] * wlen + lo[u] + half] < q[u]) {
+            lo[u] += half + 1;
+            n[u] -= half + 1;
+          } else {
+            n[u] = half;
+          }
+          busy |= n[u] > 0;
         }
       }
     }
-  } else {
-    const int ty = lane >> 3, tx = lane & 7;
-    const float* ap = a16 + ty * L.a_stride;
-    const float* wf = reinterpret_cast<const float*>(w) + tx;
-    const int c_end = (c_in + 3) & ~3;  // padded channels are zeros
-    for (int c = 0; c < c_end; c += 4) {
-      float4 av[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        av[r] = *reinterpret_cast<const float4*>(ap + 4 * r * L.a_stride + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float bv[kNT];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          bv[j] = j < n_tiles ? wf[(c + cc) * L.slab + 8 * j] : 0.0f;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float x = cc == 0 ? av[r].x : cc == 1 ? av[r].y
-                        : cc == 2 ? av[r].z : av[r].w;
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-            if (j < n_tiles)
-              acc[kNT * r + j] = fmaf(x, bv[j], acc[kNT * r + j]);
-        }
-      }
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + k_step * u;
+      if (k >= n_taps) continue;
+      const bool on = (bits >> k) & 1;
+      const bool hit = on && lo[u] < win_len[g[u]] &&
+                       keys_s[g[u] * wlen + lo[u]] == q[u];
+      out[k * stride] = hit ? win_lo[g[u]] + lo[u] : -1;
     }
   }
 }
@@ -332,33 +204,7 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
         keys, n_in, qk + geo_s[k],
         (long)blk[t * n_groups + geo_s[n_taps + k]] * block, block) : -1;
   float acc[kCout];
-#pragma unroll
-  for (int j = 0; j < kCout; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < n_taps; ++k) {
-    const int src = src_s[k * kRowThreads + tid];
-    if (src < 0) continue;
-    const float* f = feats + (long)src * c_in;
-    float x[kRowMaxCin];
-#pragma unroll
-    for (int c = 0; c < kRowMaxCin; c += 4) {
-      if (c < c_in && vec4) {
-        const float4 v = *reinterpret_cast<const float4*>(f + c);
-        x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[c + e] = c + e < c_in ? f[c + e] : 0.0f;
-      }
-    }
-    const float* w = w_s + k * c_in * kCout;
-#pragma unroll
-    for (int c = 0; c < kRowMaxCin; ++c) {
-      if (c >= c_in) break;
-      const float xv = maybe_bf16(x[c], kBf16);
-#pragma unroll
-      for (int j = 0; j < kCout; ++j)
-        acc[j] = fmaf(xv, w[c * kCout + j], acc[j]);
-    }
-  }
+  row_sums<kBf16, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
   if (row >= n_out) return;
   const float ok = ((bits >> kRowValidBit) & 1) ? 1.0f : 0.0f;
 #pragma unroll
@@ -374,7 +220,7 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
 // Tile mode. kNT: the most 8-channel column tiles of a slab this
 // instantiation takes.
 template <bool kBf16, int kNT>
-__global__ void __launch_bounds__(kThreads) band_conv_kernel(
+__global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
     const float* __restrict__ feats, const int* __restrict__ keys,
     const int* __restrict__ base_keys, const int* __restrict__ valid_bits,
     const int* __restrict__ blk, const void* __restrict__ wprep,
@@ -389,267 +235,310 @@ __global__ void __launch_bounds__(kThreads) band_conv_kernel(
   __shared__ int tap_list[kMaxTaps];   // taps with any hit, in tap order
   __shared__ int n_active;
   __shared__ int win_lo[kMaxGroups], win_len[kMaxGroups];
-  __shared__ float row_ok[kRows];
+  __shared__ float row_ok[kTileRows];
 
   const Layout L = layout_of(c_in, c_out, n_taps, n_groups, block, kBf16);
-  int* src_s = reinterpret_cast<int*>(smem);              // [K][kRows]
+  int* src_s = reinterpret_cast<int*>(smem);              // [K][kTileRows]
   unsigned char* area = smem + L.area_off;
   int* keys_s = reinterpret_cast<int*>(area);             // [G][2 * block]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cpt = (tile + kRows - 1) / kRows;             // CTAs per tile
+  const int tid = threadIdx.x;
+  const int cpt = (tile + kTileRows - 1) / kTileRows;     // CTAs per tile
   const int t = blockIdx.x / cpt;
-  const int r0 = (blockIdx.x - t * cpt) * kRows;
-  const int n_rows = min(kRows, tile - r0);
+  const int r0 = (blockIdx.x - t * cpt) * kTileRows;
+  const int n_rows = min(kTileRows, tile - r0);
   const long row_base = (long)t * tile + r0;
   const int n0 = blockIdx.y * L.slab;
-  const int wlen = 2 * block;
 
   // 1) the tile's window keys of every group
-  for (int i = tid; i < 2 * n_taps; i += kThreads) geo_s[i] = geo[i];
-  for (int g = 0; g < n_groups; ++g) {
-    const long ws = (long)blk[(long)t * n_groups + g] * block;
-    const long lo = ws < 0 ? 0 : ws;
-    long hi = ws + wlen;
-    if (hi > n_in) hi = n_in;
-    const int len = hi > lo ? (int)(hi - lo) : 0;
-    if (tid == 0) { win_lo[g] = (int)lo; win_len[g] = len; }
-    for (int i = tid; i < len; i += kThreads)
-      keys_s[g * wlen + i] = keys[lo + i];
-  }
+  for (int i = tid; i < 2 * n_taps; i += kTileThreads) geo_s[i] = geo[i];
+  stage_windows(keys_s, win_lo, win_len, keys, blk + (long)t * n_groups,
+                n_groups, n_in, block, tid, kTileThreads);
   __syncthreads();
 
   // 2) sources: thread (r, half) searches row r's taps half, half + 2, ...
   //    four at a time, in the staged windows
   {
-    const int r = tid & (kRows - 1);
+    const int r = tid & (kTileRows - 1);
     const bool in = r < n_rows;
     const int bits = in ? valid_bits[row_base + r] : 0;
     const int qk = in ? base_keys[row_base + r] : 0;
-    if (tid < kRows) row_ok[r] = ((bits >> kRowValidBit) & 1) ? 1.0f : 0.0f;
-    for (int k0 = tid >> 6; k0 < n_taps; k0 += 8) {
-      int lo[4], n[4], q[4], g[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + 2 * u;
-        const bool on = k < n_taps && ((bits >> k) & 1);
-        g[u] = on ? geo_s[n_taps + k] : 0;
-        q[u] = on ? qk + geo_s[k] : 0;
-        lo[u] = 0;
-        n[u] = on ? win_len[g[u]] : 0;
-      }
-      bool busy = true;
-      while (busy) {
-        busy = false;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (n[u] > 0) {
-            const int half = n[u] >> 1;
-            if (keys_s[g[u] * wlen + lo[u] + half] < q[u]) {
-              lo[u] += half + 1;
-              n[u] -= half + 1;
-            } else {
-              n[u] = half;
-            }
-            busy |= n[u] > 0;
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + 2 * u;
-        if (k >= n_taps) continue;
-        const bool on = (bits >> k) & 1;
-        const bool hit = on && lo[u] < win_len[g[u]] &&
-                         keys_s[g[u] * wlen + lo[u]] == q[u];
-        src_s[k * kRows + r] = hit ? win_lo[g[u]] + lo[u] : -1;
-      }
-    }
+    if (tid < kTileRows)
+      row_ok[r] = ((bits >> kRowValidBit) & 1) ? 1.0f : 0.0f;
+    search_taps(keys_s, 2 * block, win_lo, win_len, geo_s, n_taps, bits, qk,
+                tid >> 6, 2, src_s + r, kTileRows);
   }
   __syncthreads();
 
-  // 3) per tap, which 16-row fragments hit; the list of taps with any hit
-  for (int k = warp; k < n_taps; k += kThreads / 32) {
-    const unsigned m0 = __ballot_sync(0xffffffffu, src_s[k * kRows + lane] >= 0);
-    const unsigned m1 =
-        __ballot_sync(0xffffffffu, src_s[k * kRows + 32 + lane] >= 0);
-    if (lane == 0)
-      tap_mask[k] = ((m0 & 0xffffu) ? 1 : 0) | ((m0 >> 16) ? 2 : 0) |
-                    ((m1 & 0xffffu) ? 4 : 0) | ((m1 >> 16) ? 8 : 0);
-  }
-  __syncthreads();  // the window keys are dead: the ring reuses their room
-  if (tid == 0) {
-    int na = 0;
-    for (int k = 0; k < n_taps; ++k)
-      if (tap_mask[k]) tap_list[na++] = k;
-    n_active = na;
-  }
-  // the gathered rows' pad columns [c_in, ck) are zero once for all taps
-  const int pad = L.ck - c_in;
-  for (int i = tid; i < L.n_stages * kRows * pad; i += kThreads) {
-    const int rr = i / pad, c = c_in + i - rr * pad;  // rr: stage * 64 + row
-    reinterpret_cast<float*>(area + (long)(rr / kRows) * L.tile_pitch)
-        [(rr % kRows) * L.a_stride + c] = 0.0f;
-  }
-  __syncthreads();
-
-  // 4) a ring of n_stages (64 gathered rows, W[k] tile) stages over the
-  //    taps any row hits; warp w multiplies its 16 rows where they hit
+  // 3) the taps each 16-row fragment hits, and 4) the ring over them
   float acc[4 * kNT];
-#pragma unroll
-  for (int i = 0; i < 4 * kNT; ++i) acc[i] = 0.0f;
-  const int a_bytes = kRows * L.a_stride * 4;
-  auto stage = [&](int s) { return area + (long)s * L.tile_pitch; };
-  auto issue = [&](int s, int k) {
-    gather_rows(reinterpret_cast<float*>(stage(s)), L.a_stride,
-                src_s + k * kRows, tap_mask[k], feats, c_in, vec4, tid);
-    copy_w_tile<kBf16>(stage(s) + a_bytes, wprep, k, n0, L, tid, kThreads);
-  };
-  const int na = n_active;
-  for (int s = 0; s < L.n_stages - 1; ++s) {
-    if (s < na) issue(s, tap_list[s]);
-    cp_async_commit();
-  }
-  for (int i = 0; i < na; ++i) {
-    const int nxt = i + L.n_stages - 1;
-    if (nxt < na) issue(nxt % L.n_stages, tap_list[nxt]);
-    cp_async_commit();
-    cp_async_wait(L.n_stages - 1);
-    __syncthreads();
-    if ((tap_mask[tap_list[i]] >> warp) & 1) {
-      const unsigned char* st = stage(i % L.n_stages);
-      tap_product<kBf16, kNT>(
-          acc, reinterpret_cast<const float*>(st) + warp * 16 * L.a_stride,
-          st + a_bytes, L, c_in, lane);
-    }
-    __syncthreads();
-  }
-  cp_async_wait(0);
+  tile_sums<kBf16, kNT>(acc, src_s, area, L, feats, c_in, vec4, wprep, n0,
+                        n_taps, tap_mask, tap_list, n_active);
 
   // 5) epilogue: affine, ReLU, times the row-valid bit
-  auto epilogue = [&](int rl, int co, float v) {
+  tile_store<kBf16, kNT>(acc, L, n0, [&](int rl, int co, float v) {
     const long row = row_base + rl;
     if (rl >= n_rows || row >= n_out || co >= c_out) return;
     if (affine) v = __fadd_rn(__fmul_rn(v, scale[co]), bias[co]);
     if (relu) v = fmaxf(v, 0.0f);
     out[row * c_out + co] = v * row_ok[rl];
-  };
-  const int n_tiles = L.slab / 8;
-  if (kBf16) {
-    const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      if (nt >= n_tiles) continue;
-      const int co = n0 + nt * 8 + 2 * q;
-      epilogue(warp * 16 + g, co, acc[4 * nt]);
-      epilogue(warp * 16 + g, co + 1, acc[4 * nt + 1]);
-      epilogue(warp * 16 + g + 8, co, acc[4 * nt + 2]);
-      epilogue(warp * 16 + g + 8, co + 1, acc[4 * nt + 3]);
-    }
-  } else {
-    const int ty = lane >> 3, tx = lane & 7;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-        if (j < n_tiles) epilogue(warp * 16 + ty + 4 * r, n0 + tx + 8 * j,
-                                  acc[kNT * r + j]);
-  }
+  });
 }
 
-constexpr int kDwMaxTile = 256;
+constexpr int kDwMaxTile = 256;     // the source pass: >= 1 thread per row
+constexpr int kDwMaxChunk = 2048;   // rows of a chunk (hit list in shared)
+constexpr int kDwMaxSlab = 64;      // output channels per CTA
+constexpr int kDwThreads = 256;
+constexpr int kDwStages = 3;
+constexpr int kDwStageBudget = 16 * 1024;
+constexpr int kDwRounds = kDwMaxChunk / kDwThreads;   // compaction rounds
 
-constexpr int kDwCi = 64;        // input channels per CTA
-constexpr int kDwCo = 16;        // output channels per CTA
-constexpr int kDwStage = 64;     // hit rows staged in shared memory at once
-constexpr int kDwThreads = 256;  // >= kDwMaxTile: one thread per tile row
+// The geometry of one K4 (chunk, tap, slab) CTA: an mt x mt micro-tile
+// per thread (mt = 8 for blocks of at least 32 x 32, else 4) over the
+// C x slab block, thread groups over the hit rows when the block has fewer
+// micro-tiles than threads. A thread's mt rows (columns) are the 4-wide
+// chunks tc and tc + TC (to and to + TO) of the block, so each float4
+// shared load of a warp covers neighbouring 16-byte chunks. Shared memory:
+// the chunk's hit list (rows, then sources), then a ring of kDwStages
+// stages of `rows` hit rows (feats rows of cf floats, then g rows of cg
+// floats); all of it is reused at the end for the groups' partials.
+struct DwLayout {
+  int mt;       // micro-tile edge: 4 or 8
+  int slab;     // output channels per CTA, a multiple of mt
+  int n_slabs;
+  int tc, to;   // threads of a group along C and along the slab
+  int m;        // threads of a group: tc * to
+  int groups;   // thread groups taking interleaved hit rows
+  int cf, cg;   // floats per staged feats row and g row
+  int rows;     // hit rows per stage
+  int stage_floats;
+  long ring_off;
+  long smem;
+};
 
-__global__ void __launch_bounds__(kDwThreads) band_conv_dw_kernel(
-    const float* __restrict__ feats, const int* __restrict__ keys,
-    const int* __restrict__ base_keys, const int* __restrict__ valid_bits,
-    const int* __restrict__ blk, const float* __restrict__ g,
-    int n_in, int c_in, int c_out, int n_taps, int n_groups,
-    const int* __restrict__ geo, int bf16, int tile, int block,
-    int n_tiles, int n_out, int tiles_per_chunk,
+__host__ __device__ inline DwLayout dw_layout_of(int c_in, int c_out,
+                                                 int chunk_rows) {
+  DwLayout l;
+  l.mt = c_in >= 32 && c_out >= 32 ? 8 : 4;
+  l.n_slabs = (c_out + kDwMaxSlab - 1) / kDwMaxSlab;
+  l.slab = ((c_out + l.n_slabs - 1) / l.n_slabs + l.mt - 1) / l.mt * l.mt;
+  l.cf = (c_in + l.mt - 1) / l.mt * l.mt;
+  l.cg = l.slab;
+  l.tc = l.cf / l.mt;
+  l.to = l.slab / l.mt;
+  l.m = l.tc * l.to;   // <= kDwThreads: mt = 4 only when C or C' < 32
+  l.groups = kDwThreads / l.m;
+  int rows = kDwStageBudget / ((l.cf + l.cg) * 4) / 16 * 16;
+  l.rows = rows < 16 ? 16 : (rows > 256 ? 256 : rows);
+  l.stage_floats = l.rows * (l.cf + l.cg);
+  l.ring_off = (2L * chunk_rows * sizeof(int) + 15) / 16 * 16;
+  const long ring = l.ring_off + (long)kDwStages * l.stage_floats * 4;
+  const long red = (long)l.groups * l.m * l.mt * l.mt * 4;
+  l.smem = ring > red ? ring : red;
+  return l;
+}
+
+// K4's source pass: a CTA per plan tile writes src[k * n_rows + row] for
+// every tap k and row of the tile (-1: tap bit clear, key absent from the
+// window, row-valid bit clear or row >= n_out).
+__global__ void __launch_bounds__(kDwThreads) band_conv_dw_src_kernel(
+    const int* __restrict__ keys, const int* __restrict__ base_keys,
+    const int* __restrict__ valid_bits, const int* __restrict__ blk,
+    int n_in, int n_taps, int n_groups, const int* __restrict__ geo,
+    int tile, int block, int n_out, int* __restrict__ src) {
+  extern __shared__ int keys_s[];   // [G][2 * block]
+  __shared__ int geo_s[2 * kMaxTaps];
+  __shared__ int win_lo[kMaxGroups], win_len[kMaxGroups];
+  const int t = blockIdx.x, tid = threadIdx.x;
+  for (int i = tid; i < 2 * n_taps; i += kDwThreads) geo_s[i] = geo[i];
+  stage_windows(keys_s, win_lo, win_len, keys, blk + (long)t * n_groups,
+                n_groups, n_in, block, tid, kDwThreads);
+  __syncthreads();
+  const int per_row = kDwThreads / tile;   // threads per row
+  const int r = tid % tile, part = tid / tile;
+  if (part >= per_row) return;
+  const int row = t * tile + r;
+  int bits = valid_bits[row];
+  if (row >= n_out || !((bits >> kRowValidBit) & 1)) bits = 0;
+  search_taps(keys_s, 2 * block, win_lo, win_len, geo_s, n_taps, bits,
+              base_keys[row], part, per_row, src + row,
+              (long)gridDim.x * tile);
+}
+
+// K4's sums: CTA (chunk, tap k, slab) writes its part of dW[k] to
+// partial[chunk][k] (C x C'). kMT: the layout's micro-tile edge.
+template <int kMT>
+__global__ void __launch_bounds__(kDwThreads, 2) band_conv_dw_kernel(
+    const float* __restrict__ feats, const float* __restrict__ g,
+    const int* __restrict__ src, int c_in, int c_out, int n_taps, int bf16,
+    int n_rows, int chunk_rows, int vec4f, int vec4g,
     float* __restrict__ partial) {
-  __shared__ int row_s[kDwMaxTile];
-  __shared__ int src_s[kDwMaxTile];
-  __shared__ int warp_hits[kDwThreads / 32];
-  __shared__ float f_s[kDwStage][kDwCi];
-  __shared__ float g_s[kDwStage][kDwCo];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_cnt[2][kDwThreads / 32];
+  const DwLayout L = dw_layout_of(c_in, c_out, chunk_rows);
+  int* hit_row = reinterpret_cast<int*>(smem);
+  int* hit_src = hit_row + chunk_rows;
+  float* ring = reinterpret_cast<float*>(smem + L.ring_off);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.x, k = blockIdx.y;
+  const int co0 = blockIdx.z * L.slab;
+  const int r_begin = chunk * chunk_rows;
+  const int r_end = min(r_begin + chunk_rows, n_rows);
 
-  const int chunk = blockIdx.x;
-  const int n_co = (c_out + kDwCo - 1) / kDwCo;
-  const int co0 = (blockIdx.y % n_co) * kDwCo;
-  const int ci0 = (blockIdx.y / n_co) * kDwCi;
-  const int k = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int delta = geo[k], group = geo[n_taps + k];
-  const int c = tid >> 2;            // this thread's input channel
-  const int j0 = (tid & 3) * 4;      // and its 4 output channels
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  const int t_end = min((chunk + 1) * tiles_per_chunk, n_tiles);
-  for (int t = chunk * tiles_per_chunk; t < t_end; ++t) {
-    // 1) the source of each valid row for tap k, compacted in row order
-    const int row = t * tile + tid;
-    int src = -1;
-    if (tid < tile && row < n_out) {
-      const int bits = valid_bits[row];
-      if (((bits >> kRowValidBit) & 1) && ((bits >> k) & 1))
-        src = band_source(keys, n_in, base_keys[row] + delta,
-                          (long)blk[t * n_groups + group] * block, block);
-    }
-    const unsigned hits = __ballot_sync(0xffffffffu, src >= 0);
-    if (lane == 0) warp_hits[warp] = __popc(hits);
-    __syncthreads();
-    int before = 0, n_hit = 0;
-    for (int w = 0; w < kDwThreads / 32; ++w) {
-      before += w < warp ? warp_hits[w] : 0;
-      n_hit += warp_hits[w];
-    }
-    if (src >= 0) {
-      const int pos = before + __popc(hits & ((1u << lane) - 1u));
-      row_s[pos] = row;
-      src_s[pos] = src;
-    }
-    __syncthreads();
-
-    // 2) outer products of the hit rows, kDwStage rows at a time
-    for (int h0 = 0; h0 < n_hit; h0 += kDwStage) {
-      const int nh = min(kDwStage, n_hit - h0);
-      for (int i = tid; i < nh * kDwCi; i += kDwThreads) {
-        const int r = i / kDwCi, ci = ci0 + i % kDwCi;
-        f_s[r][i % kDwCi] = ci < c_in
-            ? maybe_bf16(feats[(long)src_s[h0 + r] * c_in + ci], bf16)
-            : 0.0f;
-      }
-      for (int i = tid; i < nh * kDwCo; i += kDwThreads) {
-        const int r = i / kDwCo, co = co0 + i % kDwCo;
-        g_s[r][i % kDwCo] = co < c_out
-            ? maybe_bf16(g[(long)row_s[h0 + r] * c_out + co], bf16)
-            : 0.0f;
-      }
-      __syncthreads();
-      for (int r = 0; r < nh; ++r) {
-        const float x = f_s[r][c];
+  // 1) the chunk's rows with a tap-k source, in row order; every load
+  //    first, so their latencies overlap
+  const int* src_k = src + (long)k * n_rows;
+  int sv[kDwRounds];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] = fmaf(x, g_s[r][j0 + j], acc[j]);
-      }
-      __syncthreads();
-    }
+  for (int it = 0; it < kDwRounds; ++it) {
+    const int row = r_begin + it * kDwThreads + tid;
+    sv[it] = row < r_end ? src_k[row] : -1;
   }
-
-  const int ci = ci0 + c;
-  if (ci < c_in) {
-    float* dst = partial + ((long)chunk * n_taps + k) * c_in * c_out
-        + (long)ci * c_out;
+  int n_hit = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + j0 + j;
-      if (co < c_out) dst[co] = acc[j];
+  for (int it = 0; it < kDwRounds; ++it) {
+    if (r_begin + it * kDwThreads >= r_end) break;   // uniform
+    const int row = r_begin + it * kDwThreads + tid;
+    const int s = sv[it];
+    const unsigned b = __ballot_sync(0xffffffffu, s >= 0);
+    int* cnt = warp_cnt[it & 1];   // double-buffered: one barrier a round
+    if (lane == 0) cnt[warp] = __popc(b);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kDwThreads / 32; ++w) {
+      before += w < warp ? cnt[w] : 0;
+      total += cnt[w];
     }
+    if (s >= 0) {
+      const int pos = n_hit + before + __popc(b & ((1u << lane) - 1u));
+      hit_row[pos] = row;
+      hit_src[pos] = s;
+    }
+    n_hit += total;
+  }
+  __syncthreads();
+
+  // 2) per stage, the hit rows' feats (cf columns) and g slab (cg columns)
+  //    copied with cp.async, zeros past C and C'; the same units walked
+  //    again by the same thread to round them to bf16 once they landed
+  //    (thread tid takes units tid, tid + kDwThreads, ... of the stage's
+  //    rows of w = fw + gw units: row and column stepped without division)
+  const int fw = vec4f ? L.cf / 4 : L.cf, gw = vec4g ? L.cg / 4 : L.cg;
+  const int w = fw + gw;
+  const int r_first = tid / w, j_first = tid - r_first * w;
+  const int dr = kDwThreads / w, dj = kDwThreads - dr * w;
+  auto units = [&](int s, bool round) {
+    const int h0 = s * L.rows, nh = min(L.rows, n_hit - h0);
+    float* fd = ring + (long)(s % kDwStages) * L.stage_floats;
+    float* gd = fd + L.rows * L.cf;
+    int r = r_first, j = j_first;
+    for (; r < nh; r += dr, j += dj) {
+      if (j >= w) { j -= w; ++r; if (r >= nh) break; }
+      const bool is_f = j < fw;
+      const bool v4 = is_f ? vec4f : vec4g;
+      const int c = (is_f ? j : j - fw) * (v4 ? 4 : 1);
+      float* d = is_f ? fd + r * L.cf + c : gd + r * L.cg + c;
+      if (round) {
+        if (v4) {
+          float4 x = *reinterpret_cast<float4*>(d);
+          x.x = maybe_bf16(x.x, true); x.y = maybe_bf16(x.y, true);
+          x.z = maybe_bf16(x.z, true); x.w = maybe_bf16(x.w, true);
+          *reinterpret_cast<float4*>(d) = x;
+        } else {
+          *d = maybe_bf16(*d, true);
+        }
+        continue;
+      }
+      const bool in = is_f ? c < c_in : co0 + c < c_out;
+      const float* sp = is_f
+          ? (in ? feats + (long)hit_src[h0 + r] * c_in + c : feats)
+          : (in ? g + (long)hit_row[h0 + r] * c_out + co0 + c : g);
+      if (v4) cp_async16_ca(d, sp, in ? 16 : 0);
+      else cp_async4(d, sp, in ? 4 : 0);
+    }
+  };
+
+  // 3) the ring: each thread's micro-tile (kMT input x kMT output
+  //    channels) summed over its group's hit rows, in row order
+  const int grp = tid / L.m, i_mt = tid - grp * L.m;
+  const bool busy = grp < L.groups;
+  const int tc = i_mt / L.to, to = i_mt - tc * L.to;
+  // the float offset of chunk q (0 .. kMT/4 - 1) of this thread's rows and
+  // columns in a staged row
+  auto f_off = [&](int q) { return 4 * (tc + L.tc * q); };
+  auto g_off = [&](int q) { return 4 * (to + L.to * q); };
+  float acc[kMT * kMT];
+#pragma unroll
+  for (int q = 0; q < kMT * kMT; ++q) acc[q] = 0.0f;
+  const int n_stage = (n_hit + L.rows - 1) / L.rows;
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < n_stage) units(s, false);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_stage; ++s) {
+    if (s + kDwStages - 1 < n_stage) units(s + kDwStages - 1, false);
+    cp_async_commit();
+    cp_async_wait(kDwStages - 1);
+    if (bf16) units(s, true);
+    __syncthreads();
+    const float* fs = ring + (long)(s % kDwStages) * L.stage_floats;
+    const float* gs = fs + L.rows * L.cf;
+    const int nh = min(L.rows, n_hit - s * L.rows);
+    if (busy) {
+#pragma unroll 2
+      for (int h = grp; h < nh; h += L.groups) {
+        float av[kMT], bv[kMT];
+#pragma unroll
+        for (int q = 0; q < kMT / 4; ++q) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              fs + h * L.cf + f_off(q));
+          const float4 b = *reinterpret_cast<const float4*>(
+              gs + h * L.cg + g_off(q));
+          av[4 * q] = a.x; av[4 * q + 1] = a.y;
+          av[4 * q + 2] = a.z; av[4 * q + 3] = a.w;
+          bv[4 * q] = b.x; bv[4 * q + 1] = b.y;
+          bv[4 * q + 2] = b.z; bv[4 * q + 3] = b.w;
+        }
+#pragma unroll
+        for (int u = 0; u < kMT; ++u)
+#pragma unroll
+          for (int v = 0; v < kMT; ++v)
+            acc[kMT * u + v] = fmaf(av[u], bv[v], acc[kMT * u + v]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait(0);
+
+  // 4) the block to partial[chunk][k]; groups' partials added in order
+  float* dst = partial + ((long)chunk * n_taps + k) * c_in * c_out;
+  // element q of micro-tile (tc_, to_): row chunk u / 4, column chunk v / 4
+  auto put = [&](int tc_, int to_, int q, float v) {
+    const int u = q / kMT, x = q - u * kMT;
+    const int ci = 4 * (tc_ + L.tc * (u >> 2)) + (u & 3);
+    const int co = co0 + 4 * (to_ + L.to * (x >> 2)) + (x & 3);
+    if (ci < c_in && co < c_out) dst[(long)ci * c_out + co] = v;
+  };
+  if (L.groups == 1) {
+    if (busy)
+#pragma unroll
+      for (int q = 0; q < kMT * kMT; ++q) put(tc, to, q, acc[q]);
+    return;
+  }
+  __syncthreads();     // the hit list and the ring are dead
+  float* red = reinterpret_cast<float*>(smem);   // [groups][m][kMT^2]
+  if (busy)
+#pragma unroll
+    for (int q = 0; q < kMT * kMT; ++q)
+      red[tid * kMT * kMT + q] = acc[q];   // group grp, thread i_mt
+  __syncthreads();
+  const int n_el = L.m * kMT * kMT;
+  for (int e = tid; e < n_el; e += kDwThreads) {
+    float v = 0.0f;
+    for (int j = 0; j < L.groups; ++j) v += red[j * n_el + e];
+    const int i = e / (kMT * kMT);
+    put(i / L.to, i - (i / L.to) * L.to, e - i * kMT * kMT, v);
   }
 }
 
@@ -664,14 +553,18 @@ __global__ void band_conv_dw_sum_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
+// Bytes of K4's source table, rounded up; the partials follow it.
+long dw_src_bytes(int n_taps, int n_tiles, int tile) {
+  return ((long)n_taps * n_tiles * tile * sizeof(int) + 255) / 256 * 256;
+}
+
 }  // namespace
 
 extern "C" long band_conv_fwd_scratch_bytes(int c_in, int c_out, int n_taps,
                                             int bf16) {
   // bytes of the prepped weights band_conv_fwd takes as `wprep`
   const Layout l = layout_of(c_in, c_out, n_taps, 1, 1, bf16 != 0);
-  const bool transposed = bf16 && !l.row_mode;
-  return (long)n_taps * l.ck * l.n_pad * (transposed ? 2 : 4);
+  return prepped_weight_bytes(l, n_taps, bf16 != 0);
 }
 
 extern "C" int band_conv_fwd(
@@ -691,14 +584,8 @@ extern "C" int band_conv_fwd(
   const Layout l = layout_of(c_in, c_out, n_taps, n_groups, block, bf16 != 0);
   if (l.smem > kSmemMax) return -1;
   const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
-
-  const long total = (long)n_taps * l.ck * l.n_pad;
-  const int prep_blocks = (int)((total + 255) / 256 < 1024
-                                ? (total + 255) / 256 : 1024);
-  band_conv_prep_kernel<<<prep_blocks, 256, 0, stream>>>(
-      weights, n_taps, c_in, c_out, l.ck, l.n_pad, bf16 && !l.row_mode,
-      bf16, wprep);
-  int err = (int)cudaGetLastError();
+  int err = prep_weights(weights, n_taps, c_in, c_out, l, bf16 != 0, wprep,
+                         stream);
   if (err != 0) return err;
 
   if (l.row_mode) {
@@ -723,20 +610,25 @@ extern "C" int band_conv_fwd(
       band_conv_kernel<true, 2>, band_conv_kernel<true, 8>};
   static long smem_set[4] = {0, 0, 0, 0};  // largest size granted
   const int v = 2 * (bf16 != 0) + (l.slab > 16);
-  if (l.smem > 48 * 1024 && l.smem > smem_set[v]) {
-    err = (int)cudaFuncSetAttribute(
-        kernels[v], cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)l.smem);
-    if (err != 0) return err;
-    smem_set[v] = l.smem;
-  }
-  const int cpt = (tile + kRows - 1) / kRows;
+  err = allow_smem(kernels[v], l.smem, &smem_set[v]);
+  if (err != 0) return err;
+  const int cpt = (tile + kTileRows - 1) / kTileRows;
   const dim3 grid((unsigned)((long)n_tiles * cpt), (unsigned)l.n_slabs);
-  kernels[v]<<<grid, kThreads, l.smem, stream>>>(
+  kernels[v]<<<grid, kTileThreads, l.smem, stream>>>(
       feats, keys, base_keys, valid_bits, blk, wprep, n_in, c_in, c_out,
       n_taps, n_groups, geo, scale, bias, affine, relu, tile, block, n_out,
       vec4, out);
   return (int)cudaGetLastError();
+}
+
+extern "C" long band_conv_dw_scratch_bytes(int n_taps, int c_in, int c_out,
+                                           int n_tiles, int tile,
+                                           int tiles_per_chunk) {
+  // the source table src[K][n_tiles * tile] int32, then the per-chunk
+  // partials (chunks, K, C, C') f32
+  const long n_chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  return dw_src_bytes(n_taps, n_tiles, tile) +
+         n_chunks * n_taps * c_in * c_out * (long)sizeof(float);
 }
 
 extern "C" int band_conv_dw(
@@ -744,22 +636,49 @@ extern "C" int band_conv_dw(
     const int* valid_bits, const int* blk, const float* g,
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* geo, int bf16, int tile, int block, int n_tiles, int n_out,
-    int tiles_per_chunk, float* partial, float* out, cudaStream_t stream) {
-  // partial holds ceil(n_tiles / tiles_per_chunk) * n_taps * c_in * c_out
-  // floats; out is (n_taps, c_in, c_out).
-  if (n_taps > kMaxTaps || tile > kDwMaxTile || tiles_per_chunk < 1)
+    int tiles_per_chunk, void* scratch, float* out, cudaStream_t stream) {
+  // scratch holds band_conv_dw_scratch_bytes bytes; out is
+  // (n_taps, c_in, c_out).
+  if (n_taps < 1 || n_taps > kMaxTaps || c_in < 1 || c_in > kMaxCin ||
+      c_out < 1 || n_groups < 1 || n_groups > kMaxGroups || tile < 1 ||
+      tile > kDwMaxTile || block < 1 || block > kMaxBlock ||
+      tiles_per_chunk < 1 || (long)tiles_per_chunk * tile > kDwMaxChunk)
     return -1;
   const long n = (long)n_taps * c_in * c_out;
   const int n_chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  float* partial = reinterpret_cast<float*>(
+      static_cast<char*>(scratch) + dw_src_bytes(n_taps, n_tiles, tile));
+  int err = 0;
   if (n_chunks > 0) {
-    const int n_slabs =
-        ((c_in + kDwCi - 1) / kDwCi) * ((c_out + kDwCo - 1) / kDwCo);
-    const dim3 grid(n_chunks, n_slabs, n_taps);
-    band_conv_dw_kernel<<<grid, kDwThreads, 0, stream>>>(
-        feats, keys, base_keys, valid_bits, blk, g, n_in, c_in, c_out,
-        n_taps, n_groups, geo, bf16, tile, block, n_tiles, n_out,
-        tiles_per_chunk, partial);
-    const int err = (int)cudaGetLastError();
+    int* src = static_cast<int*>(scratch);
+    const long keys_smem = (long)n_groups * 2 * block * sizeof(int);
+    static long src_smem_set = 0;
+    err = allow_smem(band_conv_dw_src_kernel, keys_smem, &src_smem_set);
+    if (err != 0) return err;
+    band_conv_dw_src_kernel<<<n_tiles, kDwThreads, keys_smem, stream>>>(
+        keys, base_keys, valid_bits, blk, n_in, n_taps, n_groups, geo, tile,
+        block, n_out, src);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+
+    const int n_rows = n_tiles * tile;
+    const int chunk_rows = min(tiles_per_chunk * tile, n_rows);
+    const DwLayout l = dw_layout_of(c_in, c_out, chunk_rows);
+    if (l.smem > kSmemMax) return -1;
+    using Kernel = decltype(&band_conv_dw_kernel<4>);
+    static const Kernel kernels[2] = {band_conv_dw_kernel<4>,
+                                      band_conv_dw_kernel<8>};
+    static long smem_set[2] = {0, 0};
+    const int v = l.mt == 8;
+    err = allow_smem(kernels[v], l.smem, &smem_set[v]);
+    if (err != 0) return err;
+    const int vec4f = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+    const int vec4g = c_out % 4 == 0 && (uintptr_t)g % 16 == 0;
+    const dim3 grid(n_chunks, n_taps, l.n_slabs);
+    kernels[v]<<<grid, kDwThreads, l.smem, stream>>>(
+        feats, g, src, c_in, c_out, n_taps, bf16, n_rows, chunk_rows, vec4f,
+        vec4g, partial);
+    err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   band_conv_dw_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(

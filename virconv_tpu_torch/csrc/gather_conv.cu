@@ -19,18 +19,30 @@
 // Window indices at or past the feature rows (the JAX entry function's
 // zero padding) contribute zero and are not misses.
 //
-// Both kernels: one CTA per (64-row chunk, 64-output-channel slab) with 256
-// threads, each thread 4 rows x 4 output channels in registers. The CTA
-// resolves the source row of each of its (row, tap) pairs once, then per tap
-// stages its gathered rows and W[k] 32 input channels at a time in shared
-// memory; a tap that no row of the chunk hits is skipped. Misses are summed
-// per row tile in shared memory and added with integer atomics (the same
-// counts on every run). Sums run in tap order, then channel order, in f32
-// with fmaf (the build passes --fmad=false).
+// K5, and K6 with f32 operands (or inputs wider than kMaxCin): one CTA per
+// (64-row chunk, 64-output-channel slab) with 256 threads, each thread 4
+// rows x 4 output channels in registers. The CTA resolves the source row of
+// each of its (row, tap) pairs once, then per tap stages its gathered rows
+// and W[k] 32 input channels at a time in shared memory; a tap that no row
+// of the chunk hits is skipped. Sums run in tap order, then channel order,
+// in f32 with fmaf (the build passes --fmad=false).
+//
+// K6 with bf16 operands takes K1's gathered-row conv (common.cuh) once its
+// sources are read from nmap under the window rule: tile mode (a 64-row
+// CTA, an output slab fitted to C', per-16-row-fragment tap skip, the hit
+// rows copied with cp.async into a ring, A fragments rounded to bf16 in
+// registers and mma.sync m16n8k16 against W[k]^T rounded and transposed
+// once per call by the prep kernel, f32 sums), or for C <= 8 and C' <= 16
+// row mode (a thread per row sums only its hit taps against weights
+// resident in shared memory). The caller picks the mode
+// (ops/onehot_conv.py::kernel_mode); the entry point refuses any other.
+//
+// All kernels count misses per row tile in shared memory and add them with
+// integer atomics (the same counts on every run).
 //
 // Bound: 2*C*C' operations per in-window (row, tap) hit against one gathered
-// row of C values, so compute-bound at the model's widths; this version runs
-// the multiply-adds on CUDA cores, not tensor cores.
+// row of C values: the f32 operations for K5 (CUDA cores), the bytes of the
+// inputs for K6's bf16 operands on the tensor cores.
 
 #include "common.cuh"
 
@@ -41,6 +53,10 @@ constexpr int kCols = 64;      // output channels per CTA
 constexpr int kCi = 32;        // input channels staged at once
 constexpr int kThreads = 256;  // 16 x 16: 4 rows x 4 channels each
 constexpr int kMaxTaps = 64;
+constexpr int kMaxCin = 128;   // K6's bf16 tile mode: widest input row
+constexpr int kModeFma = 0;    // K6's modes (ops/onehot_conv.py)
+constexpr int kModeTile = 1;
+constexpr int kModeRow = 2;
 
 // kOneHot selects K6's window (blk table) over K5's (tile position).
 template <bool kOneHot>
@@ -174,6 +190,132 @@ __global__ void __launch_bounds__(kThreads) onehot_conv_kernel(
                          misses);
 }
 
+// K6's window rule for (row, tap k) of a row below n0: the source row, or
+// -1 when the neighbor is missing, at or past the n0 feature rows (zero
+// padding, not a miss) or outside the tile's window (a miss, counted in
+// miss_s[row / tile - tile0]).
+__device__ __forceinline__ int onehot_source(const int* __restrict__ nmap,
+                                             const int* __restrict__ blk,
+                                             int row, int k, int n_taps,
+                                             int n0, int tile, int block,
+                                             int tile0, int* miss_s) {
+  const int idx = nmap[(long)row * n_taps + k];
+  if (idx < 0) return -1;
+  const int t = row / tile;
+  const long lo = (long)blk[(long)t * n_taps + k] * block;
+  if (idx >= lo && idx < lo + 2L * block) return idx < n0 ? idx : -1;
+  atomicAdd(&miss_s[t - tile0], 1);
+  return -1;
+}
+
+// K6 bf16, tile mode: CTA (64 rows, output slab). kNT: the most 8-channel
+// column tiles of a slab this instantiation takes.
+template <int kNT>
+__global__ void __launch_bounds__(kTileThreads) onehot_tile_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap,
+    const int* __restrict__ blk, const void* __restrict__ wprep, int n0,
+    int c_in, int c_out, int n_taps, int tile, int block, int vec4,
+    float* __restrict__ out, int* __restrict__ misses) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int tap_mask[kMaxTaps];   // bit f: fragment f has a hit
+  __shared__ int tap_list[kMaxTaps];   // taps with any hit, in tap order
+  __shared__ int n_active;
+  __shared__ int miss_s[kTileRows];
+  const Layout L = layout_of(c_in, c_out, n_taps, 0, 0, true);
+  int* src_s = reinterpret_cast<int*>(smem);   // [K][kTileRows]
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kTileRows;
+  const int s0 = blockIdx.y * L.slab;
+  const int tile0 = row0 / tile;   // the CTA spans at most 64 row tiles
+  if (tid < kTileRows) miss_s[tid] = 0;
+  __syncthreads();
+  // 1) the source of every (row, tap) of the CTA, nmap read in order
+  for (int i = tid; i < kTileRows * n_taps; i += kTileThreads) {
+    const int r = i / n_taps, k = i - r * n_taps;
+    const int row = row0 + r;
+    src_s[k * kTileRows + r] = row < n0 ? onehot_source(
+        nmap, blk, row, k, n_taps, n0, tile, block, tile0, miss_s) : -1;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0 && tid < kTileRows && miss_s[tid] != 0)
+    atomicAdd(&misses[tile0 + tid], miss_s[tid]);
+  // 2) the taps each 16-row fragment hits and the ring over them
+  float acc[4 * kNT];
+  tile_sums<true, kNT>(acc, src_s, smem + L.area_off, L, feats, c_in, vec4,
+                       wprep, s0, n_taps, tap_mask, tap_list, n_active);
+  tile_store<true, kNT>(acc, L, s0, [&](int rl, int co, float v) {
+    const int row = row0 + rl;
+    if (row < n0 && co < c_out) out[(long)row * c_out + co] = v;
+  });
+}
+
+// K6 bf16, row mode (C <= 8, C' <= kCout): a thread per output row; the
+// CTA's sources are read from nmap in order into a shared (tap, row) table,
+// then each thread sums its hit taps against the resident weights.
+template <int kCout>
+__global__ void __launch_bounds__(kRowThreads) onehot_row_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap,
+    const int* __restrict__ blk, const float* __restrict__ wprep, int n0,
+    int c_in, int c_out, int n_taps, int tile, int block, int vec4,
+    float* __restrict__ out, int* __restrict__ misses) {
+  extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout), then
+                                                // the sources [K][128]
+  __shared__ int miss_s[kRowThreads];
+  int* src_s = reinterpret_cast<int*>(w_s + n_taps * c_in * kCout);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRowThreads;
+  const int tile0 = row0 / tile;   // the CTA spans at most 128 row tiles
+  for (int i = tid; i < n_taps * c_in * kCout; i += kRowThreads)
+    w_s[i] = wprep[i];
+  miss_s[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < kRowThreads * n_taps; i += kRowThreads) {
+    const int r = i / n_taps, k = i - r * n_taps;
+    const int row = row0 + r;
+    src_s[k * kRowThreads + r] = row < n0 ? onehot_source(
+        nmap, blk, row, k, n_taps, n0, tile, block, tile0, miss_s) : -1;
+  }
+  __syncthreads();
+  if (miss_s[tid] != 0) atomicAdd(&misses[tile0 + tid], miss_s[tid]);
+  const int row = row0 + tid;
+  if (row >= n0) return;
+  float acc[kCout];
+  row_sums<true, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
+#pragma unroll
+  for (int j = 0; j < kCout; ++j) {
+    if (j >= c_out) break;
+    out[(long)row * c_out + j] = acc[j];
+  }
+}
+
+// K6's window table, the entry function's index work (ops/onehot_conv.py::
+// window_blocks): a CTA per row tile t of the n_pad padded rows takes lo,
+// the least valid neighbor index of each tap k over the tile's rows (0 if
+// none), and writes blk[t][k] = clamp(lo / block, 0, n_pad / block - 2);
+// it zeroes the tile's miss count.
+__global__ void __launch_bounds__(256) onehot_window_kernel(
+    const int* __restrict__ nmap, int n0, int n_taps, int tile, int block,
+    long n_pad, int* __restrict__ blk, int* __restrict__ misses) {
+  extern __shared__ int lo_s[];   // [n_taps]
+  const int t = blockIdx.x, tid = threadIdx.x;
+  for (int k = tid; k < n_taps; k += blockDim.x) lo_s[k] = 0x7fffffff;
+  __syncthreads();
+  const long r0 = (long)t * tile;
+  const long r1 = r0 + tile < n0 ? r0 + tile : n0;
+  for (long i = r0 * n_taps + tid; i < r1 * n_taps; i += blockDim.x) {
+    const int idx = nmap[i];
+    if (idx >= 0) atomicMin(&lo_s[(int)(i % n_taps)], idx);
+  }
+  __syncthreads();
+  const int hi = (int)(n_pad / block) - 2;
+  for (int k = tid; k < n_taps; k += blockDim.x) {
+    const int lo = lo_s[k] == 0x7fffffff ? 0 : lo_s[k];
+    const int b = lo / block;
+    blk[(long)t * n_taps + k] = b < 0 ? 0 : (b > hi ? hi : b);
+  }
+  if (tid == 0) misses[t] = 0;
+}
+
 dim3 grid_of(int n_rows, int c_out) {
   return dim3((unsigned)((n_rows + kRows - 1) / kRows),
               (unsigned)((c_out + kCols - 1) / kCols));
@@ -197,21 +339,83 @@ extern "C" int gather_conv_fwd(const float* feats, const int* nmap,
   return (int)cudaGetLastError();
 }
 
+extern "C" int onehot_window_blocks(const int* nmap, int n0, int n_taps,
+                                    int tile, int block, int* blk,
+                                    int* misses, cudaStream_t stream) {
+  // nmap (n0, n_taps); blk (n_pad / tile, n_taps) and misses (n_pad /
+  // tile,) with n_pad = n0 + (-n0 mod block) + block: blk gets the window
+  // start block of each (row tile, tap), misses zeros.
+  if (n_taps < 1 || n_taps > kMaxTaps || tile < 1 || block < 1 ||
+      block % tile != 0 || n0 < 0)
+    return -1;
+  const long n_pad = n0 + (block - n0 % block) % block + block;
+  onehot_window_kernel<<<(unsigned)(n_pad / tile), 256,
+                         n_taps * sizeof(int), stream>>>(
+      nmap, n0, n_taps, tile, block, n_pad, blk, misses);
+  return (int)cudaGetLastError();
+}
+
+extern "C" long onehot_conv_scratch_bytes(int c_in, int c_out, int n_taps,
+                                         int mode) {
+  // bytes of the prepped weights onehot_conv_fwd takes as `wprep`
+  if (mode == kModeFma) return 0;
+  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, true);
+  return prepped_weight_bytes(l, n_taps, true);
+}
+
 extern "C" int onehot_conv_fwd(const float* feats, const int* nmap,
                                const float* weights, const int* blk, int n0,
                                int c_in, int c_out, int n_taps, int tile,
-                               int block, int bf16, float* out, int* misses,
+                               int block, int bf16, int mode, void* wprep,
+                               float* out, int* misses,
                                cudaStream_t stream) {
   // feats (n0, c_in), nmap (n0, n_taps); blk (tiles, n_taps) window start
   // blocks over the padded rows; out (n0, c_out); misses (tiles,) zeroed by
-  // the caller.
+  // the caller; wprep holds onehot_conv_scratch_bytes bytes. mode: kModeRow
+  // for bf16 with C <= kRowMaxCin and C' <= kRowMaxCout, else kModeTile for
+  // bf16 with C <= kMaxCin, else kModeFma.
   if (n_taps < 1 || n_taps > kMaxTaps || tile < 1 || block < 1 ||
       c_out < 1)
     return -1;
+  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, true);
+  const int want = !bf16 || c_in > kMaxCin ? kModeFma
+                 : l.row_mode ? kModeRow : kModeTile;
+  if (mode != want) return -1;
   if (n0 == 0) return 0;
-  onehot_conv_kernel<<<grid_of(n0, c_out), kThreads,
-                       n_taps * kRows * sizeof(int), stream>>>(
-      feats, nmap, weights, blk, n0, c_in, c_out, n_taps, tile, block, bf16,
+  if (mode == kModeFma) {
+    onehot_conv_kernel<<<grid_of(n0, c_out), kThreads,
+                         n_taps * kRows * sizeof(int), stream>>>(
+        feats, nmap, weights, blk, n0, c_in, c_out, n_taps, tile, block,
+        bf16, out, misses);
+    return (int)cudaGetLastError();
+  }
+  const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+  int err = prep_weights(weights, n_taps, c_in, c_out, l, true, wprep,
+                         stream);
+  if (err != 0) return err;
+  if (mode == kModeRow) {
+    const auto kernel = l.slab == 8 ? onehot_row_kernel<8>
+                                    : onehot_row_kernel<kRowMaxCout>;
+    static long smem_set[2] = {0, 0};
+    const long smem = l.smem + (long)n_taps * kRowThreads * sizeof(int);
+    err = allow_smem(kernel, smem, &smem_set[l.slab != 8]);
+    if (err != 0) return err;
+    kernel<<<(unsigned)((n0 + kRowThreads - 1) / kRowThreads), kRowThreads,
+             smem, stream>>>(feats, nmap, blk,
+                             static_cast<const float*>(wprep), n0, c_in,
+                             c_out, n_taps, tile, block, vec4, out, misses);
+    return (int)cudaGetLastError();
+  }
+  if (l.smem > kSmemMax) return -1;
+  const auto kernel = l.slab > 16 ? onehot_tile_kernel<8>
+                                  : onehot_tile_kernel<2>;
+  static long smem_set[2] = {0, 0};
+  err = allow_smem(kernel, l.smem, &smem_set[l.slab > 16]);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)((n0 + kTileRows - 1) / kTileRows),
+                  (unsigned)l.n_slabs);
+  kernel<<<grid, kTileThreads, l.smem, stream>>>(
+      feats, nmap, blk, wprep, n0, c_in, c_out, n_taps, tile, block, vec4,
       out, misses);
   return (int)cudaGetLastError();
 }

@@ -192,10 +192,28 @@ def band_conv_dw(feats, keys, plan: BandPlan, g, valid_bits=None,
 
 # CUDA kernel limits (csrc/band_conv.cu): K1's tile mode stages 2 * block
 # keys per tap group and up to MAX_CIN input channels per row in shared
-# memory; K4 runs one thread per tile row.
+# memory; K4's source pass does the same with a CTA per tile of at most
+# DW_MAX_TILE rows, and a K4 CTA lists the hit rows of its chunk (at most
+# DW_MAX_CHUNK rows) in shared memory and owns at most DW_MAX_SLAB output
+# channels.
 MAX_TAPS, MAX_CIN, MAX_GROUPS, MAX_BLOCK = 30, 128, 3, 2048
-DW_MAX_TILE = 256
-DW_TILES_PER_CHUNK = 16
+DW_MAX_TILE, DW_MAX_CHUNK, DW_MAX_SLAB = 256, 2048, 64
+# K4 CTAs a call aims at: three waves of two per SM of an H100 (132 SMs).
+# Taps hit unevenly (the centre tap every row); smaller chunks even the
+# waves out.
+DW_TARGET_CTAS = 6 * 132
+
+
+def dw_tiles_per_chunk(n_tiles: int, tile: int, n_taps: int,
+                       c_out: int) -> int:
+    """Plan tiles per K4 chunk: enough chunks that the (chunk, tap, output
+    slab) grid holds about DW_TARGET_CTAS CTAs, each chunk at most
+    DW_MAX_CHUNK rows."""
+    slabs = -(-c_out // DW_MAX_SLAB)
+    chunks = -(-DW_TARGET_CTAS // (n_taps * slabs))
+    return max(1, min(-(-n_tiles // chunks), DW_MAX_CHUNK // tile))
+
+
 _geometry_cache = {}
 
 
@@ -281,18 +299,19 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
 
 
 def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
-    """Launch ``band_conv_dw`` (csrc/band_conv.cu): per (tap, 64 input x 16
-    output channel slab, chunk of DW_TILES_PER_CHUNK tiles) one CTA sums the
-    outer products of its hit rows in registers into a partial; a second
+    """Launch ``band_conv_dw`` (csrc/band_conv.cu): a source pass searches
+    every (row, tap) source once in the tile's window keys staged in shared
+    memory; then one CTA per (chunk of ``dw_tiles_per_chunk`` tiles, tap,
+    output slab) lists its chunk's hit rows, gathers their feats and g rows
+    with cp.async into a ring and sums the whole C x C' block in registers
+    (8 x 8 or 4 x 4 per thread, fmaf on CUDA cores) into a partial; a third
     kernel adds the partials in chunk order.
 
     Replaces virconv_tpu/ops/pallas/band_conv.py::_dw_kernel, whose single
     resident (K*C, C') accumulator over a sequential grid has no
-    counterpart across unordered CTAs. Bound: 2*C*C' flops per (row, tap)
-    hit against one gathered feats row and one g row, so compute-bound in
-    principle; this version runs f32 FMAs on CUDA cores, re-gathers each
-    row once per output-channel slab, and moves the partials (chunks x K x
-    C x C' floats) through memory once."""
+    counterpart across unordered CTAs. Bound: 2*C*C' operations per valid
+    (row, tap) hit against one gathered feats row and one g row, at the
+    f32 peak (the training path's operands)."""
     global dw_launches
     from . import _cuda
     dev = feats.device
@@ -309,15 +328,21 @@ def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
     if keys.shape[0] != n_in or g.shape[0] != plan.n_out \
             or vb.shape != plan.base_keys.shape:
         raise ValueError('band_conv_dw: inconsistent feats/keys/g/plan')
-    if k > MAX_TAPS or plan.tile > DW_MAX_TILE:
-        raise ValueError(f'band_conv_dw kernel limits: K={k} '
+    n_groups = max(plan.group_of) + 1
+    if (k > MAX_TAPS or c_in > MAX_CIN or n_groups > MAX_GROUPS
+            or plan.block > MAX_BLOCK or plan.tile > DW_MAX_TILE):
+        raise ValueError(f'band_conv_dw kernel limits: K={k} C={c_in} '
+                         f'groups={n_groups} block={plan.block} '
                          f'tile={plan.tile}')
     n_tiles = plan.base_keys.shape[0]
-    n_chunks = -(-n_tiles // DW_TILES_PER_CHUNK)
-    partial = torch.empty((max(n_chunks, 1), k, c_in, c_out),
-                          dtype=torch.float32, device=dev)
-    out = torch.empty((k, c_in, c_out), dtype=torch.float32, device=dev)
+    per_chunk = dw_tiles_per_chunk(n_tiles, plan.tile, k, c_out)
     lib = _cuda.load('band_conv')
+    size = lib.band_conv_dw_scratch_bytes
+    size.restype = ctypes.c_long
+    size.argtypes = [ctypes.c_int] * 6
+    scratch = torch.empty((size(k, c_in, c_out, n_tiles, plan.tile,
+                                per_chunk),), dtype=torch.uint8, device=dev)
+    out = torch.empty((k, c_in, c_out), dtype=torch.float32, device=dev)
     fn = lib.band_conv_dw
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -325,10 +350,10 @@ def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
                    + [ctypes.c_void_p] * 3)
     err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
              _cuda.ptr(vb), _cuda.ptr(plan.blk), _cuda.ptr(g),
-             n_in, c_in, c_out, k, max(plan.group_of) + 1,
+             n_in, c_in, c_out, k, n_groups,
              _cuda.ptr(_geometry(plan, dev)), int(bf16), plan.tile,
-             plan.block, n_tiles, plan.n_out, DW_TILES_PER_CHUNK,
-             _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream_ptr(dev))
+             plan.block, n_tiles, plan.n_out, per_chunk,
+             _cuda.ptr(scratch), _cuda.ptr(out), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'band_conv_dw launch failed: CUDA error {err}')
     dw_launches += 1
