@@ -32,14 +32,16 @@ Phases (each prints one line; any failure exits non-zero):
      with the same weights and the same random draws (drawn once on the
      CPU), TF32 off: loss and every gradient compared;
   8. the windowed gather convs K5 (``fused_gather_conv``, f32, tile 512)
-     and K6 (``onehot_gather_conv``, tile 256, block 2048) on the neighbor
-     maps of all 24 submanifold convs of one full-width request (captured
-     from a warm-up forward), once each with every launch count set to 0
-     just before and read just after; then per conv: kernel vs plain
-     (identical misses; K6 with bf16 and f32 operands, named by the mode
-     its bf16 call took), agreement with K1's raw output on the rows of
-     tiles with no misses, kernel, plain and K1 times, the bound; sums per
-     request and misses per layer;
+     and K6 (``onehot_gather_conv``, tile 256, block 2048, bf16 and f32
+     operands) on the neighbor maps of all 24 submanifold convs of one
+     full-width request (captured from a warm-up forward), once each with
+     every launch count set to 0 just before and read just after, each
+     call in the mode ``kernel_mode`` picks (row and tile modes both
+     launched); then per conv: kernel vs plain (identical misses), and on
+     the rows of tiles with no misses whose K1 tile fits, K1's raw output
+     with the same operand type (f32: K5 and K6 bit for bit; bf16: within
+     1e-4, bit equality reported), kernel, plain and K1 times, the bound;
+     sums per request and misses per layer;
 then one JSON line of per-kernel numbers (times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
 requests, the phase 6 steps and the phase 8 path), the card's name and
@@ -380,13 +382,15 @@ def gather_layers(cap):
     return layers
 
 
-def check_windowed(line, label, got, want, k1_out, fits, tile):
+def check_windowed(line, label, got, want, k1_out, fits, tile, exact):
     """One windowed gather conv, kernel ``got`` vs plain ``want`` (each
     (out, misses)): identical misses, outputs within 1e-4 x max(1,
     max|plain|); and on the rows of tiles with no misses whose K1 tile
-    fits, K1's raw output on the same operands within the same tolerance.
-    That is no bit-equality: K1 sums bf16 operands on the tensor cores, in
-    another order than K6's fmaf chain. Returns the misses."""
+    fits, K1's raw output on the same operands. With ``exact`` (f32
+    operands: the same sources summed in the same tap then channel order
+    with fmaf) bit for bit; else (bf16 operands: K1's tensor-core body)
+    within the same tolerance, and whether the bits agree is recorded.
+    Returns the misses."""
     import torch
     (out, miss), (p_out, p_miss) = got, want
     name = f'{line["case"]} {label}'
@@ -398,24 +402,30 @@ def check_windowed(line, label, got, want, k1_out, fits, tile):
         fail(f'{name}: max err {err} > {tol}')
     n = k1_out.shape[0]
     rows = (miss == 0).repeat_interleave(tile)[:n] & fits
-    err1 = (float((out[:n][rows] - k1_out[rows]).abs().max())
-            if bool(rows.any()) else 0.0)
+    a, b = out[:n][rows], k1_out[rows]
+    same = bool(torch.equal(a, b))
+    err1 = float((a - b).abs().max()) if bool(rows.any()) else 0.0
+    if exact and not same:
+        fail(f'{name}: {int((a != b).any(1).sum())} of {int(rows.sum())} '
+             f'rows differ from K1 f32 (max {err1})')
     tol1 = 1e-4 * max(1.0, float(k1_out.abs().max()))
     if not err1 <= tol1:
         fail(f'{name}: max err vs K1 {err1} > {tol1}')
     line[f'max_abs_err_{label}'] = err
     line[f'k1_rows_{label}'] = int(rows.sum())
     line[f'k1_err_{label}'] = err1
+    line[f'k1_bit_equal_{label}'] = same
     return miss
 
 
-def check_gather_case(lay, k5, k6):
+def check_gather_case(lay, k5, k6, k6f):
     """One submanifold conv through K5 (f32, tile 512) and K6 (tile 256,
-    block 2048; bf16 and f32 operands), given the main-path outputs ``k5``
-    and ``k6`` (K6 bf16): each against its plain version and K1; times of
-    the kernels with their default operands, of their plain versions and
-    of K1 with the same operand type; each call's bound.
-    Returns (K5 line, K6 line)."""
+    block 2048; bf16 and f32 operands), given the main-path outputs ``k5``,
+    ``k6`` (K6 bf16) and ``k6f`` (K6 f32): each against its plain version
+    and K1 with the same operand type (f32: bit for bit); times of the
+    kernels, of their plain versions and of K1; each call's bound (K6 bf16
+    at the bf16 peak, f32 calls at the f32 peak).
+    Returns (K5 line, K6 bf16 line, K6 f32 line)."""
     from virconv_tpu_torch.ops import band_conv as bc
     from virconv_tpu_torch.ops import gather_conv as gc
     from virconv_tpu_torch.ops import onehot_conv as oc
@@ -427,47 +437,55 @@ def check_gather_case(lay, k5, k6):
     k1 = {b: bc.band_conv(src, keys, plan, w, bf16=b) for b in (False, True)}
     valid = int((nmap >= 0).sum())
     common = {'case': lay['case'], 'rows': n, 'c_in': c_in, 'c_out': c_out,
-              'taps': k}
+              'taps': k, 'mode': gc.kernel_mode(c_in, c_out)}
     l5 = dict(common, rows_padded=src5.shape[0])
     miss5 = check_windowed(l5, 'f32', k5, gc.fused_gather_conv_plain(
-        src5, nmap5, w), k1[False], fits, K5_TILE)
-    l6 = dict(common, mode=oc.kernel_mode(c_in, c_out, True))
+        src5, nmap5, w), k1[False], fits, K5_TILE, exact=True)
+    l6 = dict(common)
     miss6 = check_windowed(l6, 'bf16', k6, oc.onehot_gather_conv_plain(
-        src, nmap, w), k1[True], fits, K6_TILE)
-    check_windowed(l6, 'f32', oc.onehot_gather_conv(src, nmap, w, bf16=False),
-                   oc.onehot_gather_conv_plain(src, nmap, w, bf16=False),
-                   k1[False], fits, K6_TILE)
+        src, nmap, w), k1[True], fits, K6_TILE, exact=False)
+    l6f = dict(common)
+    miss6f = check_windowed(l6f, 'f32', k6f, oc.onehot_gather_conv_plain(
+        src, nmap, w, bf16=False), k1[False], fits, K6_TILE, exact=True)
     l5['ms'] = cuda_ms(lambda: gc.fused_gather_conv(src5, nmap5, w))
     l5['plain_ms'] = cuda_ms(lambda: gc.fused_gather_conv_plain(
         src5, nmap5, w), reps=3, warmup=1)
-    l5['k1_ms'] = cuda_ms(lambda: bc.band_conv(src, keys, plan, w,
-                                               bf16=False))
+    l5['k1_ms'] = l6f['k1_ms'] = cuda_ms(
+        lambda: bc.band_conv(src, keys, plan, w, bf16=False))
     l6['ms'] = cuda_ms(lambda: oc.onehot_gather_conv(src, nmap, w))
     l6['plain_ms'] = cuda_ms(lambda: oc.onehot_gather_conv_plain(
         src, nmap, w), reps=3, warmup=1)
     l6['k1_ms'] = cuda_ms(lambda: bc.band_conv(src, keys, plan, w,
                                                bf16=True))
+    l6f['ms'] = cuda_ms(lambda: oc.onehot_gather_conv(src, nmap, w,
+                                                      bf16=False))
+    l6f['plain_ms'] = cuda_ms(lambda: oc.onehot_gather_conv_plain(
+        src, nmap, w, bf16=False), reps=3, warmup=1)
     # bound: features, map and weights read once, output and misses
     # written once; 2*C*C' operations per in-window (row, tap) hit, at the
-    # f32 peak for K5 and the bf16 peak for K6
+    # f32 peak for f32 operands and the bf16 peak for K6's bf16 ones
     for line, f, m, miss, peak in ((l5, src5, nmap5, miss5, F32_FLOPS),
-                                   (l6, src, nmap, miss6, BF16_FLOPS)):
+                                   (l6, src, nmap, miss6, BF16_FLOPS),
+                                   (l6f, src, nmap, miss6f, F32_FLOPS)):
         line['misses'] = int(miss.sum())
         line['taps_hit'] = valid - line['misses']
         line['bytes'] = (nbytes(f, m, w, miss)
                          + f.shape[0] * c_out * 4)
         line['ops'] = 2.0 * line['taps_hit'] * c_in * c_out
         bound(line, peak)
-    return l5, l6
+    return l5, l6, l6f
 
 
 def gather_conv_phase(det, frames):
     """Phase 8: K5 and K6 over the neighbor maps of every submanifold conv
     of one request (captured from a warm-up forward of ``det``). The path
-    (``fused_gather_conv`` and ``onehot_gather_conv`` once per conv, with
-    their defaults) runs with both launch counts set to 0 just before and
-    read just after; then every call is checked and timed. Returns
-    (counts, per-call lines by kernel)."""
+    (``fused_gather_conv`` once per conv with its defaults, and
+    ``onehot_gather_conv`` twice, with its bf16 default and with f32
+    operands) runs with every launch count set to 0 just before and read
+    just after; each call must have run in the mode ``kernel_mode`` picks.
+    Then every call is checked and timed. Returns (counts, per-call lines
+    by kernel)."""
+    import collections
     import torch
     from virconv_tpu_torch.ops import gather_conv as gc
     from virconv_tpu_torch.ops import onehot_conv as oc
@@ -482,24 +500,40 @@ def gather_conv_phase(det, frames):
     if (len(layers), taps.count(27), taps.count(9)) != (24, 16, 8):
         fail('expected 24 submanifold convs: 16 with K=27, 8 with K=9')
     gc.launches = oc.launches = 0
+    gc.mode_launches.clear()
+    oc.mode_launches.clear()
     outs = [(gc.fused_gather_conv(lay['src5'], lay['nmap5'], lay['w']),
-             oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w']))
+             oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w']),
+             oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w'],
+                                   bf16=False))
             for lay in layers]
     torch.cuda.synchronize()
     counts = {'gather_conv_fwd': gc.launches,
               'onehot_conv_fwd': oc.launches}
-    print(f'[phase 8] launches over the 24 convs {counts}', flush=True)
-    for name, v in counts.items():
-        if v != len(layers):
-            fail(f'{name} launched {v} times over {len(layers)} convs')
-    cases = {'gather_conv_fwd': [], 'onehot_conv_fwd': []}
-    for lay, (k5, k6) in zip(layers, outs):
-        l5, l6 = check_gather_case(lay, k5, k6)
-        cases['gather_conv_fwd'].append(l5)
-        cases['onehot_conv_fwd'].append(l6)
-        print(f'[phase 8] gather_conv {short(l5)}', flush=True)
-        print(f'[phase 8] onehot_conv {short(l6)}', flush=True)
-    return counts, cases
+    by_mode = {'gather_conv_fwd': dict(gc.mode_launches),
+               'onehot_conv_fwd': dict(oc.mode_launches)}
+    print(f'[phase 8] launches over the 24 convs {counts}, by mode '
+          f'{json.dumps(by_mode)}', flush=True)
+    modes = collections.Counter(gc.kernel_mode(*lay['w'].shape[1:])
+                                for lay in layers)
+    want = {'gather_conv_fwd': dict(modes),
+            'onehot_conv_fwd': {f'{m} {t}': v for m, v in modes.items()
+                                for t in ('bf16', 'f32')}}
+    if by_mode != want or not {'row', 'tile'} <= set(modes):
+        fail(f'launches by mode {by_mode}, expected {want} (row and tile '
+             'modes both)')
+    cases = {'gather_conv_fwd': [], 'onehot_conv_fwd': [],
+             'onehot_conv_fwd_f32': []}
+    for lay, (k5, k6, k6f) in zip(layers, outs):
+        lines = check_gather_case(lay, k5, k6, k6f)
+        for (name, calls), line in zip(cases.items(), lines):
+            calls.append(line)
+            print(f'[phase 8] {name} {short(line)}', flush=True)
+    equal = sum(c['k1_bit_equal_bf16'] for c in cases['onehot_conv_fwd'])
+    print(f'[phase 8] on zero-miss fitting rows K5 and K6 f32 equal K1 f32 '
+          f'bit for bit on all 24 convs; K6 bf16 equals K1 bf16 bit for bit '
+          f'on {equal} of 24', flush=True)
+    return counts, by_mode, cases
 
 
 def bound(line, peak):
@@ -531,9 +565,10 @@ def summed(lines, unit='request'):
 def short(line):
     keep = ('case', 'rows_in', 'rows_out', 'rows', 'c_in', 'c_out', 'taps',
             'layout', 'mode', 'rois', 'queries_per_roi', 'stride',
-            'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16', 'k1_err_f32',
-            'k1_err_bf16', 'bitwise_repeatable', 'ms', 'plain_ms', 'k1_ms',
-            'bound_ms', 'bound_by')
+            'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16',
+            'k1_err_f32', 'k1_err_bf16', 'k1_bit_equal_f32',
+            'k1_bit_equal_bf16', 'bitwise_repeatable', 'ms', 'plain_ms',
+            'k1_ms', 'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
 
 
@@ -859,7 +894,7 @@ def main():
     # ---- phase 8: K5 and K6 on every submanifold conv of one request -------
     # (TF32 still off: the plain versions' f32 products are exact f32)
     t0 = phase_done(7, t0)
-    gather_counts, gather_cases = gather_conv_phase(
+    gather_counts, gather_modes, gather_cases = gather_conv_phase(
         Detector(device='cuda', seed=0), frames)
     cases.update(gather_cases)
     gather_totals = {k: summed(v) for k, v in gather_cases.items()}
@@ -867,9 +902,9 @@ def main():
         v['k1_ms'] = sum(c['k1_ms'] for c in gather_cases[k])
     misses = {a['case']: {'gather_conv_fwd': a['misses'],
                           'onehot_conv_fwd': b['misses']}
-              for a, b in zip(*gather_cases.values())}
+              for a, b, _ in zip(*gather_cases.values())}
     print(f'[phase 8] per request, summed over its 24 convs (k1_ms: K1 on '
-          f'the same layers, f32 beside K5, bf16 beside K6): '
+          f'the same layers with the same operand type): '
           f'{json.dumps(gather_totals)}', flush=True)
     print(f'[phase 8] misses per layer: {json.dumps(misses)}', flush=True)
     phase_done(8, t0)
@@ -891,6 +926,14 @@ def main():
     kernels = [{'name': name, 'route': 'cuda', 'source': s,
                 'replaces': rep, 'launches': launches[name], **totals[name]}
                for name, (s, rep) in meta.items()]
+    # K5 and K6 by mode; K6's numbers are its bf16 calls', f32 apart
+    by_name = {k['name']: k for k in kernels}
+    for name, modes in gather_modes.items():
+        by_name[name]['launches_by_mode'] = modes
+    by_name['onehot_conv_fwd']['f32'] = {
+        'launches': sum(v for m, v in gather_modes['onehot_conv_fwd'].items()
+                        if m.endswith('f32')),
+        **totals['onehot_conv_fwd_f32']}
     # K1 in training: forward and input-gradient calls together, and apart
     k1_train = summed(train_cases['band_conv_fwd_train']
                       + train_cases['band_conv_fwd_train_dgrad'], 'step')

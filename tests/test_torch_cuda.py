@@ -289,6 +289,40 @@ def test_gather_conv_kernels_reject_bad_cuda_operands():
     assert (tgc.launches, toc.launches) == before
 
 
+def test_gather_conv_entries_refuse_a_mode_not_their_rule():
+    """The C entry points of K5 and K6 take only the mode their widths give
+    (``kernel_mode``): any other returns -1 before a launch."""
+    import ctypes
+    from virconv_tpu_torch.ops import _cuda as cu
+    dev = _cuda()
+    lib = cu.load('gather_conv')
+    n, k, tile = 512, 3, 128
+    feats = torch.zeros(n, 8, device=dev)
+    nmap = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    w = torch.zeros(k, 8, 16, device=dev)
+    out = torch.empty(n, 16, device=dev)
+    misses = torch.zeros(n // tile, dtype=torch.int32, device=dev)
+    blk = torch.zeros(n // tile + 2, k, dtype=torch.int32, device=dev)
+    wprep = torch.empty(1 << 16, dtype=torch.uint8, device=dev)
+    p = [cu.ptr(t) for t in (feats, nmap, w, wprep, out, misses, blk)]
+    k5, k6 = lib.gather_conv_fwd, lib.onehot_conv_fwd
+    k5.restype = k6.restype = ctypes.c_int
+    k5.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4)
+    k6.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 4)
+    stream = cu.stream_ptr(dev)
+    assert tgc.kernel_mode(8, 16) == 'row'
+    for mode in ('fma', 'tile'):
+        m = tgc.MODES[mode]
+        assert k5(p[0], p[1], p[2], n, 8, 16, k, tile, m, p[3], p[4], p[5],
+                  stream) == -1
+        for bf16 in (0, 1):
+            assert k6(p[0], p[1], p[2], p[6], n, 8, 16, k, tile, tile, bf16,
+                      m, p[3], p[4], p[5], stream) == -1
+    torch.cuda.synchronize()
+
+
 def _band_edge_case(case):
     """(feats, keys, plan, weights) of one K1 edge case at the main path's
     geometry (tile 128: two 64-row CTAs per tile; block 256)."""
@@ -536,8 +570,7 @@ def test_band_conv_dw_kernel_edge_cases(case):
     'cout12', 'cout72', 'cin5', 'row_cin8', 'row_cin3', 'misses',
     'past_end', 'empty_tap', 'wide64_default_geometry'])
 def test_onehot_conv_bf16_edge_cases(case):
-    """K6's bf16 modes (and the f32 body beside them) vs the plain
-    version: output slabs not a multiple of 8 and two slabs, an input width
+    """K6's modes, with bf16 and f32 operands, vs the plain version: output slabs not a multiple of 8 and two slabs, an input width
     not a multiple of 4, row mode (C <= 8, C' <= 16), rows with misses
     (identical counts), window indices in the zero padding past the
     feature rows (no misses), a tap no row hits, and the default tile 256 /
@@ -555,7 +588,6 @@ def test_onehot_conv_bf16_edge_cases(case):
         'empty_tap': (27, 1100, 100, 8, 8, 64, 128, 'row'),
         'wide64_default_geometry': (27, 6000, 900, 64, 64, 256, 2048,
                                     'tile')}[case]
-    assert toc.kernel_mode(c, c_out, True) == mode
     rng = np.random.default_rng(sum(map(ord, case)))
     nmap = _near_diagonal(rng, n, k, spread)
     if case == 'empty_tap':
@@ -568,12 +600,14 @@ def test_onehot_conv_bf16_edge_cases(case):
                          .astype(np.float32))
     args = (feats.to(dev), nmap.to(dev), w.to(dev), tile, block)
     for bf16 in (True, False):
+        assert toc.kernel_mode(c, c_out, bf16) == mode
+        key = f'{mode} {"bf16" if bf16 else "f32"}'
         want = toc.onehot_gather_conv(feats, nmap, w, tile, block, bf16)
-        n0 = toc.launches
+        n0, m0 = toc.launches, toc.mode_launches[key]
         got = toc.onehot_gather_conv(*args, bf16)
         again = toc.onehot_gather_conv(*args, bf16)
         torch.cuda.synchronize()
-        assert toc.launches == n0 + 2
+        assert toc.launches == n0 + 2 and toc.mode_launches[key] == m0 + 2
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
         np.testing.assert_allclose(
@@ -586,3 +620,54 @@ def test_onehot_conv_bf16_edge_cases(case):
             local = nm[..., 2] - blk[:, None, 2].long() * block
             assert bool(((nm[..., 2] >= n) & (local >= 0)
                          & (local < 2 * block)).any())
+
+
+@pytest.mark.parametrize('case', [
+    'row_cin8', 'row_cin3', 'cout12', 'cout72', 'cin5', 'misses_tile32',
+    'row_misses_tile32', 'cin130', 'empty_tap', 'wide64_default_geometry'])
+def test_gather_conv_edge_cases(case):
+    """K5's modes vs the plain version: row mode (C <= 8, C' <= 16), tile
+    mode with a 12-wide slab (the narrow instantiation) and with two slabs
+    (C' = 72), an input width not a multiple of 4 (4-byte copies), tile 32
+    (a CTA spans several row tiles) on maps with misses in both modes
+    (identical counts), an input wider than MAX_CIN (the fma mode), a
+    tap no row hits, and the default tile 512. Each run twice with
+    identical bits; outputs within 1e-4 x max(1, the output scale)."""
+    dev = _cuda()
+    k, n, spread, c, c_out, tile, mode = {
+        'row_cin8': (27, 1024, 150, 8, 16, 32, 'row'),
+        'row_cin3': (9, 768, 100, 3, 5, 64, 'row'),
+        'cout12': (27, 1024, 300, 16, 12, 32, 'tile'),
+        'cout72': (9, 1024, 150, 32, 72, 64, 'tile'),
+        'cin5': (9, 1024, 150, 5, 24, 64, 'tile'),
+        'misses_tile32': (27, 1024, 700, 16, 16, 32, 'tile'),
+        'row_misses_tile32': (27, 1024, 700, 8, 8, 32, 'row'),
+        'cin130': (9, 640, 100, 130, 24, 64, 'fma'),
+        'empty_tap': (27, 1024, 100, 16, 16, 32, 'tile'),
+        'wide64_default_geometry': (27, 27 * 512, 900, 64, 64, 512,
+                                    'tile')}[case]
+    assert tgc.kernel_mode(c, c_out) == mode
+    rng = np.random.default_rng(sum(map(ord, case)))
+    nmap = _near_diagonal(rng, n, k, spread)
+    if case == 'empty_tap':
+        nmap[:, 5] = -1
+    nmap = torch.from_numpy(nmap)
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    want = tgc.fused_gather_conv(feats, nmap, w, tile)
+    args = (feats.to(dev), nmap.to(dev), w.to(dev), tile)
+    n0, m0 = tgc.launches, tgc.mode_launches[mode]
+    got = tgc.fused_gather_conv(*args)
+    again = tgc.fused_gather_conv(*args)
+    torch.cuda.synchronize()
+    assert tgc.launches == n0 + 2 and tgc.mode_launches[mode] == m0 + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    np.testing.assert_allclose(
+        got[0].cpu().numpy(), want[0].numpy(), rtol=0,
+        atol=1e-4 * max(1.0, float(want[0].abs().max())))
+    if 'misses' in case:
+        assert int(want[1].sum()) > 0
+    if case == 'empty_tap':
+        assert float(want[0].abs().max()) > 0

@@ -240,15 +240,36 @@ def test_onehot_mode_numbers_match_kernel():
         assert consts[f'kMode{name.capitalize()}'] == number, name
 
 
+def test_gather_mode_numbers_match_kernel():
+    consts = _constexprs('gather_conv')
+    assert set(gather_conv.MODES) == {'fma', 'tile', 'row'}
+    for name, number in gather_conv.MODES.items():
+        assert consts[f'kMode{name.capitalize()}'] == number, name
+
+
 @pytest.mark.parametrize('c_in,c_out,bf16,mode', [
     (8, 16, True, 'row'), (3, 5, True, 'row'), (8, 17, True, 'tile'),
     (9, 16, True, 'tile'), (64, 64, True, 'tile'), (128, 200, True, 'tile'),
-    (129, 16, True, 'fma'), (8, 16, False, 'fma'), (64, 64, False, 'fma')])
+    (129, 16, True, 'fma'), (8, 16, False, 'row'), (64, 64, False, 'tile'),
+    (129, 16, False, 'fma')])
 def test_onehot_kernel_mode(c_in, c_out, bf16, mode):
-    """K6's body by widths: a thread per row for C <= 8 and C' <= 16 with
-    bf16 operands, the tensor-core tile mode for other bf16 inputs of at
-    most MAX_CIN channels, the CUDA-core body otherwise."""
+    """K6's body by widths, for bf16 and f32 operands alike: a thread per
+    row for C <= 8 and C' <= 16, the tile mode (tensor cores for bf16, CUDA
+    cores for f32) for other inputs of at most MAX_CIN channels, the fma
+    mode for wider ones."""
     assert onehot_conv.kernel_mode(c_in, c_out, bf16) == mode
+
+
+@pytest.mark.parametrize('c_in,c_out,mode', [
+    (8, 16, 'row'), (3, 5, 'row'), (8, 8, 'row'), (16, 16, 'tile'),
+    (8, 17, 'tile'), (9, 16, 'tile'), (32, 16, 'tile'), (64, 64, 'tile'),
+    (5, 24, 'tile'), (128, 200, 'tile'), (129, 16, 'fma'), (130, 8, 'fma')])
+def test_gather_kernel_mode(c_in, c_out, mode):
+    """K5's body by widths, the same rule as K6's: a thread per row for
+    C <= ROW_MAX_CIN and C' <= ROW_MAX_COUT, the tile mode for other inputs
+    of at most MAX_CIN channels, the fma mode for wider ones."""
+    assert gather_conv.kernel_mode(c_in, c_out) == mode
+    assert onehot_conv.kernel_mode(c_in, c_out, False) == mode
 
 
 @pytest.mark.parametrize('n_tiles,tile,n_taps,c_out,min_ctas', [

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: bf16 rounding, cp.async
 // copies into shared memory, the bf16 tensor-core product, and the
-// gathered-row convolution that K1 (band_conv.cu) and K6's bf16 path
+// gathered-row convolution that K1 (band_conv.cu), K5 and K6
 // (gather_conv.cu) share once each has its (row, tap) source table: the
 // weight prep kernel, the tile mode's ring of gathered rows with its
 // epilogue mapping, and the row mode's per-thread sums.

@@ -19,53 +19,113 @@
 // Window indices at or past the feature rows (the JAX entry function's
 // zero padding) contribute zero and are not misses.
 //
-// K5, and K6 with f32 operands (or inputs wider than kMaxCin): one CTA per
-// (64-row chunk, 64-output-channel slab) with 256 threads, each thread 4
-// rows x 4 output channels in registers. The CTA resolves the source row of
-// each of its (row, tap) pairs once, then per tap stages its gathered rows
-// and W[k] 32 input channels at a time in shared memory; a tap that no row
-// of the chunk hits is skipped. Sums run in tap order, then channel order,
-// in f32 with fmaf (the build passes --fmad=false).
+// Both take K1's gathered-row conv (common.cuh) once their sources are read
+// from nmap under their window rule into a shared (tap, row) source table:
+//  - row mode (C <= 8, C' <= 16): a thread per output row of a 128-row
+//    CTA sums only the taps its row hits, against every tap's weights
+//    resident in shared memory (a 16-row fragment of a narrow layer hits
+//    most taps while each of its rows hits 2-4 of 27);
+//  - tile mode (other inputs of at most kMaxCin channels): a 64-row CTA
+//    with an output slab fitted to C' (at most 64 columns), per-16-row-
+//    fragment tap masks, the hit rows copied with cp.async into a ring
+//    beside W[k]'s slab tile. bf16 operands: A fragments rounded in
+//    registers and mma.sync m16n8k16 against W[k]^T rounded and transposed
+//    once per call by the prep kernel; f32 operands: fmaf on CUDA cores.
+// Either way the sums run in tap then channel order (f32: fmaf, the build
+// passes --fmad=false), so on rows whose sources are K1's, K5 and K6 with
+// f32 operands give K1's f32 bits.
 //
-// K6 with bf16 operands takes K1's gathered-row conv (common.cuh) once its
-// sources are read from nmap under the window rule: tile mode (a 64-row
-// CTA, an output slab fitted to C', per-16-row-fragment tap skip, the hit
-// rows copied with cp.async into a ring, A fragments rounded to bf16 in
-// registers and mma.sync m16n8k16 against W[k]^T rounded and transposed
-// once per call by the prep kernel, f32 sums), or for C <= 8 and C' <= 16
-// row mode (a thread per row sums only its hit taps against weights
-// resident in shared memory). The caller picks the mode
-// (ops/onehot_conv.py::kernel_mode); the entry point refuses any other.
+// Inputs wider than kMaxCin take the fma mode: one CTA per
+// (64-row chunk, 64-output-channel slab) with 256 threads, each thread 4
+// rows x 4 output channels in registers, gathered rows and W[k] staged 32
+// input channels at a time. The caller picks the mode
+// (ops/gather_conv.py::kernel_mode); the entry points refuse any other.
 //
 // All kernels count misses per row tile in shared memory and add them with
 // integer atomics (the same counts on every run).
 //
 // Bound: 2*C*C' operations per in-window (row, tap) hit against one gathered
-// row of C values: the f32 operations for K5 (CUDA cores), the bytes of the
-// inputs for K6's bf16 operands on the tensor cores.
+// row of C values: the f32 operations for f32 operands (CUDA cores), the
+// bytes of the inputs for K6's bf16 operands on the tensor cores.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // output rows per CTA
+constexpr int kRows = 64;      // fma mode: output rows per CTA
 constexpr int kCols = 64;      // output channels per CTA
 constexpr int kCi = 32;        // input channels staged at once
 constexpr int kThreads = 256;  // 16 x 16: 4 rows x 4 channels each
 constexpr int kMaxTaps = 64;
-constexpr int kMaxCin = 128;   // K6's bf16 tile mode: widest input row
-constexpr int kModeFma = 0;    // K6's modes (ops/onehot_conv.py)
+constexpr int kMaxCin = 128;   // row and tile modes: widest input row
+constexpr int kModeFma = 0;    // the modes (ops/gather_conv.py)
 constexpr int kModeTile = 1;
 constexpr int kModeRow = 2;
 
-// kOneHot selects K6's window (blk table) over K5's (tile position).
+// The window rule of one call: K5's one window [base, base + span) per row
+// tile, base = clamp(tile index * tile - window, 0, base_max); or K6's
+// two-block window per (row tile, tap) from blk.
+struct Window {
+  long window, span, base_max;  // K5
+  const int* blk;               // K6
+  int block;
+};
+
+// The source row of (row, tap k) of a row below n_feat: -1 when the
+// neighbor is missing, at or past the n_feat feature rows (K6's zero
+// padding, not a miss) or outside the tile's window (a miss, counted in
+// miss_s[row / tile - tile0]). kOneHot selects K6's rule over K5's.
 template <bool kOneHot>
-__device__ __forceinline__ void gather_conv_body(
-    const float* __restrict__ feats, const int* __restrict__ nmap,
-    const float* __restrict__ weights, const int* __restrict__ blk,
-    int n_rows, int n_feat, int c_in, int c_out, int n_taps, int tile,
-    long window, long span, long base_max, long block, bool bf16,
-    float* __restrict__ out, int* __restrict__ misses) {
+__device__ __forceinline__ int window_source(const int* __restrict__ nmap,
+                                             const Window& w, int row, int k,
+                                             int n_taps, int n_feat, int tile,
+                                             int tile0, int* miss_s) {
+  const int idx = nmap[(long)row * n_taps + k];
+  if (idx < 0) return -1;
+  const int t = row / tile;
+  long lo, len;
+  if (kOneHot) {
+    lo = (long)w.blk[(long)t * n_taps + k] * w.block;
+    len = 2L * w.block;
+  } else {
+    lo = (long)t * tile - w.window;
+    lo = lo < 0 ? 0 : (lo > w.base_max ? w.base_max : lo);
+    len = w.span;
+  }
+  if (idx >= lo && idx < lo + len) return idx < n_feat ? idx : -1;
+  atomicAdd(&miss_s[t - tile0], 1);
+  return -1;
+}
+
+// Fills the CTA's (tap, row) source table src_s[k * n_cta + r] for its
+// n_cta rows from row0 (nmap read in order), then adds the miss counts
+// (miss_s[n_cta], zeroed and synced by the caller) once per row slab.
+template <bool kOneHot>
+__device__ __forceinline__ void fill_sources(
+    int* src_s, int n_cta, int nt, const int* __restrict__ nmap,
+    const Window& w, int row0, int n_rows, int n_taps, int tile, int* miss_s,
+    int* __restrict__ misses) {
+  const int tid = threadIdx.x;
+  const int tile0 = row0 / tile;   // the CTA spans at most n_cta row tiles
+  for (int i = tid; i < n_cta * n_taps; i += nt) {
+    const int r = i / n_taps, k = i - r * n_taps;
+    const int row = row0 + r;
+    src_s[k * n_cta + r] = row < n_rows ? window_source<kOneHot>(
+        nmap, w, row, k, n_taps, n_rows, tile, tile0, miss_s) : -1;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0)
+    for (int i = tid; i < n_cta; i += nt)
+      if (miss_s[i] != 0) atomicAdd(&misses[tile0 + i], miss_s[i]);
+}
+
+// fma mode (inputs wider than kMaxCin): CTA (64 rows, 64 output channels).
+template <bool kOneHot>
+__global__ void __launch_bounds__(kThreads) windowed_fma_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap, Window w,
+    const float* __restrict__ weights, int n_rows, int c_in, int c_out,
+    int n_taps, int tile, int bf16, float* __restrict__ out,
+    int* __restrict__ misses) {
   extern __shared__ int src_s[];  // [n_taps][kRows]
   __shared__ float g_s[kRows][kCi + 1];
   __shared__ float w_s[kCi][kCols];
@@ -75,44 +135,17 @@ __device__ __forceinline__ void gather_conv_body(
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRows;
   const int co0 = blockIdx.y * kCols;
-  const int tile0 = row0 / tile;  // the chunk spans at most kRows tiles
 
   for (int i = tid; i < kRows; i += kThreads) miss_s[i] = 0;
   for (int i = tid; i < n_taps; i += kThreads) tap_hit[i] = 0;
   __syncthreads();
 
-  // 1) the source row of every (row, tap) of the chunk: -1 when missing,
-  //    outside the row tile's window, or in the padding past the features
-  for (int i = tid; i < kRows * n_taps; i += kThreads) {
-    const int r = i / n_taps, k = i - r * n_taps;
-    const int row = row0 + r;
-    int src = -1;
-    if (row < n_rows) {
-      const int idx = nmap[(long)row * n_taps + k];
-      if (idx >= 0) {
-        const int t = row / tile;
-        long lo, len;
-        if (kOneHot) {
-          lo = (long)blk[(long)t * n_taps + k] * block;
-          len = 2 * block;
-        } else {
-          lo = (long)t * tile - window;
-          lo = lo < 0 ? 0 : (lo > base_max ? base_max : lo);
-          len = span;
-        }
-        if (idx >= lo && idx < lo + len) {
-          if (idx < n_feat) src = idx;
-        } else {
-          atomicAdd(&miss_s[t - tile0], 1);
-        }
-      }
-    }
-    src_s[k * kRows + r] = src;
-    if (src >= 0) tap_hit[k] = 1;
-  }
+  // 1) the source row of every (row, tap) of the chunk, and the taps hit
+  fill_sources<kOneHot>(src_s, kRows, kThreads, nmap, w, row0, n_rows,
+                        n_taps, tile, miss_s, misses);
+  for (int i = tid; i < kRows * n_taps; i += kThreads)
+    if (src_s[i] >= 0) tap_hit[i / kRows] = 1;
   __syncthreads();
-  if (blockIdx.y == 0 && tid < kRows && miss_s[tid] != 0)
-    atomicAdd(&misses[tile0 + tid], miss_s[tid]);
 
   // 2) out[rows, slab] = sum over taps and channels, staged per tap
   const int tx = tid & 15, ty = tid >> 4;
@@ -168,119 +201,63 @@ __device__ __forceinline__ void gather_conv_body(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) gather_conv_kernel(
-    const float* __restrict__ feats, const int* __restrict__ nmap,
-    const float* __restrict__ weights, int n, int c_in, int c_out,
-    int n_taps, int tile, float* __restrict__ out,
+// Tile mode: CTA (64 rows, output slab). kNT: the most 8-channel column
+// tiles of a slab this instantiation takes.
+template <bool kOneHot, bool kBf16, int kNT>
+__global__ void __launch_bounds__(kTileThreads) windowed_tile_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap, Window w,
+    const void* __restrict__ wprep, int n_rows, int c_in, int c_out,
+    int n_taps, int tile, int vec4, float* __restrict__ out,
     int* __restrict__ misses) {
-  const long window = (long)tile * (n_taps - 1) / 2;
-  const long span = (long)tile * n_taps;
-  gather_conv_body<false>(feats, nmap, weights, nullptr, n, n, c_in, c_out,
-                          n_taps, tile, window, span, n - span, 0, false, out,
-                          misses);
-}
-
-__global__ void __launch_bounds__(kThreads) onehot_conv_kernel(
-    const float* __restrict__ feats, const int* __restrict__ nmap,
-    const float* __restrict__ weights, const int* __restrict__ blk, int n0,
-    int c_in, int c_out, int n_taps, int tile, int block, int bf16,
-    float* __restrict__ out, int* __restrict__ misses) {
-  gather_conv_body<true>(feats, nmap, weights, blk, n0, n0, c_in, c_out,
-                         n_taps, tile, 0, 0, 0, block, bf16 != 0, out,
-                         misses);
-}
-
-// K6's window rule for (row, tap k) of a row below n0: the source row, or
-// -1 when the neighbor is missing, at or past the n0 feature rows (zero
-// padding, not a miss) or outside the tile's window (a miss, counted in
-// miss_s[row / tile - tile0]).
-__device__ __forceinline__ int onehot_source(const int* __restrict__ nmap,
-                                             const int* __restrict__ blk,
-                                             int row, int k, int n_taps,
-                                             int n0, int tile, int block,
-                                             int tile0, int* miss_s) {
-  const int idx = nmap[(long)row * n_taps + k];
-  if (idx < 0) return -1;
-  const int t = row / tile;
-  const long lo = (long)blk[(long)t * n_taps + k] * block;
-  if (idx >= lo && idx < lo + 2L * block) return idx < n0 ? idx : -1;
-  atomicAdd(&miss_s[t - tile0], 1);
-  return -1;
-}
-
-// K6 bf16, tile mode: CTA (64 rows, output slab). kNT: the most 8-channel
-// column tiles of a slab this instantiation takes.
-template <int kNT>
-__global__ void __launch_bounds__(kTileThreads) onehot_tile_kernel(
-    const float* __restrict__ feats, const int* __restrict__ nmap,
-    const int* __restrict__ blk, const void* __restrict__ wprep, int n0,
-    int c_in, int c_out, int n_taps, int tile, int block, int vec4,
-    float* __restrict__ out, int* __restrict__ misses) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int tap_mask[kMaxTaps];   // bit f: fragment f has a hit
   __shared__ int tap_list[kMaxTaps];   // taps with any hit, in tap order
   __shared__ int n_active;
   __shared__ int miss_s[kTileRows];
-  const Layout L = layout_of(c_in, c_out, n_taps, 0, 0, true);
+  const Layout L = layout_of(c_in, c_out, n_taps, 0, 0, kBf16);
   int* src_s = reinterpret_cast<int*>(smem);   // [K][kTileRows]
-  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kTileRows;
   const int s0 = blockIdx.y * L.slab;
-  const int tile0 = row0 / tile;   // the CTA spans at most 64 row tiles
-  if (tid < kTileRows) miss_s[tid] = 0;
+  if (threadIdx.x < kTileRows) miss_s[threadIdx.x] = 0;
   __syncthreads();
-  // 1) the source of every (row, tap) of the CTA, nmap read in order
-  for (int i = tid; i < kTileRows * n_taps; i += kTileThreads) {
-    const int r = i / n_taps, k = i - r * n_taps;
-    const int row = row0 + r;
-    src_s[k * kTileRows + r] = row < n0 ? onehot_source(
-        nmap, blk, row, k, n_taps, n0, tile, block, tile0, miss_s) : -1;
-  }
-  __syncthreads();
-  if (blockIdx.y == 0 && tid < kTileRows && miss_s[tid] != 0)
-    atomicAdd(&misses[tile0 + tid], miss_s[tid]);
+  // 1) the source of every (row, tap) of the CTA
+  fill_sources<kOneHot>(src_s, kTileRows, kTileThreads, nmap, w, row0,
+                        n_rows, n_taps, tile, miss_s, misses);
   // 2) the taps each 16-row fragment hits and the ring over them
   float acc[4 * kNT];
-  tile_sums<true, kNT>(acc, src_s, smem + L.area_off, L, feats, c_in, vec4,
-                       wprep, s0, n_taps, tap_mask, tap_list, n_active);
-  tile_store<true, kNT>(acc, L, s0, [&](int rl, int co, float v) {
+  tile_sums<kBf16, kNT>(acc, src_s, smem + L.area_off, L, feats, c_in, vec4,
+                        wprep, s0, n_taps, tap_mask, tap_list, n_active);
+  tile_store<kBf16, kNT>(acc, L, s0, [&](int rl, int co, float v) {
     const int row = row0 + rl;
-    if (row < n0 && co < c_out) out[(long)row * c_out + co] = v;
+    if (row < n_rows && co < c_out) out[(long)row * c_out + co] = v;
   });
 }
 
-// K6 bf16, row mode (C <= 8, C' <= kCout): a thread per output row; the
-// CTA's sources are read from nmap in order into a shared (tap, row) table,
-// then each thread sums its hit taps against the resident weights.
-template <int kCout>
-__global__ void __launch_bounds__(kRowThreads) onehot_row_kernel(
-    const float* __restrict__ feats, const int* __restrict__ nmap,
-    const int* __restrict__ blk, const float* __restrict__ wprep, int n0,
-    int c_in, int c_out, int n_taps, int tile, int block, int vec4,
-    float* __restrict__ out, int* __restrict__ misses) {
+// Row mode (C <= 8, C' <= kCout): a thread per output row; the CTA's
+// sources go to a shared (tap, row) table, then each thread sums its hit
+// taps against the resident weights.
+template <bool kOneHot, bool kBf16, int kCout>
+__global__ void __launch_bounds__(kRowThreads) windowed_row_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap, Window w,
+    const float* __restrict__ wprep, int n_rows, int c_in, int c_out,
+    int n_taps, int tile, int vec4, float* __restrict__ out,
+    int* __restrict__ misses) {
   extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout), then
                                                 // the sources [K][128]
   __shared__ int miss_s[kRowThreads];
   int* src_s = reinterpret_cast<int*>(w_s + n_taps * c_in * kCout);
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRowThreads;
-  const int tile0 = row0 / tile;   // the CTA spans at most 128 row tiles
   for (int i = tid; i < n_taps * c_in * kCout; i += kRowThreads)
     w_s[i] = wprep[i];
   miss_s[tid] = 0;
   __syncthreads();
-  for (int i = tid; i < kRowThreads * n_taps; i += kRowThreads) {
-    const int r = i / n_taps, k = i - r * n_taps;
-    const int row = row0 + r;
-    src_s[k * kRowThreads + r] = row < n0 ? onehot_source(
-        nmap, blk, row, k, n_taps, n0, tile, block, tile0, miss_s) : -1;
-  }
-  __syncthreads();
-  if (miss_s[tid] != 0) atomicAdd(&misses[tile0 + tid], miss_s[tid]);
+  fill_sources<kOneHot>(src_s, kRowThreads, kRowThreads, nmap, w, row0,
+                        n_rows, n_taps, tile, miss_s, misses);
   const int row = row0 + tid;
-  if (row >= n0) return;
+  if (row >= n_rows) return;
   float acc[kCout];
-  row_sums<true, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
+  row_sums<kBf16, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
 #pragma unroll
   for (int j = 0; j < kCout; ++j) {
     if (j >= c_out) break;
@@ -316,27 +293,95 @@ __global__ void __launch_bounds__(256) onehot_window_kernel(
   if (tid == 0) misses[t] = 0;
 }
 
-dim3 grid_of(int n_rows, int c_out) {
-  return dim3((unsigned)((n_rows + kRows - 1) / kRows),
-              (unsigned)((c_out + kCols - 1) / kCols));
+// The mode the host rule (ops/gather_conv.py::kernel_mode) picks.
+int mode_of(int c_in, int c_out) {
+  return c_in <= kRowMaxCin && c_out <= kRowMaxCout ? kModeRow
+       : c_in <= kMaxCin ? kModeTile : kModeFma;
+}
+
+long scratch_bytes(int c_in, int c_out, int n_taps, bool bf16, int mode) {
+  if (mode == kModeFma) return 0;
+  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, bf16);
+  return prepped_weight_bytes(l, n_taps, bf16);
+}
+
+// One windowed conv of n_rows output rows in `mode`; wprep holds
+// scratch_bytes bytes. Returns the launch error.
+template <bool kOneHot, bool kBf16>
+int launch(const float* feats, const int* nmap, const Window& w,
+           const float* weights, int n_rows, int c_in, int c_out,
+           int n_taps, int tile, int mode, void* wprep, float* out,
+           int* misses, cudaStream_t stream) {
+  if (mode == kModeFma) {
+    const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows),
+                    (unsigned)((c_out + kCols - 1) / kCols));
+    windowed_fma_kernel<kOneHot><<<grid, kThreads,
+                                   n_taps * kRows * sizeof(int), stream>>>(
+        feats, nmap, w, weights, n_rows, c_in, c_out, n_taps, tile, kBf16,
+        out, misses);
+    return (int)cudaGetLastError();
+  }
+  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, kBf16);
+  const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+  int err = prep_weights(weights, n_taps, c_in, c_out, l, kBf16, wprep,
+                         stream);
+  if (err != 0) return err;
+  // largest size granted so far: row mode 8, 16; tile mode kNT 2, 8
+  static long smem_set[4] = {0, 0, 0, 0};
+  if (mode == kModeRow) {
+    const auto kernel = l.slab == 8
+        ? windowed_row_kernel<kOneHot, kBf16, 8>
+        : windowed_row_kernel<kOneHot, kBf16, kRowMaxCout>;
+    const long smem = l.smem + (long)n_taps * kRowThreads * sizeof(int);
+    err = allow_smem(kernel, smem, &smem_set[l.slab != 8]);
+    if (err != 0) return err;
+    kernel<<<(unsigned)((n_rows + kRowThreads - 1) / kRowThreads),
+             kRowThreads, smem, stream>>>(
+        feats, nmap, w, static_cast<const float*>(wprep), n_rows, c_in,
+        c_out, n_taps, tile, vec4, out, misses);
+    return (int)cudaGetLastError();
+  }
+  if (l.smem > kSmemMax) return -1;
+  const auto kernel = l.slab > 16 ? windowed_tile_kernel<kOneHot, kBf16, 8>
+                                  : windowed_tile_kernel<kOneHot, kBf16, 2>;
+  err = allow_smem(kernel, l.smem, &smem_set[2 + (l.slab > 16)]);
+  if (err != 0) return err;
+  const dim3 grid((unsigned)((n_rows + kTileRows - 1) / kTileRows),
+                  (unsigned)l.n_slabs);
+  kernel<<<grid, kTileThreads, l.smem, stream>>>(
+      feats, nmap, w, wprep, n_rows, c_in, c_out, n_taps, tile, vec4, out,
+      misses);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" long gather_conv_scratch_bytes(int c_in, int c_out, int n_taps,
+                                          int mode) {
+  // bytes of the prepped weights gather_conv_fwd takes as `wprep`
+  return scratch_bytes(c_in, c_out, n_taps, false, mode);
+}
+
 extern "C" int gather_conv_fwd(const float* feats, const int* nmap,
                                const float* weights, int n, int c_in,
-                               int c_out, int n_taps, int tile, float* out,
-                               int* misses, cudaStream_t stream) {
+                               int c_out, int n_taps, int tile, int mode,
+                               void* wprep, float* out, int* misses,
+                               cudaStream_t stream) {
   // feats (n, c_in), nmap (n, n_taps), weights (n_taps, c_in, c_out);
-  // out (n, c_out); misses (n / tile,) zeroed by the caller.
+  // out (n, c_out); misses (n / tile,) zeroed by the caller; wprep holds
+  // gather_conv_scratch_bytes bytes. mode: kModeRow for C <= kRowMaxCin
+  // and C' <= kRowMaxCout, else kModeTile for C <= kMaxCin, else kModeFma.
   if (n_taps < 1 || n_taps > kMaxTaps || tile < 1 || c_out < 1 ||
       n % tile != 0 || (tile * (n_taps - 1)) % 2 != 0 ||
-      (long)n < (long)tile * n_taps)
+      (long)n < (long)tile * n_taps || mode != mode_of(c_in, c_out))
     return -1;
-  gather_conv_kernel<<<grid_of(n, c_out), kThreads,
-                       n_taps * kRows * sizeof(int), stream>>>(
-      feats, nmap, weights, n, c_in, c_out, n_taps, tile, out, misses);
-  return (int)cudaGetLastError();
+  Window w{};
+  w.window = (long)tile * (n_taps - 1) / 2;
+  w.span = (long)tile * n_taps;
+  w.base_max = n - w.span;
+  return launch<false, false>(feats, nmap, w, weights, n, c_in, c_out,
+                              n_taps, tile, mode, wprep, out, misses,
+                              stream);
 }
 
 extern "C" int onehot_window_blocks(const int* nmap, int n0, int n_taps,
@@ -356,11 +401,9 @@ extern "C" int onehot_window_blocks(const int* nmap, int n0, int n_taps,
 }
 
 extern "C" long onehot_conv_scratch_bytes(int c_in, int c_out, int n_taps,
-                                         int mode) {
+                                          int bf16, int mode) {
   // bytes of the prepped weights onehot_conv_fwd takes as `wprep`
-  if (mode == kModeFma) return 0;
-  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, true);
-  return prepped_weight_bytes(l, n_taps, true);
+  return scratch_bytes(c_in, c_out, n_taps, bf16 != 0, mode);
 }
 
 extern "C" int onehot_conv_fwd(const float* feats, const int* nmap,
@@ -371,51 +414,20 @@ extern "C" int onehot_conv_fwd(const float* feats, const int* nmap,
                                cudaStream_t stream) {
   // feats (n0, c_in), nmap (n0, n_taps); blk (tiles, n_taps) window start
   // blocks over the padded rows; out (n0, c_out); misses (tiles,) zeroed by
-  // the caller; wprep holds onehot_conv_scratch_bytes bytes. mode: kModeRow
-  // for bf16 with C <= kRowMaxCin and C' <= kRowMaxCout, else kModeTile for
-  // bf16 with C <= kMaxCin, else kModeFma.
+  // the caller; wprep holds onehot_conv_scratch_bytes bytes. mode, for
+  // either operand type: kModeRow for C <= kRowMaxCin and C' <=
+  // kRowMaxCout, else kModeTile for C <= kMaxCin, else kModeFma.
   if (n_taps < 1 || n_taps > kMaxTaps || tile < 1 || block < 1 ||
-      c_out < 1)
+      c_out < 1 || mode != mode_of(c_in, c_out))
     return -1;
-  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, true);
-  const int want = !bf16 || c_in > kMaxCin ? kModeFma
-                 : l.row_mode ? kModeRow : kModeTile;
-  if (mode != want) return -1;
   if (n0 == 0) return 0;
-  if (mode == kModeFma) {
-    onehot_conv_kernel<<<grid_of(n0, c_out), kThreads,
-                         n_taps * kRows * sizeof(int), stream>>>(
-        feats, nmap, weights, blk, n0, c_in, c_out, n_taps, tile, block,
-        bf16, out, misses);
-    return (int)cudaGetLastError();
-  }
-  const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
-  int err = prep_weights(weights, n_taps, c_in, c_out, l, true, wprep,
-                         stream);
-  if (err != 0) return err;
-  if (mode == kModeRow) {
-    const auto kernel = l.slab == 8 ? onehot_row_kernel<8>
-                                    : onehot_row_kernel<kRowMaxCout>;
-    static long smem_set[2] = {0, 0};
-    const long smem = l.smem + (long)n_taps * kRowThreads * sizeof(int);
-    err = allow_smem(kernel, smem, &smem_set[l.slab != 8]);
-    if (err != 0) return err;
-    kernel<<<(unsigned)((n0 + kRowThreads - 1) / kRowThreads), kRowThreads,
-             smem, stream>>>(feats, nmap, blk,
-                             static_cast<const float*>(wprep), n0, c_in,
-                             c_out, n_taps, tile, block, vec4, out, misses);
-    return (int)cudaGetLastError();
-  }
-  if (l.smem > kSmemMax) return -1;
-  const auto kernel = l.slab > 16 ? onehot_tile_kernel<8>
-                                  : onehot_tile_kernel<2>;
-  static long smem_set[2] = {0, 0};
-  err = allow_smem(kernel, l.smem, &smem_set[l.slab > 16]);
-  if (err != 0) return err;
-  const dim3 grid((unsigned)((n0 + kTileRows - 1) / kTileRows),
-                  (unsigned)l.n_slabs);
-  kernel<<<grid, kTileThreads, l.smem, stream>>>(
-      feats, nmap, blk, wprep, n0, c_in, c_out, n_taps, tile, block, vec4,
-      out, misses);
-  return (int)cudaGetLastError();
+  Window w{};
+  w.blk = blk;
+  w.block = block;
+  return bf16 ? launch<true, true>(feats, nmap, w, weights, n0, c_in, c_out,
+                                   n_taps, tile, mode, wprep, out, misses,
+                                   stream)
+              : launch<true, false>(feats, nmap, w, weights, n0, c_in,
+                                    c_out, n_taps, tile, mode, wprep, out,
+                                    misses, stream);
 }

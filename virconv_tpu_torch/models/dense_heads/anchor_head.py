@@ -136,12 +136,18 @@ def compute_anchor_mask(points_xy, points_mask, point_cloud_range,
 
 
 class AnchorHeadSingle(nn.Module):
-    """1x1-conv RPN over BEV features with NMS proposals."""
+    """1x1-conv RPN over BEV features with NMS proposals. A truthy
+    ``OD_LOSS`` raises ``NotImplementedError``: its ODIoU loss term is not
+    ported yet."""
 
     def __init__(self, model_cfg, in_channels: int, num_class: int,
                  grid_size, point_cloud_range):
         super().__init__()
         mcfg = CfgNode(model_cfg)
+        if mcfg.get('OD_LOSS', False):
+            raise NotImplementedError(
+                'DENSE_HEAD.OD_LOSS: the ODIoU RPN loss term is not ported '
+                'yet')
         cfg = mcfg.ANCHOR_GENERATOR_CONFIG[0]
         anchors, self.bev_shape = generate_anchors(
             point_cloud_range, grid_size, cfg['feature_map_stride'],

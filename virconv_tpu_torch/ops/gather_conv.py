@@ -15,17 +15,35 @@ and ``tile*(K-1)`` even (the TPU kernel's window DMA needs all three).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from .sparse import _gathered_conv_raw
 
-# kernel launches (CUDA tensors only), reset and read by chip_smoke.py
+# kernel launches (CUDA tensors only), in all and by mode, reset and read
+# by chip_smoke.py
 launches = 0
+mode_launches = collections.Counter()
 
-# CUDA kernel limit (csrc/gather_conv.cu): taps per conv
+# CUDA kernel limits (csrc/gather_conv.cu, csrc/common.cuh): taps per conv;
+# the tile mode stages rows of at most MAX_CIN input channels; the row
+# mode takes at most ROW_MAX_CIN input and ROW_MAX_COUT output channels.
 MAX_TAPS = 64
+MAX_CIN, ROW_MAX_CIN, ROW_MAX_COUT = 128, 8, 16
+MODES = {'fma': 0, 'tile': 1, 'row': 2}   # the kernel's mode numbers
+
+
+def kernel_mode(c_in: int, c_out: int) -> str:
+    """The kernel body K5 (and K6, for either operand type) runs for these
+    widths: ``'row'`` (C <= ROW_MAX_CIN and C' <= ROW_MAX_COUT: a thread
+    per row over its hit taps), ``'tile'`` (C <= MAX_CIN: 64-row CTAs with
+    an output slab fitted to C') or ``'fma'`` (wider inputs: 64 rows x 64
+    output channels per CTA)."""
+    if c_in <= ROW_MAX_CIN and c_out <= ROW_MAX_COUT:
+        return 'row'
+    return 'tile' if c_in <= MAX_CIN else 'fma'
 
 
 def _check(feats, nmap, weights, tile):
@@ -79,14 +97,18 @@ def fused_gather_conv(feats, nmap, weights, tile: int = 512):
 
 
 def _fused_gather_conv_cuda(feats, nmap, weights, tile):
-    """Launch ``gather_conv_fwd`` (csrc/gather_conv.cu).
+    """Launch ``gather_conv_fwd`` (csrc/gather_conv.cu) in the mode
+    ``kernel_mode`` picks.
 
     Replaces virconv_tpu/ops/pallas/gather_conv.py::_conv_kernel, whose
     per-tile VMEM window (3.5 MB at tile 512, K 27, C 64) has no shared-
     memory counterpart: the window decides only which neighbors count, and
     counted rows are gathered from global memory. Bound: 2*C*C' operations
-    per in-window (row, tap) hit, at the f32 rate; this version runs them
-    on CUDA cores, one CTA per 64 rows x 64 output channels."""
+    per in-window (row, tap) hit, at the f32 rate. The row and tile modes
+    are K1's gathered-row conv on CUDA cores, its sources read from the
+    map: a thread per row for C <= 8, C' <= 16, else 64-row CTAs with an
+    output slab fitted to C', per-16-row-fragment tap skip and cp.async
+    gathers of the hit rows into a ring beside W[k]."""
     global launches
     from . import _cuda
     dev = feats.device
@@ -97,16 +119,24 @@ def _fused_gather_conv_cuda(feats, nmap, weights, tile):
     _cuda.check_cuda_tensor(weights, 'weights', torch.float32, 3, dev)
     if k > MAX_TAPS or c_out < 1:
         raise ValueError(f'gather_conv kernel limits: K={k} C\'={c_out}')
+    mode = kernel_mode(c_in, c_out)
     out = torch.empty((n, c_out), dtype=torch.float32, device=dev)
     misses = torch.zeros((n // tile,), dtype=torch.int32, device=dev)
-    fn = _cuda.load('gather_conv').gather_conv_fwd
+    lib = _cuda.load('gather_conv')
+    size = lib.gather_conv_scratch_bytes
+    size.restype = ctypes.c_long
+    size.argtypes = [ctypes.c_int] * 4
+    wprep = torch.empty((size(c_in, c_out, k, MODES[mode]),),
+                        dtype=torch.uint8, device=dev)
+    fn = lib.gather_conv_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 3)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4)
     err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights), n, c_in,
-             c_out, k, tile, _cuda.ptr(out), _cuda.ptr(misses),
-             _cuda.stream_ptr(dev))
+             c_out, k, tile, MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
+             _cuda.ptr(misses), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'gather_conv_fwd launch failed: CUDA error {err}')
     launches += 1
+    mode_launches[mode] += 1
     return out, misses

@@ -19,34 +19,28 @@ misses (N/tile,) int32).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
-from .gather_conv import MAX_TAPS
+from . import gather_conv
+from .gather_conv import MAX_TAPS, MODES
 from .sparse import _gathered_conv_raw
 
-# kernel launches (CUDA tensors only), reset and read by chip_smoke.py
+# kernel launches (CUDA tensors only), in all and by mode and operand type
+# ('row bf16', 'tile f32', ...), reset and read by chip_smoke.py
 launches = 0
-
-# CUDA kernel limits (csrc/gather_conv.cu, csrc/common.cuh): the bf16 tile
-# mode stages rows of at most MAX_CIN input channels; the bf16 row mode
-# takes at most ROW_MAX_CIN input and ROW_MAX_COUT output channels.
-MAX_CIN, ROW_MAX_CIN, ROW_MAX_COUT = 128, 8, 16
-MODES = {'fma': 0, 'tile': 1, 'row': 2}   # the kernel's mode numbers
+mode_launches = collections.Counter()
 
 
 def kernel_mode(c_in: int, c_out: int, bf16: bool) -> str:
-    """The kernel body K6 runs for these widths: ``'row'`` (bf16, C <=
-    ROW_MAX_CIN and C' <= ROW_MAX_COUT: a thread per row over its hit taps),
-    ``'tile'`` (bf16, C <= MAX_CIN: 64-row CTAs on the tensor cores) or
-    ``'fma'`` (f32 operands or wider inputs: the CUDA-core body K5
-    shares)."""
-    if not bf16 or c_in > MAX_CIN:
-        return 'fma'
-    if c_in <= ROW_MAX_CIN and c_out <= ROW_MAX_COUT:
-        return 'row'
-    return 'tile'
+    """The kernel body K6 runs for these widths, with bf16 or f32 operands
+    alike: K5's rule (``gather_conv.kernel_mode``), ``'row'`` for C <= 8
+    and C' <= 16, ``'tile'`` for C <= 128 (bf16 on the tensor cores, f32
+    on CUDA cores), else ``'fma'``."""
+    del bf16   # both operand types take the same modes
+    return gather_conv.kernel_mode(c_in, c_out)
 
 
 def _check(feats, nmap, weights, tile, block):
@@ -120,12 +114,12 @@ def _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16):
     matmul over two VMEM blocks is an exact gather, done here as a direct
     row read under the same window rule. Bound: 2*C*C' operations per
     in-window (row, tap) hit, at the bf16 tensor-core rate for bf16
-    operands, so the bytes of the inputs. bf16 operands take K1's
-    gathered-row conv: 64-row CTAs with an output slab fitted to C',
-    cp.async gathers of the rows a 16-row fragment hits, mma.sync on W
-    rounded and transposed once per call (tile mode), or a thread per row
-    for C <= 8, C' <= 16 (row mode); f32 operands multiply on CUDA cores,
-    64 rows x 64 output channels per CTA."""
+    operands, so the bytes of the inputs, and at the f32 rate for f32
+    operands. Both take K1's gathered-row conv: 64-row CTAs with an output
+    slab fitted to C', cp.async gathers of the rows a 16-row fragment hits,
+    and mma.sync on W rounded and transposed once per call (bf16) or fmaf
+    on CUDA cores (f32) (tile mode), or a thread per row for C <= 8,
+    C' <= 16 (row mode)."""
     global launches
     from . import _cuda
     dev = feats.device
@@ -136,7 +130,7 @@ def _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16):
     _cuda.check_cuda_tensor(weights, 'weights', torch.float32, 3, dev)
     if k > MAX_TAPS or c_out < 1:
         raise ValueError(f'onehot_conv kernel limits: K={k} C\'={c_out}')
-    mode = MODES[kernel_mode(c_in, c_out, bf16)]
+    mode = kernel_mode(c_in, c_out, bf16)
     n_tiles = (n0 + (-n0) % block + block) // tile
     blk = torch.empty((n_tiles, k), dtype=torch.int32, device=dev)
     misses = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
@@ -152,18 +146,19 @@ def _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16):
         raise RuntimeError(f'onehot_window_blocks failed: CUDA error {err}')
     size = lib.onehot_conv_scratch_bytes
     size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 4
-    wprep = torch.empty((size(c_in, c_out, k, mode),), dtype=torch.uint8,
-                        device=dev)
+    size.argtypes = [ctypes.c_int] * 5
+    wprep = torch.empty((size(c_in, c_out, k, int(bf16), MODES[mode]),),
+                        dtype=torch.uint8, device=dev)
     fn = lib.onehot_conv_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 4)
     err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights),
              _cuda.ptr(blk), n0, c_in, c_out, k, tile, block, int(bf16),
-             mode, _cuda.ptr(wprep), _cuda.ptr(out), _cuda.ptr(misses),
-             _cuda.stream_ptr(dev))
+             MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
+             _cuda.ptr(misses), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'onehot_conv_fwd launch failed: CUDA error {err}')
     launches += 1
+    mode_launches[f'{mode} {"bf16" if bf16 else "f32"}'] += 1
     return out, misses

@@ -4,10 +4,11 @@
     python3 -m virconv_tpu_torch.smoke_report run1.log [run2.log ...]
 
 Reads each log's per-kernel JSON line and card line and prints: each
-kernel's time summed over a request (serving, phase 8) or a training step
-(phase 5) beside its bound; the widest and the first call of K1, K4 and
+kernel's time summed over a request (serving, phase 8; K6 with bf16 and
+f32 operands) or a training step (phase 5) beside its bound, and K5's and
+K6's launches by mode; the widest and the first call of K1, K4, K5 and
 K6; the training step times; and phase 8's sums by layer shape (K, C ->
-C'). Times are the card's, as chip_smoke measured them; nothing here runs
+C'). A row a log lacks (an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke measured them; nothing here runs
 on a card.
 """
 
@@ -55,9 +56,16 @@ def rows_of(data):
             for part in ('forward', 'input_grad'):
                 total(f'{k["name"]} train {part} per step', k['train'][part],
                       k['train']['launches'])
+        if 'f32' in k:
+            total(f'{k["name"]} f32 per request', k['f32'],
+                  k['f32']['launches'])
+        if 'launches_by_mode' in k:
+            out.append((f'{k["name"]} launches by mode',
+                        json.dumps(k['launches_by_mode'], sort_keys=True)))
     for name in ('band_conv_fwd', 'band_conv_fwd_train',
                  'band_conv_fwd_train_dgrad', 'band_conv_dw',
-                 'onehot_conv_fwd', 'gather_conv_fwd'):
+                 'onehot_conv_fwd', 'onehot_conv_fwd_f32',
+                 'gather_conv_fwd'):
         calls = cases.get(name, [])
         for which, c in (('widest', max(calls, key=_width, default=None)),
                          ('first', calls[0] if calls else None)):
@@ -68,16 +76,19 @@ def rows_of(data):
     out.append(('training ms per step', ' '.join(
         f'{t:.1f}' for t in data['train_step']['ms_per_step'])))
     shapes = {}
-    for c5, c6 in zip(cases['gather_conv_fwd'], cases['onehot_conv_fwd']):
-        s = shapes.setdefault(_shape(c5), [0, 0.0, 0.0, 0.0, 0.0])
+    f32 = cases.get('onehot_conv_fwd_f32')   # absent before K6 f32 timing
+    for i, (c5, c6) in enumerate(zip(cases['gather_conv_fwd'],
+                                     cases['onehot_conv_fwd'])):
+        s = shapes.setdefault(_shape(c5), [0, 0.0, 0.0, 0.0, 0.0, 0.0])
         s[0] += 1
         s[1] += c5['ms']
         s[2] += c5['k1_ms']
-        s[3] += c6['ms']
-        s[4] += c6['k1_ms']
-    for shape, (n, k5, k1f, k6, k1b) in shapes.items():
-        out.append((f'phase 8 [{shape}] x{n}: K5 / K1 f32 / K6 / K1 bf16',
-                    f'{k5:.3f} / {k1f:.3f} / {k6:.3f} / {k1b:.3f}'))
+        s[3] += f32[i]['ms'] if f32 else float('nan')
+        s[4] += c6['ms']
+        s[5] += c6['k1_ms']
+    for shape, (n, *ms) in shapes.items():
+        out.append((f'phase 8 [{shape}] x{n}: K5 / K1 f32 / K6 f32 / K6 / '
+                    'K1 bf16', ' / '.join(f'{t:.3f}' for t in ms)))
     return out
 
 
@@ -85,9 +96,10 @@ def main(paths):
     runs = [_load(p) for p in paths]
     for p, (card, _) in zip(paths, runs):
         print(f'# {p}: {card}')
-    table = [rows_of(d) for _, d in runs]
-    for i, (label, _) in enumerate(table[0]):
-        print(f'{label:72s} ' + ' | '.join(t[i][1] for t in table))
+    table = [dict(rows_of(d)) for _, d in runs]
+    labels = list(dict.fromkeys(label for t in table for label in t))
+    for label in labels:
+        print(f'{label:72s} ' + ' | '.join(t.get(label, '-') for t in table))
 
 
 if __name__ == '__main__':

@@ -27,12 +27,19 @@ class Trainer:
     raises when there is none, unless the caller passes ``device="cpu"``.
     Every random draw of a step (StVD, ROI sampling, dropout) comes from
     one ``torch.Generator`` on the device, seeded with ``seed``.
-    ``total_steps`` sizes the OneCycle schedule."""
+    ``total_steps`` sizes the OneCycle schedule. ``OPTIMIZATION.OPTIMIZER``
+    must be ``adam_onecycle``: any other name raises
+    ``NotImplementedError`` before the model is built."""
 
     def __init__(self, cfg: CfgNode | None = None, state_dict=None,
                  device="cuda", seed: int = 0, total_steps: int = 1000):
-        self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else virconv_t_config()
+        name = self.cfg.OPTIMIZATION.OPTIMIZER
+        if name != 'adam_onecycle':
+            raise NotImplementedError(
+                f'optimizer {name!r}: only adam_onecycle is ported; adam '
+                'and sgd are not yet')
+        self.device = resolve_device(device)
         model = VoxelRCNN(self.cfg.MODEL, self.cfg.DATA_CONFIG,
                           num_class=len(self.cfg.CLASS_NAMES))
         if state_dict is None:
