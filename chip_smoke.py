@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure exits non-zero):
-  1. build the CUDA kernels (one nvcc per source, in parallel);
+  1. build the CUDA kernels (one nvcc per source, in parallel) and the
+     native host box library (g++);
   2. hold every kernel call of one full-width request against its plain
      PyTorch version on the same inputs (captured from a warm-up forward:
      every 3D submanifold, strided, 2D first-wins and conv_out layer, every
@@ -42,25 +43,41 @@ Phases (each prints one line; any failure exits non-zero):
      with the same operand type (f32: K5 and K6 bit for bit; bf16: within
      1e-4, bit equality reported), kernel, plain and K1 times, the bound;
      sums per request and misses per layer;
+  9. the evaluation path: (a) a ``scene`` KITTI tree of EVAL_FRAMES=4
+     KITTI-scale val frames, its infos and a seeded full-width VirConv-T
+     checkpoint, evaluated by ``eval_one_ckpt`` on CUDA in batches of
+     FRAMES=2 (x ROT_NUM 3) with every launch count set to 0 just before
+     and read just after: K1 and K2+K3 launched, the native box library
+     loaded, one KITTI dict with finite fields and one ``.txt`` per frame,
+     the R40 metric keys (the AP values of random weights are printed, not
+     gated); sec_per_example, the loader's host seconds per frame and the
+     recalls; (b) the tiny configuration's evaluation of a 2-frame ``mini``
+     tree on CUDA and on the CPU from one checkpoint, f32: the same frames
+     and detection counts, boxes within 5e-3, scores within 2e-3, the same
+     recalls and AP dict;
 then one JSON line of per-kernel numbers (times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
-requests, the phase 6 steps and the phase 8 path), the card's name and
-power limit, and the device JSON as the last line. Each phase prints its
-seconds. It needs the repository around it: alone, or without a CUDA
-device, it exits non-zero and prints no result.
+requests, the phase 6 steps and the phase 8 path, and K1's and K2+K3's
+over the phase 9a run as ``launches_eval``) with phase 9's numbers under
+``eval``, the card's name and power limit, and the device JSON as the last
+line. Each phase prints its seconds. It needs the repository around it:
+alone, or without a CUDA device, it exits non-zero and prints no result.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
 N_REQUESTS = 3
 N_TRAIN_STEPS = 3
+EVAL_FRAMES = 4                    # phase 9's scene tree
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
 K5_TILE, K6_TILE = 512, 256        # fused/onehot_gather_conv's default tiles
@@ -572,41 +589,6 @@ def short(line):
     return json.dumps({k: line[k] for k in keep if k in line})
 
 
-def tiny_config():
-    """The tiny detector of the JAX package's model tests (a few layers,
-    narrow widths, a 16 x 16 x 4 m range at 0.1 m voxels)."""
-    from virconv_tpu_torch.config import virconv_t_config
-    cfg = virconv_t_config()
-    m, d = cfg.MODEL, cfg.DATA_CONFIG
-    d.POINT_CLOUD_RANGE = [0, -8, -3, 16, 8, 1]
-    proc = d.DATA_PROCESSOR[2]
-    proc.VOXEL_SIZE = [0.1, 0.1, 0.1]
-    proc.MAX_NUMBER_OF_VOXELS = {'train': 2048, 'test': 2048}
-    m.BACKBONE_3D.NUM_FILTERS = [8, 16, 32, 32]
-    m.BACKBONE_3D.OUT_FEATURES = 32
-    m.MAP_TO_BEV.NUM_BEV_FEATURES = 64
-    b2 = m.BACKBONE_2D
-    b2.LAYER_NUMS, b2.NUM_FILTERS = [2, 2], [32, 64]
-    b2.NUM_UPSAMPLE_FILTERS = [32, 32]
-    rh = m.ROI_HEAD
-    rh.ROT_NUM = 2
-    rh.PART.IN_CHANNEL = 64
-    rh.PART.GRID_OFFSETS = [0., 8.]
-    rh.PART.FEATMAP_STRIDE = 0.8
-    rh.SHARED_FC = rh.CLS_FC = rh.REG_FC = [64, 64]
-    rh.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE = 128
-    rh.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 32
-    for key in ('ROI_GRID_POOL', 'ROI_GRID_POOL_MM'):
-        rh[key].GRID_SIZE = 4
-        for src, radii in (('x_conv3', [0.8, 1.6]), ('x_conv4', [1.6, 3.2])):
-            lc = rh[key].POOL_LAYERS[src]
-            lc.MLPS = [[16, 16], [16, 16]]
-            lc.QUERY_RANGES = [[2, 2, 2], [3, 3, 3]]
-            lc.POOL_RADIUS = radii
-            lc.NSAMPLE = [8, 8]
-    return cfg
-
-
 def tiny_frames(rng, frames=2, n_pts=1500):
     pcr = [0, -8, -3, 16, 8, 1]
     pts = rng.uniform([pcr[0], pcr[1], pcr[2], 0, 0, 0, 0, 1],
@@ -628,6 +610,7 @@ def tiny_frames(rng, frames=2, n_pts=1500):
 def tiny_train_config():
     """tiny_config() with training sizes: NMS 128 -> 32 proposals and 32
     sampled rois per image per stage."""
+    from virconv_tpu_torch.configs.tiny import tiny_config
     cfg = tiny_config()
     rh = cfg.MODEL.ROI_HEAD
     rh.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
@@ -755,6 +738,127 @@ def tiny_train_parity(devices=('cpu', 'cuda')):
         fail('tiny config training step: devices disagree')
 
 
+R40_KEYS = {f'Car_{m}/{d}_R40' for m in ('3d', 'bev', 'image')
+            for d in ('easy', 'moderate', 'hard')}
+KITTI_FIELDS = {'name', 'truncated', 'occluded', 'alpha', 'bbox',
+                'dimensions', 'location', 'rotation_y', 'score',
+                'boxes_lidar', 'frame_id'}
+
+
+def eval_checkpoint(cfg, ckpt_dir, seed):
+    """A checkpoint of seeded random weights of ``cfg``'s model, written by
+    the port's ``save_checkpoint``."""
+    from virconv_tpu_torch.models.detectors.voxel_rcnn import VoxelRCNN
+    from virconv_tpu_torch.train.checkpoint import save_checkpoint
+    from virconv_tpu_torch.utils.jax_weights import random_init_
+    model = random_init_(VoxelRCNN(cfg.MODEL, cfg.DATA_CONFIG,
+                                   num_class=len(cfg.CLASS_NAMES)), seed)
+    return save_checkpoint(ckpt_dir, model.state_dict(), epoch=1)
+
+
+def eval_scene(tmp, frames, batch_size, logger):
+    """Phase 9a, the evaluation path at full width: a ``scene`` KITTI tree
+    of ``frames`` val frames, its infos, a checkpoint, then
+    ``eval_one_ckpt`` on CUDA with every launch count set to 0 just before
+    and read just after. Fails unless K1 and K2+K3 were launched, the
+    native box library is loaded, each frame has its KITTI dict (finite
+    fields) and ``.txt`` file, and the metric has the R40 keys."""
+    from virconv_tpu_torch.config import virconv_t_config
+    from virconv_tpu_torch.ops import band_conv, native, roi_pool
+    from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    t = time.perf_counter()
+    root = write_tree(tmp / 'scene', 'scene', frames=frames, seed=0)
+    write_s = time.perf_counter() - t
+    cfg = virconv_t_config()
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ckpt = eval_checkpoint(cfg, tmp / 'ckpt_full', seed=0)
+    out = tmp / 'eval_full'
+    band_conv.launches = roi_pool.launches = 0
+    res = eval_one_ckpt(cfg, ckpt, logger, out, batch_size=batch_size,
+                        device='cuda', save_to_file=True, seed=1024)
+    launches = {'band_conv_fwd': band_conv.launches,
+                'roi_pool_fwd': roi_pool.launches}
+    n_det = [len(a['score']) for a in res.det_annos]
+    stats = {'frames': res.frames, 'batch_size': batch_size,
+             'tree_write_s': write_s,
+             'sec_per_example': res.sec_per_example,
+             'loader_sec_per_frame': res.seconds['loader'] / res.frames,
+             'seconds': res.seconds, 'launches': launches,
+             'recalls': {k: list(v) for k, v in res.recalls.items()},
+             'detections_per_frame': n_det,
+             'ap_r40': {k: float(v) for k, v in res.result_dict.items()},
+             'native_box_ops': native.available()}
+    print(f'[phase 9] scene tree of {frames} frames, batches of '
+          f'{batch_size} x ROT_NUM {cfg.DATA_CONFIG.ROT_NUM}: '
+          f'sec_per_example {res.sec_per_example:.4f}, loader '
+          f'{stats["loader_sec_per_frame"]:.4f} s/frame, seconds '
+          f'{json.dumps(res.seconds)}, launches {launches}, detections '
+          f'{n_det}, recalls {json.dumps(stats["recalls"])}', flush=True)
+    print(f'[phase 9] AP(R40) with random weights (not gated): '
+          f'{json.dumps(stats["ap_r40"])}', flush=True)
+    for k, v in launches.items():
+        if v == 0:
+            fail(f'{k} was never launched on the evaluation path')
+    if not native.available():
+        fail('the native box library did not load')
+    if res.frames != frames or len(res.det_annos) != frames:
+        fail(f'{len(res.det_annos)} prediction dicts for {frames} frames')
+    for anno in res.det_annos:
+        if set(anno) != KITTI_FIELDS:
+            fail(f'prediction dict fields {sorted(anno)}')
+        for k in KITTI_FIELDS - {'name', 'frame_id'}:
+            if not np.isfinite(np.asarray(anno[k], np.float64)).all():
+                fail(f'non-finite {k} in frame {anno["frame_id"]}')
+        if not (out / 'final_result' / 'data' /
+                f'{anno["frame_id"]}.txt').exists():
+            fail(f'no .txt file for frame {anno["frame_id"]}')
+    if set(res.result_dict) != R40_KEYS:
+        fail(f'metric keys {sorted(res.result_dict)}')
+    return stats
+
+
+def eval_tiny_parity(tmp, logger, devices=('cuda', 'cpu')):
+    """Phase 9b: the tiny configuration's evaluation of a 2-frame ``mini``
+    tree on CUDA (kernels) and on the CPU (plain versions) from one
+    checkpoint, f32 operands: the same frames and detection counts, boxes
+    within 5e-3 and scores within 2e-3 (phase 4's tolerances), the same
+    recalls and AP dict."""
+    from virconv_tpu_torch.configs.tiny import tiny_eval_config
+    from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    root = write_tree(tmp / 'mini', 'mini', frames=2, seed=0, n_train=0)
+    cfg = tiny_eval_config(root)
+    ckpt = eval_checkpoint(cfg, tmp / 'ckpt_tiny', seed=1)
+    res = {d: eval_one_ckpt(cfg, ckpt, logger, tmp / f'eval_tiny_{d}',
+                            batch_size=2, device=d, bf16=False, seed=1024)
+           for d in devices}
+    a, b = (res[d] for d in devices)
+    same = ([x['frame_id'] for x in a.det_annos]
+            == [x['frame_id'] for x in b.det_annos]
+            and [len(x['score']) for x in a.det_annos]
+            == [len(x['score']) for x in b.det_annos])
+    box_err = score_err = float('nan')
+    if same:
+        box_err = max([float(np.abs(x['boxes_lidar'] - y['boxes_lidar'])
+                             .max(initial=0)) for x, y in
+                       zip(a.det_annos, b.det_annos)])
+        score_err = max([float(np.abs(x['score'] - y['score'])
+                               .max(initial=0)) for x, y in
+                         zip(a.det_annos, b.det_annos)])
+    n_det = [len(x['score']) for x in a.det_annos]
+    ap_same = a.result_dict == b.result_dict and a.recalls == b.recalls
+    print(f'[phase 9] tiny config evaluation {devices[0]} vs {devices[1]}: '
+          f'detections {n_det}, same frames and counts {same}, box max err '
+          f'{box_err:.3g} (tol 5e-3), score max err {score_err:.3g} (tol '
+          f'2e-3), recalls and AP equal {ap_same}', flush=True)
+    if not (same and sum(n_det) > 0 and box_err <= 5e-3
+            and score_err <= 2e-3 and ap_same):
+        fail('tiny config evaluation: devices disagree')
+    return {'detections_per_frame': n_det, 'box_max_err': box_err,
+            'score_max_err': score_err, 'recalls_and_ap_equal': ap_same}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -762,8 +866,10 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.set_grad_enabled(False)
+    from virconv_tpu_torch.configs.tiny import tiny_config
     from virconv_tpu_torch.models.roi_heads import voxel_pool
-    from virconv_tpu_torch.ops import _cuda, band_conv, roi_pool, sparse
+    from virconv_tpu_torch.ops import (_cuda, band_conv, native, roi_pool,
+                                       sparse)
     from virconv_tpu_torch.serve import Detector
     from virconv_tpu_torch.train.trainer import Trainer
     from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames,
@@ -779,10 +885,12 @@ def main():
 
     # ---- phase 1: build ---------------------------------------------------
     t0 = time.time()
-    with ThreadPoolExecutor(len(_cuda.SOURCES)) as pool:
+    with ThreadPoolExecutor(len(_cuda.SOURCES) + 1) as pool:
+        host = pool.submit(native.build)
         list(pool.map(_cuda.load, _cuda.SOURCES))
-    print(f'[phase 1] built {len(_cuda.SOURCES)} kernel libraries',
-          flush=True)
+        host.result()
+    print(f'[phase 1] built {len(_cuda.SOURCES)} kernel libraries and the '
+          'native box library', flush=True)
 
     # ---- phase 2: every kernel call of one request vs its plain version ---
     t0 = phase_done(1, t0)
@@ -907,7 +1015,15 @@ def main():
           f'the same layers with the same operand type): '
           f'{json.dumps(gather_totals)}', flush=True)
     print(f'[phase 8] misses per layer: {json.dumps(misses)}', flush=True)
-    phase_done(8, t0)
+
+    # ---- phase 9: the evaluation path (loader, model, dicts, AP) ------------
+    t0 = phase_done(8, t0)
+    from virconv_tpu_torch.utils.common import create_logger
+    logger = create_logger()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_run = eval_scene(Path(tmp), EVAL_FRAMES, FRAMES, logger)
+        eval_run['tiny_cuda_vs_cpu'] = eval_tiny_parity(Path(tmp), logger)
+    phase_done(9, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -941,8 +1057,10 @@ def main():
         'launches': train_counts['band_conv_fwd'], **k1_train,
         'forward': step_totals['band_conv_fwd_train'],
         'input_grad': step_totals['band_conv_fwd_train_dgrad']}
+    for k in kernels[:2]:
+        k['launches_eval'] = eval_run['launches'][k['name']]
     print(json.dumps({'kernels': kernels, 'train_step': train_run,
-                      'cases': cases}), flush=True)
+                      'eval': eval_run, 'cases': cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -671,3 +671,31 @@ def test_gather_conv_edge_cases(case):
         assert int(want[1].sum()) > 0
     if case == 'empty_tap':
         assert float(want[0].abs().max()) > 0
+
+
+def test_eval_loop_launches_band_conv_and_pool(tmp_path):
+    """``eval_one_ckpt`` of the tiny configuration over a 1-frame ``mini``
+    tree on the card goes through K1 and K2+K3 and gives the KITTI dicts
+    and the R40 metric."""
+    import logging
+    from virconv_tpu_torch.configs.tiny import tiny_eval_config
+    from virconv_tpu_torch.models.detectors.voxel_rcnn import VoxelRCNN
+    from virconv_tpu_torch.ops import native
+    from virconv_tpu_torch.train.checkpoint import save_checkpoint
+    from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
+    from virconv_tpu_torch.utils.jax_weights import random_init_
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    _cuda()
+    root = write_tree(tmp_path / 'kitti', 'mini', frames=1, seed=0,
+                      n_train=0)
+    cfg = tiny_eval_config(root)
+    model = random_init_(VoxelRCNN(cfg.MODEL, cfg.DATA_CONFIG), seed=1)
+    ckpt = save_checkpoint(tmp_path / 'ckpt', model.state_dict(), 1)
+    tbc.launches = trp.launches = 0
+    res = eval_one_ckpt(cfg, ckpt, logging.getLogger('cuda_eval'),
+                        tmp_path / 'out', device='cuda', save_to_file=True)
+    assert tbc.launches > 0 and trp.launches > 0
+    assert native.available()
+    assert res.frames == 1 and len(res.det_annos) == 1
+    assert len(res.result_dict) == 9
+    assert (tmp_path / 'out/final_result/data/000000.txt').exists()

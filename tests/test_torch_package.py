@@ -27,16 +27,39 @@ PKG = ROOT / 'virconv_tpu_torch'
 torch.set_num_threads(1)
 
 
+EVAL_MODULES = (
+    'virconv_tpu_torch.ops.native', 'virconv_tpu_torch.ops.wbf',
+    'virconv_tpu_torch.config', 'virconv_tpu_torch.configs.tiny',
+    'virconv_tpu_torch.utils.common', 'virconv_tpu_torch.utils.metrics',
+    'virconv_tpu_torch.utils.mini_kitti',
+    'virconv_tpu_torch.datasets',
+    'virconv_tpu_torch.datasets.dataset',
+    'virconv_tpu_torch.datasets.kitti.kitti_utils',
+    'virconv_tpu_torch.datasets.kitti.kitti_dataset_mm',
+    'virconv_tpu_torch.datasets.kitti.eval',
+    'virconv_tpu_torch.datasets.processor.point_feature_encoder',
+    'virconv_tpu_torch.datasets.processor.data_processor',
+    'virconv_tpu_torch.datasets.augmentor.x_transform',
+    'virconv_tpu_torch.train.checkpoint',
+    'virconv_tpu_torch.train.eval_loop')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
+             'cv2', 'yaml', 'orbax')
+
+
 def test_import_loads_no_jax_and_no_jax_package():
+    """Every module of the port and tools/test_gpu.py import without JAX,
+    the JAX package, an image library, YAML or orbax."""
     code = (
-        'import sys, virconv_tpu_torch, virconv_tpu_torch.serve, '
+        'import sys, runpy, virconv_tpu_torch, virconv_tpu_torch.serve, '
         'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
         'virconv_tpu_torch.utils.jax_weights, '
         'virconv_tpu_torch.utils.synth_scene, '
         'virconv_tpu_torch.ops.gather_conv, '
-        'virconv_tpu_torch.ops.onehot_conv\n'
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton'))\n"
+        'virconv_tpu_torch.ops.onehot_conv, ' + ', '.join(EVAL_MODULES)
+        + '\n'
+        "runpy.run_path('tools/test_gpu.py', run_name='imported')\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
         'print(bad)\n'
         'assert not bad, bad\n')
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -47,11 +70,12 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 
 _IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|'
-                     r'virconv_tpu)\b', re.M)
+                     r'virconv_tpu|cv2|yaml|orbax)\b', re.M)
 
 
 def test_sources_import_no_jax():
-    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py',
+                                         ROOT / 'tools' / 'test_gpu.py']
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in _IMPORT.finditer(f.read_text())]

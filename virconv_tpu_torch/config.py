@@ -2,11 +2,14 @@
 
 The JAX package loads its configs from YAML. The port ships the one
 configuration its main path runs as a Python dict
-(``configs/virconv_t.py``), so it needs no YAML parser.
+(``configs/virconv_t.py``), so it needs no YAML parser: ``merge_new_config``
+merges a dict over a config and ``cfg_from_list`` applies the CLI's
+``--set KEY VALUE`` overrides with a literal parser of its own.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
 from collections.abc import Mapping
 
@@ -54,3 +57,55 @@ def virconv_t_config() -> CfgNode:
     MODEL, OPTIMIZATION)."""
     from .configs.virconv_t import VIRCONV_T
     return CfgNode(copy.deepcopy(VIRCONV_T))
+
+
+def merge_new_config(config, new_config):
+    """Recursively merge ``new_config`` into ``config`` (in place); the new
+    keys win."""
+    for key, val in new_config.items():
+        if isinstance(val, Mapping):
+            if not isinstance(config.get(key), Mapping):
+                config[key] = CfgNode()
+            merge_new_config(config[key], val)
+        else:
+            config[key] = val
+    return config
+
+
+_WORDS = {'true': True, 'false': False, 'null': None, 'none': None,
+          '~': None}
+
+
+def parse_value(text: str):
+    """A ``--set`` value as YAML would read the usual cases: numbers,
+    booleans, null, and ``[...]`` / ``{...}`` literals; anything else is
+    the string itself."""
+    word = text.strip()
+    if word.lower() in _WORDS:
+        return _WORDS[word.lower()]
+    try:
+        return ast.literal_eval(word)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def cfg_from_list(cfg_list, config):
+    """Apply dotted-path overrides, e.g. ``['DATA_CONFIG.DATA_PATH',
+    '/data/kitti']``. A key must exist, and a scalar keeps its type."""
+    if len(cfg_list) % 2:
+        raise ValueError('override list must be key/value pairs')
+    for full_key, text in zip(cfg_list[0::2], cfg_list[1::2]):
+        *parents, key = full_key.split('.')
+        d = config
+        for sub in parents:
+            if sub not in d:
+                raise KeyError(f'unknown config key: {full_key}')
+            d = d[sub]
+        value = parse_value(text)
+        old = d.get(key)
+        if isinstance(old, (int, float, str)) \
+                and not isinstance(value, type(old)):
+            raise TypeError(f'type mismatch for {full_key}: {value!r} is '
+                            f'not a {type(old).__name__}')
+        d[key] = value
+    return config

@@ -1,0 +1,59 @@
+"""The tiny configuration: VirConv-T's graph at a few narrow layers.
+
+The detector of the JAX package's model tests (``tests/test_model_forward.
+py::tiny_cfg``: a 16 x 16 x 4 m range at 0.1 m voxels, 8-32 channels, ROT_NUM
+2) over VirConv-T's data config, for comparing the CUDA kernels with their
+plain versions on a whole model (``chip_smoke.py`` phases 4, 7 and 9b,
+``tests/test_torch_cuda.py``).
+"""
+
+from __future__ import annotations
+
+from ..config import virconv_t_config
+
+
+def tiny_config():
+    """The tiny detector of the JAX package's model tests (a few layers,
+    narrow widths, a 16 x 16 x 4 m range at 0.1 m voxels)."""
+    cfg = virconv_t_config()
+    m, d = cfg.MODEL, cfg.DATA_CONFIG
+    d.POINT_CLOUD_RANGE = [0, -8, -3, 16, 8, 1]
+    proc = d.DATA_PROCESSOR[2]
+    proc.VOXEL_SIZE = [0.1, 0.1, 0.1]
+    proc.MAX_NUMBER_OF_VOXELS = {'train': 2048, 'test': 2048}
+    m.BACKBONE_3D.NUM_FILTERS = [8, 16, 32, 32]
+    m.BACKBONE_3D.OUT_FEATURES = 32
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 64
+    b2 = m.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS = [2, 2], [32, 64]
+    b2.NUM_UPSAMPLE_FILTERS = [32, 32]
+    rh = m.ROI_HEAD
+    rh.ROT_NUM = 2
+    rh.PART.IN_CHANNEL = 64
+    rh.PART.GRID_OFFSETS = [0., 8.]
+    rh.PART.FEATMAP_STRIDE = 0.8
+    rh.SHARED_FC = rh.CLS_FC = rh.REG_FC = [64, 64]
+    rh.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE = 128
+    rh.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 32
+    for key in ('ROI_GRID_POOL', 'ROI_GRID_POOL_MM'):
+        rh[key].GRID_SIZE = 4
+        for src, radii in (('x_conv3', [0.8, 1.6]), ('x_conv4', [1.6, 3.2])):
+            lc = rh[key].POOL_LAYERS[src]
+            lc.MLPS = [[16, 16], [16, 16]]
+            lc.QUERY_RANGES = [[2, 2, 2], [3, 3, 3]]
+            lc.POOL_RADIUS = radii
+            lc.NSAMPLE = [8, 8]
+    return cfg
+
+
+def tiny_eval_config(data_path):
+    """``tiny_config()`` reading the KITTI tree at ``data_path`` (a
+    ``utils/mini_kitti`` tree), with the loader's ROT_NUM the ROI head's and
+    a score threshold of 0.3, which leaves random weights detections."""
+    cfg = tiny_config()
+    d = cfg.DATA_CONFIG
+    d.DATA_PATH = str(data_path)
+    d.ROT_NUM = cfg.MODEL.ROI_HEAD.ROT_NUM
+    d.MAX_POINTS = {'lidar': 4096, 'mm': 4096}
+    cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.3
+    return cfg

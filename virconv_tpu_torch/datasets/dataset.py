@@ -1,0 +1,197 @@
+"""Dataset template at evaluation: StVD input discard of virtual points,
+test-time replicas, batching.
+
+The port's copy of the evaluation half of ``virconv_tpu/datasets/
+dataset.py``: distance-bin partition and stochastic discard of virtual
+points (StVD, ``input_point_discard``; at eval with 10 bins), the X_TRANS
+replicas, the split of the fused cloud by its indicator column (virtual =
+1, real LiDAR = 2), and a collation into fixed-shape padded arrays
+(per (sample, replica) point streams, per-entry calibration matrices and
+transform params, padded gt boxes with validity masks).
+
+Random draws: every draw (the StVD permutations, and in the data
+processor the shuffle and the over-capacity ``choice``) comes from one
+``np.random.RandomState(seed)`` that the dataset holds, in the order the
+JAX loader draws them from numpy's global state in its one producer
+thread. ``RandomState.permutation`` and ``RandomState.choice`` give the
+numbers that ``np.random.permutation`` and ``np.random.choice`` give
+after ``np.random.seed(seed)``, so the two loaders make the same samples;
+``np.random.default_rng`` draws another stream and would not.
+
+Training (augmentors, the scene swap along x, the training discard rate)
+is not ported: ``training=True`` raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+from ..utils import common as common_utils
+from .augmentor.x_transform import X_TRANS
+from .processor.data_processor import DataProcessor
+from .processor.point_feature_encoder import PointFeatureEncoder
+
+MAX_GT_BOXES = 64
+VIRTUAL, LIDAR = 1, 2        # indicator column of the fused cloud
+
+
+class DatasetTemplate:
+    def __init__(self, dataset_cfg=None, class_names=None, training=False,
+                 root_path=None, logger=None, seed=0):
+        if training:
+            raise NotImplementedError(
+                'the training loader is not ported: the augmentors (gt and '
+                'DA sampling, local and world augmentations), the scene '
+                'swap and the training StVD rate come with the next item '
+                'of the port (ROADMAP Queue A item 3, training half)')
+        self.dataset_cfg = dataset_cfg
+        self.class_names = class_names
+        self.logger = logger
+        self.rng = np.random.RandomState(seed)
+        self.root_path = Path(root_path) if root_path is not None \
+            else Path(dataset_cfg.DATA_PATH)
+        self.rot_num = dataset_cfg.get('ROT_NUM', 1)
+        self.point_cloud_range = np.array(dataset_cfg.POINT_CLOUD_RANGE,
+                                          dtype=np.float32)
+        self.point_feature_encoder = PointFeatureEncoder(
+            dataset_cfg.POINT_FEATURE_ENCODING, rot_num=self.rot_num)
+        self.data_processor = DataProcessor(
+            dataset_cfg.DATA_PROCESSOR,
+            point_cloud_range=self.point_cloud_range, rng=self.rng,
+            rot_num=self.rot_num,
+            max_points=dict(dataset_cfg.get(
+                'MAX_POINTS', {'lidar': 65536, 'mm': 65536})))
+        x_trans_cfg = dataset_cfg.get('X_TRANS', None)
+        self.x_trans = X_TRANS(x_trans_cfg, rot_num=self.rot_num) \
+            if x_trans_cfg is not None else None
+        self.input_discard_rate = dataset_cfg.get('INPUT_DISCARD_RATE', 0.8)
+
+    # --------------------------------------------------------- StVD ---------
+    @staticmethod
+    def partition(points, num=10, max_dis=60, rate=0.2):
+        """Split points into ``num`` distance bins along x, farthest first;
+        find the bin below which subsampling is needed to keep ``rate`` of
+        the points. Returns (bins, position, points in the far bins)."""
+        inter = max_dis / num
+        all_num = max(points.shape[0], 1)
+        points_list = []
+        acc = 0
+        position = num - 1
+        distant_acc = 0
+        for j in range(num):
+            i = num - j - 1
+            if i == num - 1:
+                mask = points[:, 0] >= inter * i
+            else:
+                mask = (points[:, 0] >= inter * i) & \
+                       (points[:, 0] < inter * (i + 1))
+            this = points[mask]
+            acc += this.shape[0]
+            if (acc + i * this.shape[0]) / all_num < rate:
+                position = i
+                distant_acc = acc
+            points_list.append(this)
+        return points_list, max(position, 0), distant_acc
+
+    def input_point_discard(self, points, bin_num=2, rate=0.8):
+        """Bin-wise stochastic discard of ``rate`` of the points that keeps
+        the distant bins whole (StVD)."""
+        retain = 1 - rate
+        parts, pos, distant_acc = self.partition(points, num=bin_num,
+                                                 rate=retain)
+        out_num = int(points.shape[0] * retain)
+        per_bin = int((out_num - distant_acc) / (pos + 1e-4))
+        for i in range(len(parts) - pos, len(parts)):
+            if parts[i].shape[0] > per_bin and per_bin >= 0:
+                sel = self.rng.permutation(parts[i].shape[0])[:per_bin]
+                parts[i] = parts[i][sel]
+        return np.concatenate(parts) if parts else points
+
+    # ------------------------------------------------------ pipeline --------
+    def prepare_data(self, data_dict):
+        if self.x_trans is not None:
+            data_dict = self.x_trans.input_transform(data_dict)
+
+        if data_dict.get('gt_boxes', None) is not None:
+            selected = common_utils.keep_arrays_by_name(
+                data_dict['gt_names'], self.class_names)
+            data_dict['gt_names'] = data_dict['gt_names'][selected]
+            classes = np.array([self.class_names.index(n) + 1
+                                for n in data_dict['gt_names']], np.float32)
+            data_dict['gt_boxes'] = np.concatenate(
+                [data_dict['gt_boxes'][selected], classes.reshape(-1, 1)],
+                axis=1)
+
+        later_fusion = self.dataset_cfg.get('LATER_FUSION', True)
+        for i in range(self.rot_num):
+            sid = '' if i == 0 else str(i)
+            if 'mm' not in data_dict:
+                continue
+            pts = data_dict['points' + sid]
+            points_mm = self.input_point_discard(
+                pts[pts[:, -1] == VIRTUAL], bin_num=10,
+                rate=self.input_discard_rate)
+            points = pts[pts[:, -1] == LIDAR]
+            if later_fusion:
+                data_dict['points_mm' + sid] = points_mm
+                data_dict['points' + sid] = points
+            else:
+                # one fused stream, LiDAR first, intensity rescaled
+                final = np.concatenate([points, points_mm])
+                final[:, 3] /= 10
+                data_dict['points' + sid] = final
+        if not later_fusion:
+            data_dict.pop('mm', None)
+
+        data_dict = self.point_feature_encoder.forward(data_dict)
+        data_dict = self.data_processor.forward(data_dict)
+        data_dict.pop('gt_names', None)
+        return data_dict
+
+    # ------------------------------------------------------ collation -------
+    def collate_batch(self, batch_list):
+        """(batch, meta): the model's fixed-shape arrays (entry = sample *
+        ROT_NUM + replica) and the host records of the samples."""
+        b = len(batch_list)
+        sids = ['' if i == 0 else str(i) for i in range(self.rot_num)]
+
+        def stack_entries(key):
+            return np.stack([s[key.format(sid)] for s in batch_list
+                             for sid in sids])
+
+        ret = {'points': stack_entries('points{}').astype(np.float32),
+               'points_valid': stack_entries('points{}_valid')}
+        if any('points_mm' in s for s in batch_list):
+            ret['points_mm'] = stack_entries('points_mm{}').astype(
+                np.float32)
+            ret['points_mm_valid'] = stack_entries('points_mm{}_valid')
+        mats = [s['calib'].device_matrices() for s in batch_list]
+        ret['v2r'] = np.stack([m[0] for m in mats for _ in sids])
+        ret['p2t'] = np.stack([m[1] for m in mats for _ in sids])
+        if 'transform_param' in batch_list[0]:
+            tp = np.stack([s['transform_param'].astype(np.float32)
+                           for s in batch_list])          # (B, R, 3)
+            ret['transform_param'] = tp
+            ret['trans_params'] = tp.reshape(-1, 3)
+        else:
+            ret['transform_param'] = ret['trans_params'] = None
+        ret['gt_boxes'] = ret['gt_valid'] = None
+
+        # gt boxes travel in the meta for the recall records (replica 0)
+        if all('gt_boxes' in s for s in batch_list):
+            gt = np.zeros((b, MAX_GT_BOXES, 8), np.float32)
+            gt_valid = np.zeros((b, MAX_GT_BOXES), bool)
+            for k, s in enumerate(batch_list):
+                n = min(len(s['gt_boxes']), MAX_GT_BOXES)
+                gt[k, :n] = s['gt_boxes'][:n]
+                gt_valid[k, :n] = True
+        else:
+            gt, gt_valid = None, None
+        meta = {'gt_boxes': gt, 'gt_valid': gt_valid,
+                'frame_id': [s.get('frame_id') for s in batch_list],
+                'calib': [s['calib'] for s in batch_list],
+                'image_shape': [s.get('image_shape') for s in batch_list],
+                'batch_size': b}
+        return ret, meta

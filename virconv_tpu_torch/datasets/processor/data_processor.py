@@ -1,0 +1,86 @@
+"""Host-side data processing: range mask, shuffle, pad to capacity.
+
+The port's copy of ``virconv_tpu/datasets/processor/data_processor.py``.
+As there, ``transform_points_to_voxels`` does not voxelize on the host:
+voxelization runs on the device inside the model
+(``ops/sparse.voxelize``). The host step pads each point stream to its
+static capacity (``MAX_POINTS``), drawing ``capacity`` points without
+replacement from a stream that holds more. Only the test-time branch of
+each processor is ported: gt boxes outside the range are dropped in
+training only, which waits for the augmentors.
+
+Random draws (``shuffle_points``, the over-capacity ``choice``) come from
+the ``np.random.RandomState`` passed in as ``rng``, in the order the JAX
+loader draws them from numpy's global state.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+
+from ...utils import common as common_utils
+
+
+class DataProcessor:
+    def __init__(self, processor_configs, point_cloud_range, rng, rot_num,
+                 max_points):
+        self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
+        self.rng = rng
+        self.rot_num = rot_num
+        self.max_points = max_points
+        self.data_processor_queue = [
+            getattr(self, c.NAME)(config=c) for c in processor_configs]
+
+    def _streams(self, data_dict):
+        """(key, capacity key) of every point stream of every replica."""
+        for i in range(self.rot_num):
+            sid = '' if i == 0 else str(i)
+            for key, cap_key in ((f'points{sid}', 'lidar'),
+                                 (f'points_mm{sid}', 'mm')):
+                if key in data_dict:
+                    yield key, cap_key
+
+    # each processor, called with a config only, returns its closure
+    def mask_points_and_boxes_outside_range(self, data_dict=None,
+                                            config=None):
+        """Drop points outside the range (gt boxes stay at test time)."""
+        if data_dict is None:
+            return partial(self.mask_points_and_boxes_outside_range,
+                           config=config)
+        for key, _ in self._streams(data_dict):
+            pts = data_dict[key]
+            data_dict[key] = pts[common_utils.mask_points_by_range(
+                pts, self.point_cloud_range)]
+        return data_dict
+
+    def shuffle_points(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.shuffle_points, config=config)
+        if config.SHUFFLE_ENABLED['test']:
+            for key, _ in self._streams(data_dict):
+                pts = data_dict[key]
+                data_dict[key] = pts[self.rng.permutation(len(pts))]
+        return data_dict
+
+    def transform_points_to_voxels(self, data_dict=None, config=None):
+        """Pad every point stream to its capacity, with a ``<key>_valid``
+        mask (voxelization runs on the device, in the model)."""
+        if data_dict is None:
+            return partial(self.transform_points_to_voxels, config=config)
+        for key, cap_key in self._streams(data_dict):
+            cap = self.max_points[cap_key]
+            pts = data_dict[key]
+            if len(pts) > cap:
+                pts = pts[self.rng.choice(len(pts), cap, replace=False)]
+            padded = np.zeros((cap, pts.shape[1]), np.float32)
+            padded[:len(pts)] = pts
+            data_dict[key] = padded
+            data_dict[key + '_valid'] = np.arange(cap) < len(pts)
+        return data_dict
+
+    def forward(self, data_dict):
+        for processor in self.data_processor_queue:
+            data_dict = processor(data_dict=data_dict)
+        return data_dict

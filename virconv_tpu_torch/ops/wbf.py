@@ -6,15 +6,15 @@ score-sorted boxes, mean box with circular-mean heading per cluster, max
 score, and the "retain low" rules that keep mid-IoU boxes at the score
 threshold. The reference runs this on CPU numpy too.
 
-A copy of ``virconv_tpu/ops/wbf.py`` on its numpy IoU path (no native
-library).
+A copy of ``virconv_tpu/ops/wbf.py``: the cluster IoU is the native
+library's (``ops/native.py``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import boxes_np
+from . import native
 
 
 def limit(ang):
@@ -51,7 +51,7 @@ def compute_wbf(det_names, det_scores, det_boxes, iou_thresh=0.85,
             cluster_names.append(name)
             continue
         merged = np.asarray(cluster_merged).reshape(-1, 7)
-        ious = boxes_np.boxes_iou_bev(box[None, :7], merged[:, :7])[0]
+        ious = native.boxes_iou_bev(box[None, :7], merged[:, :7])[0]
         argmax = int(np.argmax(ious))
         max_iou = float(np.max(ious))
         if max_iou >= iou_thresh:

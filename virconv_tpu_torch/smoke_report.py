@@ -7,9 +7,10 @@ Reads each log's per-kernel JSON line and card line and prints: each
 kernel's time summed over a request (serving, phase 8; K6 with bf16 and
 f32 operands) or a training step (phase 5) beside its bound, and K5's and
 K6's launches by mode; the widest and the first call of K1, K4, K5 and
-K6; the training step times; and phase 8's sums by layer shape (K, C ->
-C'). A row a log lacks (an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke measured them; nothing here runs
-on a card.
+K6; the training step times; the evaluation's seconds per frame (phase
+9); and phase 8's sums by layer shape (K, C -> C'). A row a log lacks (an
+older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
+measured them; nothing here runs on a card.
 """
 
 from __future__ import annotations
@@ -75,6 +76,12 @@ def rows_of(data):
                             f'{c["plain_ms"]:.2f}'))
     out.append(('training ms per step', ' '.join(
         f'{t:.1f}' for t in data['train_step']['ms_per_step'])))
+    ev = data.get('eval')                    # phase 9 (absent in older logs)
+    if ev is not None:
+        out.append(('eval: sec_per_example, loader s/frame, tail s/frame',
+                    f'{ev["sec_per_example"]:.4f} '
+                    f'{ev["loader_sec_per_frame"]:.4f} '
+                    f'{ev["seconds"]["post"] / ev["frames"]:.4f}'))
     shapes = {}
     f32 = cases.get('onehot_conv_fwd_f32')   # absent before K6 f32 timing
     for i, (c5, c6) in enumerate(zip(cases['gather_conv_fwd'],

@@ -24,15 +24,19 @@ TRAIN_TRANSFORMS = np.array([[0.3, 0.0, 0.98], [0.3, 1.0, 1.02],
 FRAMES = 2            # frames per request, bench.py's default
 
 
+# a KITTI-typical camera calibration (P2, R0, Tr_velo_to_cam)
+KITTI_CALIB = {
+    'P2': np.array([[721.5, 0., 609.6, 44.9], [0., 721.5, 172.9, 0.2],
+                    [0., 0., 1., 0.003]], np.float32),
+    'R0': np.eye(3, dtype=np.float32),
+    'Tr_velo2cam': np.array([[7.5e-03, -1.0, -1.8e-04, -4.1e-03],
+                             [2.0e-03, 1.9e-04, -1.0, -7.6e-02],
+                             [1.0, 7.5e-03, 2.0e-03, -2.7e-01]], np.float32)}
+
+
 def kitti_calib():
-    """(v2r, p2t) of a KITTI-typical camera calibration."""
-    p2 = np.array([[721.5, 0., 609.6, 44.9], [0., 721.5, 172.9, 0.2],
-                   [0., 0., 1., 0.003]], np.float32)
-    v2c = np.array([[7.5e-03, -1.0, -1.8e-04, -4.1e-03],
-                    [2.0e-03, 1.9e-04, -1.0, -7.6e-02],
-                    [1.0, 7.5e-03, 2.0e-03, -2.7e-01]], np.float32)
-    return Calibration({'P2': p2, 'R0': np.eye(3, dtype=np.float32),
-                        'Tr_velo2cam': v2c}).device_matrices()
+    """(v2r, p2t) of ``KITTI_CALIB``."""
+    return Calibration(KITTI_CALIB).device_matrices()
 
 
 def synth_frames(frames, seed=0):
