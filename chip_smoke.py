@@ -55,12 +55,28 @@ Phases (each prints one line; any failure exits non-zero):
      tree on CUDA and on the CPU from one checkpoint, f32: the same frames
      and detection counts, boxes within 5e-3, scores within 2e-3, the same
      recalls and AP dict;
+ 10. the training path from a KITTI tree: (a) a ``scene`` tree of
+     TRAIN_FRAMES=6 frames (4 train with their gt database, 2 val), then
+     ``tools/train_gpu.py``'s ``main`` in this process at full-width
+     VirConv-T in batches of FRAMES=2 frames: ``--epochs 1 --no_eval``
+     (2 steps), then ``--epochs 2``, which resumes at epoch 1, takes 2
+     more steps and evaluates the val frames; every launch count set to 0
+     just before and read just after, and each step's launches counted:
+     finite losses, no skipped step, K1 forward, K1 input gradient and K4
+     on every step, the resumed trainer's state equal to the saved file
+     (step 2, the schedule's learning rate at 2), K1 and K2+K3 in the
+     evaluation; ms per step, peak memory, the loader's host seconds per
+     frame and the share of the loop spent waiting on it; (b) the first
+     two loader batches of a ``mini`` tree under the tiny training config,
+     one step each on the CPU and on CUDA with the CPU's draws replayed:
+     phase 7's tolerances;
 then one JSON line of per-kernel numbers (times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
-requests, the phase 6 steps and the phase 8 path, and K1's and K2+K3's
-over the phase 9a run as ``launches_eval``) with phase 9's numbers under
-``eval``, the card's name and power limit, and the device JSON as the last
-line. Each phase prints its seconds. It needs the repository around it:
+requests, the phase 6 steps and the phase 8 path, K1's and K2+K3's over
+the phase 9a run as ``launches_eval``, and over phase 10a's steps and
+evaluation as ``launches_train_cli`` and ``launches_train_cli_eval``)
+with phase 9's numbers under ``eval`` and phase 10's under ``train_cli``,
+the card's name and power limit, and the device JSON as the last line. Each phase prints its seconds. It needs the repository around it:
 alone, or without a CUDA device, it exits non-zero and prints no result.
 """
 
@@ -78,6 +94,7 @@ import numpy as np
 N_REQUESTS = 3
 N_TRAIN_STEPS = 3
 EVAL_FRAMES = 4                    # phase 9's scene tree
+TRAIN_FRAMES, TRAIN_N_TRAIN = 6, 4  # phase 10's scene tree, its train split
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16_FLOPS, F32_FLOPS = 989e12, 67e12
 K5_TILE, K6_TILE = 512, 256        # fused/onehot_gather_conv's default tiles
@@ -607,20 +624,6 @@ def tiny_frames(rng, frames=2, n_pts=1500):
             'p2t': np.tile(p2t, (frames, 1, 1))}
 
 
-def tiny_train_config():
-    """tiny_config() with training sizes: NMS 128 -> 32 proposals and 32
-    sampled rois per image per stage."""
-    from virconv_tpu_torch.configs.tiny import tiny_config
-    cfg = tiny_config()
-    rh = cfg.MODEL.ROI_HEAD
-    rh.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
-    rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 32
-    for stage in rh.TARGET_CONFIG.values():
-        if isinstance(stage, dict) and 'ROI_PER_IMAGE' in stage:
-            stage.ROI_PER_IMAGE = 32
-    return cfg
-
-
 def tiny_train_batch(rng, frames=2):
     """tiny_frames() with two gt cars per frame and a world transform per
     entry (each entry is its own sample)."""
@@ -705,17 +708,18 @@ def train_steps(trainer, batch, n_steps):
                     'peak_memory_gib': peak_gib, 'conv_branches': branches}
 
 
-def tiny_train_parity(devices=('cpu', 'cuda')):
-    """Phase 7: one tiny-config training step on each device with the same
-    weights and the same draws (made once, on the CPU, by the first run).
-    The loss within rtol 1e-4; each parameter's gradient within 1e-3 x its
-    max |grad| on the CPU, floored at 1e-4 x the step's largest gradient
-    (gradients that are zero in exact arithmetic are round-off)."""
+def train_step_parity(cfg, batch, devices=('cpu', 'cuda')):
+    """One training step of ``cfg`` on ``batch`` on each device, from fresh
+    trainers with the same weights and the same draws (made once, on the
+    first device, and replayed on the second). Returns (the loss's
+    relative error, (the worst gradient error in units of its scale, its
+    parameter), the losses): each parameter's gradient error is taken
+    against its max |grad| on the first device, floored at 1e-4 x the
+    step's largest gradient (gradients that are zero in exact arithmetic
+    are round-off)."""
     import torch
     from virconv_tpu_torch.train.draws import Draws
     from virconv_tpu_torch.train.trainer import Trainer
-    cfg = tiny_train_config()
-    batch = tiny_train_batch(np.random.default_rng(0))
     draws = Draws(torch.Generator().manual_seed(7))
     res = {}
     for d in devices:
@@ -730,6 +734,17 @@ def tiny_train_parity(devices=('cpu', 'cuda')):
                  / max(float(g.abs().max()), floor), n)
                 for n, g in g_ref.items())
     loss_rel = abs(l_dev - l_ref) / max(abs(l_ref), 1e-12)
+    return loss_rel, worst, (l_ref, l_dev)
+
+
+def tiny_train_parity(devices=('cpu', 'cuda')):
+    """Phase 7: one tiny-config training step on a synthetic batch on each
+    device (``train_step_parity``): the loss within rtol 1e-4, each
+    gradient within 1e-3 x its scale."""
+    from virconv_tpu_torch.configs.tiny import tiny_train_config
+    loss_rel, worst, (l_ref, l_dev) = train_step_parity(
+        tiny_train_config(), tiny_train_batch(np.random.default_rng(0)),
+        devices)
     print(f'[phase 7] tiny config training step {devices[1]} vs '
           f'{devices[0]}: loss {l_dev:.6g} vs {l_ref:.6g} (rel err '
           f'{loss_rel:.3g}, tol 1e-4), worst gradient {worst[1]} at '
@@ -857,6 +872,229 @@ def eval_tiny_parity(tmp, logger, devices=('cuda', 'cpu')):
         fail('tiny config evaluation: devices disagree')
     return {'detections_per_frame': n_det, 'box_max_err': box_err,
             'score_max_err': score_err, 'recalls_and_ap_equal': ap_same}
+
+
+class StepCounts:
+    """Counts the K1 forward, K1 input-gradient, K4 and K2+K3 launches of
+    each training step of ``trainer`` (read and reset by ``take``), as
+    ``TrainCapture`` tells K1's forward calls (while the model's forward
+    runs) from its input-gradient calls; the wrapped functions still
+    launch the kernels and bump the modules' own counts."""
+
+    KEYS = ('k1_forward', 'k1_input_grad', 'k4', 'k2_k3')
+
+    def __init__(self, trainer):
+        from virconv_tpu_torch.ops import band_conv, roi_pool
+        self._bc, self._rp, self._model = band_conv, roi_pool, trainer.model
+        self._orig = (band_conv._band_conv_cuda,
+                      band_conv._band_conv_dw_cuda, roi_pool._roi_pool_cuda)
+        self._in_forward = False
+        self.counts = dict.fromkeys(self.KEYS, 0)
+
+    def __enter__(self):
+        k1, k4, pool = self._orig
+        forward = self._model.forward
+
+        def model_forward(*a, **k):
+            self._in_forward = True
+            try:
+                return forward(*a, **k)
+            finally:
+                self._in_forward = False
+
+        def counted(key, fn):
+            def call(*a, **k):
+                if key == 'k1':
+                    name = 'k1_forward' if self._in_forward \
+                        else 'k1_input_grad'
+                else:
+                    name = key
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return call
+        self._model.forward = model_forward
+        self._bc._band_conv_cuda = counted('k1', k1)
+        self._bc._band_conv_dw_cuda = counted('k4', k4)
+        self._rp._roi_pool_cuda = counted('k2_k3', pool)
+        return self
+
+    def take(self):
+        out, self.counts = self.counts, dict.fromkeys(self.KEYS, 0)
+        return out
+
+    def __exit__(self, *exc):
+        (self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda,
+         self._rp._roi_pool_cuda) = self._orig
+        del self._model.forward
+        return False
+
+
+def tree_equal(got, want):
+    """Nested dicts of tensors and numbers equal, tensors bit for bit."""
+    import torch
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(tree_equal(got[k], want[k])
+                                             for k in want)
+    if torch.is_tensor(want):
+        return torch.equal(got.detach().cpu(), want)
+    return got == want
+
+
+def train_cli_scene(tmp, frames, n_train, batch_size):
+    """Phase 10a: ``tools/train_gpu.py``'s ``main`` in this process at
+    full-width VirConv-T on a ``scene`` tree of ``frames`` frames
+    (``n_train`` in the train split, with its gt database): one epoch with
+    ``--no_eval``, then ``--epochs 2``, which resumes at epoch 1 and
+    evaluates the val frames. Every launch count is set to 0 just before
+    and read just after, and each step's launches are counted. Fails
+    unless every loss is finite with no skipped step, K1 (forward and
+    input gradient) and K4 ran on every step, the resumed trainer's state
+    equals the saved file before its first step (step and learning rate
+    included), and the evaluation launched K1 and K2+K3."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv, roi_pool
+    from virconv_tpu_torch.train.checkpoint import load_checkpoint
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
+    import train_gpu
+    t = time.perf_counter()
+    root = write_tree(tmp / 'train_scene', 'scene', frames=frames, seed=0,
+                      n_train=n_train)
+    write_s = time.perf_counter() - t
+    steps_per_epoch = n_train // batch_size
+    argv = ['--cfg', 'virconv_t', '--batch_size', str(batch_size),
+            '--output_dir', str(tmp / 'train_run'), '--log_interval', '1',
+            '--fix_random_seed', '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+    state = {'counter': None, 'steps': [], 'resume': None}
+
+    def on_start(trainer, start_epoch, resumed_from):
+        if resumed_from is not None:
+            saved = load_checkpoint(resumed_from)
+            got = trainer.state_dict()
+            state['resume'] = {
+                'start_epoch': start_epoch, 'step': got['step'],
+                'lr': trainer.lr(),
+                'lr_fn_at_step': float(trainer.optimizer.lr_fn(
+                    saved['step'])),
+                'model_equal': tree_equal(got['model_state'],
+                                          saved['model_state']),
+                'optimizer_equal': tree_equal(got['optimizer_state'],
+                                              saved['optimizer_state'])}
+        state['counter'] = StepCounts(trainer).__enter__()
+
+    def on_step(rec, tb):
+        torch.cuda.synchronize()
+        state['steps'].append({
+            **rec, **state['counter'].take(),
+            'terms_finite': all(np.isfinite(float(v)) for v in tb.values()),
+            'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    band_conv.launches = band_conv.dw_launches = roi_pool.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for extra in (['--epochs', '1', '--no_eval'], ['--epochs', '2']):
+        try:
+            runs.append(train_gpu.main(extra + argv, on_start, on_step))
+        finally:
+            if state['counter'] is not None:
+                eval_counts = state['counter'].take()
+                state['counter'].__exit__()
+                state['counter'] = None
+    counts = {'band_conv_fwd': band_conv.launches,
+              'band_conv_dw': band_conv.dw_launches,
+              'roi_pool_fwd': roi_pool.launches}
+    # the evaluation builds its own model: all its K1 calls are forward
+    eval_counts = {'band_conv_fwd': eval_counts['k1_forward']
+                   + eval_counts['k1_input_grad'],
+                   'roi_pool_fwd': eval_counts['k2_k3']}
+    steps = state['steps']
+    ms = [1e3 * r['seconds'] for r in steps]
+    wall = sum(r.wall_seconds for r in runs)
+    wait = sum(r.wait_seconds for r in runs)
+    frames_loaded = sum(r.frames for r in runs)
+    res = runs[1].eval
+    stats = {'frames': frames, 'train_frames': n_train,
+             'batch_size': batch_size, 'tree_write_s': write_s,
+             'steps': len(steps), 'ms_per_step': ms,
+             'ms_per_step_after_first': float(np.mean(ms[1:])),
+             'loss': [r['loss'] for r in steps],
+             'lr': [r['lr'] for r in steps],
+             'peak_memory_gib': max(r['peak_gib'] for r in steps),
+             'loader_sec_per_frame': sum(r.loader_seconds for r in runs)
+             / max(frames_loaded, 1),
+             'loader_frames': frames_loaded,
+             'loop_wall_s': wall, 'loader_wait_s': wait,
+             'wait_share': wait / wall,
+             'launches_per_step': [{k: r[k] for k in StepCounts.KEYS}
+                                   for r in steps],
+             'launches': counts, 'launches_eval': eval_counts,
+             'resume': state['resume'],
+             'eval_frames': res.frames if res else 0,
+             'sec_per_example': res.sec_per_example if res else None}
+    print(f'[phase 10] train_gpu on a scene tree ({n_train} train, '
+          f'{frames - n_train} val frames), batches of {batch_size}: '
+          f'{len(steps)} steps, ms/step {[round(x, 1) for x in ms]}, loss '
+          f'{[round(x, 4) for x in stats["loss"]]}, lr {stats["lr"]}, peak '
+          f'memory {stats["peak_memory_gib"]:.2f} GiB, loader '
+          f'{stats["loader_sec_per_frame"]:.4f} s/frame over '
+          f'{frames_loaded} frames, waiting on the loader '
+          f'{wait:.2f} of {wall:.2f} s ({100 * stats["wait_share"]:.1f} %)',
+          flush=True)
+    print(f'[phase 10] launches per step {stats["launches_per_step"]}, '
+          f'evaluation {eval_counts}, resume {state["resume"]}', flush=True)
+    if len(steps) != 2 * steps_per_epoch:
+        fail(f'{len(steps)} training steps, expected {2 * steps_per_epoch}')
+    for r in steps:
+        if not (np.isfinite(r['loss']) and r['terms_finite']):
+            fail(f'non-finite loss or terms at step {r["step"]}')
+        if r['nonfinite_skips'] != 0:
+            fail(f'{r["nonfinite_skips"]} skipped steps')
+        if not (r['k1_forward'] and r['k1_input_grad'] and r['k4']):
+            fail(f'step {r["step"]} missed a kernel: {r}')
+    rs = state['resume']
+    if not (rs and rs['start_epoch'] == 1 and rs['step'] == steps_per_epoch
+            and rs['model_equal'] and rs['optimizer_equal']
+            and rs['lr'] == rs['lr_fn_at_step']):
+        fail(f'the resumed trainer does not hold the saved state: {rs}')
+    if runs[0].resumed_from is not None or steps[steps_per_epoch]['step'] \
+            != steps_per_epoch + 1:
+        fail('the second run did not continue the first')
+    if not (res and res.frames == frames - n_train
+            and eval_counts['band_conv_fwd'] and eval_counts['roi_pool_fwd']):
+        fail(f'the evaluation after training: {eval_counts}')
+    return stats
+
+
+def train_loader_tiny_parity(tmp, devices=('cpu', 'cuda')):
+    """Phase 10b: the first two training-loader batches of a ``mini`` tree
+    under the tiny training config, one step each on the CPU and on CUDA
+    (``train_step_parity``, fresh trainers, the CPU's draws replayed on
+    the card): losses within rtol 1e-4, gradients within 1e-3 x their
+    scale (phase 7's tolerances)."""
+    from virconv_tpu_torch.configs.tiny import tiny_train_config
+    from virconv_tpu_torch.datasets import build_dataloader
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    root = write_tree(tmp / 'train_mini', 'mini', frames=5, seed=0,
+                      n_train=4)
+    cfg = tiny_train_config(root)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                 seed=3, training=True)
+    batches = [b for b, _ in loader][:2]
+    out = []
+    for i, batch in enumerate(batches):
+        loss_rel, worst, losses = train_step_parity(cfg, batch, devices)
+        out.append({'loss_rel_err': loss_rel, 'worst_grad': worst[0],
+                    'worst_param': worst[1], 'losses': list(losses),
+                    'gt_boxes': int(batch['gt_valid'].sum())})
+        print(f'[phase 10] tiny config, loader batch {i}: loss '
+              f'{losses[1]:.6g} vs {losses[0]:.6g} (rel err {loss_rel:.3g}, '
+              f'tol 1e-4), worst gradient {worst[1]} at {worst[0]:.3g} x '
+              f'its scale (tol 1e-3)', flush=True)
+        if not (loss_rel <= 1e-4 and worst[0] <= 1e-3):
+            fail(f'tiny config, loader batch {i}: devices disagree')
+    if len(batches) != 2:
+        fail(f'{len(batches)} loader batches, expected 2')
+    return out
 
 
 def main():
@@ -1023,7 +1261,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         eval_run = eval_scene(Path(tmp), EVAL_FRAMES, FRAMES, logger)
         eval_run['tiny_cuda_vs_cpu'] = eval_tiny_parity(Path(tmp), logger)
-    phase_done(9, t0)
+    t0 = phase_done(9, t0)
+
+    # ---- phase 10: training from a KITTI tree (loader, CLI, resume) ---------
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        train_cli = train_cli_scene(Path(tmp), TRAIN_FRAMES, TRAIN_N_TRAIN,
+                                    FRAMES)
+        train_cli['tiny_cuda_vs_cpu'] = train_loader_tiny_parity(Path(tmp))
+    phase_done(10, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -1059,8 +1304,17 @@ def main():
         'input_grad': step_totals['band_conv_fwd_train_dgrad']}
     for k in kernels[:2]:
         k['launches_eval'] = eval_run['launches'][k['name']]
+    # phase 10: the training CLI's steps, and the evaluation after them
+    per_step = train_cli['launches_per_step']
+    kernels[0]['train']['launches_train_cli'] = sum(
+        r['k1_forward'] + r['k1_input_grad'] for r in per_step)
+    by_name['band_conv_dw']['launches_train_cli'] = sum(
+        r['k4'] for r in per_step)
+    for k in kernels[:2]:
+        k['launches_train_cli_eval'] = train_cli['launches_eval'][k['name']]
     print(json.dumps({'kernels': kernels, 'train_step': train_run,
-                      'eval': eval_run, 'cases': cases}), flush=True)
+                      'eval': eval_run, 'train_cli': train_cli,
+                      'cases': cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -699,3 +699,50 @@ def test_eval_loop_launches_band_conv_and_pool(tmp_path):
     assert res.frames == 1 and len(res.det_annos) == 1
     assert len(res.result_dict) == 9
     assert (tmp_path / 'out/final_result/data/000000.txt').exists()
+
+
+def test_training_loader_steps_match_cpu(tmp_path):
+    """The first two training-loader batches of a ``mini`` tree under the
+    tiny training config, one ``Trainer`` step each on the CPU and on the
+    card (fresh trainers from one seed, the CPU's draws replayed on the
+    card), TF32 off: the loss within rtol 1e-4 and each parameter's
+    gradient within 1e-3 x its max |grad| on the CPU (floored at 1e-4 x
+    the step's largest), as chip_smoke.py phase 10b; K1 and K4 launched."""
+    from virconv_tpu_torch.configs.tiny import tiny_train_config
+    from virconv_tpu_torch.datasets import build_dataloader
+    from virconv_tpu_torch.train.draws import Draws
+    from virconv_tpu_torch.train.trainer import Trainer
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    _cuda()
+    root = write_tree(tmp_path / 'kitti', 'mini', frames=5, seed=0,
+                      n_train=4)
+    cfg = tiny_train_config(root)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                 seed=3, training=True)
+    batches = [b for b, _ in loader]
+    assert len(batches) == 2
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for batch in batches:
+            draws = Draws(torch.Generator().manual_seed(7))
+            res = {}
+            for d in ('cpu', 'cuda'):
+                tbc.launches = tbc.dw_launches = 0
+                tr = Trainer(cfg=cfg, device=d, seed=1, total_steps=2)
+                loss, _ = tr.step(batch, draws if d == 'cpu'
+                                  else Draws(replay=draws.log))
+                res[d] = (float(loss), {n: p.grad.cpu() for n, p in
+                                        tr.model.named_parameters()})
+            assert tbc.launches > 0 and tbc.dw_launches > 0
+            (l_cpu, g_cpu), (l_gpu, g_gpu) = res['cpu'], res['cuda']
+            assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+            floor = 1e-4 * max(float(g.abs().max()) for g in g_cpu.values())
+            for n, g in g_cpu.items():
+                err = float((g_gpu[n] - g).abs().max())
+                assert err <= 1e-3 * max(float(g.abs().max()), floor), n
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32

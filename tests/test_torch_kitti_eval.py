@@ -203,12 +203,7 @@ def test_input_point_discard_equals_jax(bin_num, rate, seed):
 
 def test_training_loader_raises():
     from virconv_tpu_torch.datasets import build_dataloader
-    from virconv_tpu_torch.datasets.kitti.kitti_dataset_mm import \
-        KittiDatasetMM
     cfg = virconv_t_config()
-    with pytest.raises(NotImplementedError, match='augmentors'):
-        KittiDatasetMM(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True,
-                       root_path='.')
     cfg.DATA_CONFIG.DATASET = 'KittiDatasetSemi'
     with pytest.raises(NotImplementedError, match='KittiDatasetSemi'):
         build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1)

@@ -40,6 +40,9 @@ EVAL_MODULES = (
     'virconv_tpu_torch.datasets.processor.point_feature_encoder',
     'virconv_tpu_torch.datasets.processor.data_processor',
     'virconv_tpu_torch.datasets.augmentor.x_transform',
+    'virconv_tpu_torch.datasets.augmentor.augmentor_utils',
+    'virconv_tpu_torch.datasets.augmentor.database_sampler',
+    'virconv_tpu_torch.datasets.augmentor.data_augmentor',
     'virconv_tpu_torch.train.checkpoint',
     'virconv_tpu_torch.train.eval_loop')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
@@ -47,8 +50,9 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
 
 
 def test_import_loads_no_jax_and_no_jax_package():
-    """Every module of the port and tools/test_gpu.py import without JAX,
-    the JAX package, an image library, YAML or orbax."""
+    """Every module of the port, tools/test_gpu.py and tools/train_gpu.py
+    import without JAX, the JAX package, an image library, YAML or
+    orbax."""
     code = (
         'import sys, runpy, virconv_tpu_torch, virconv_tpu_torch.serve, '
         'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
@@ -58,6 +62,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         'virconv_tpu_torch.ops.onehot_conv, ' + ', '.join(EVAL_MODULES)
         + '\n'
         "runpy.run_path('tools/test_gpu.py', run_name='imported')\n"
+        "runpy.run_path('tools/train_gpu.py', run_name='imported')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         'print(bad)\n'
@@ -75,14 +80,15 @@ _IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|'
 
 def test_sources_import_no_jax():
     files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py',
-                                         ROOT / 'tools' / 'test_gpu.py']
+                                         ROOT / 'tools' / 'test_gpu.py',
+                                         ROOT / 'tools' / 'train_gpu.py']
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in _IMPORT.finditer(f.read_text())]
     assert not bad, bad
 
 
-def test_entry_points_refuse_missing_cuda():
+def test_entry_points_refuse_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
     from virconv_tpu_torch import resolve_device
@@ -95,6 +101,12 @@ def test_entry_points_refuse_missing_cuda():
     with pytest.raises(RuntimeError, match='CUDA'):
         resolve_device('cuda')
     assert resolve_device('cpu').type == 'cpu'
+    import runpy
+    train_cli = runpy.run_path(str(ROOT / 'tools' / 'train_gpu.py'),
+                               run_name='imported')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_cli['main'](['--output_dir', str(tmp_path / 'out')])
+    assert not (tmp_path / 'out').exists()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -20,10 +20,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from virconv_tpu_torch import resolve_device  # noqa: E402
-from virconv_tpu_torch.config import (cfg_from_list,  # noqa: E402
-                                      virconv_t_config)
+from virconv_tpu_torch.config import CONFIGS as SHIPPED  # noqa: E402
+from virconv_tpu_torch.config import cfg_from_list  # noqa: E402
 
-CONFIGS = {'virconv_t': virconv_t_config}
+CONFIGS = dict(SHIPPED)
 LOADER_SEED = 1024            # tools/test.py seeds numpy with 1024
 
 

@@ -59,6 +59,10 @@ def virconv_t_config() -> CfgNode:
     return CfgNode(copy.deepcopy(VIRCONV_T))
 
 
+# the shipped configurations by the name the command lines take
+CONFIGS = {'virconv_t': virconv_t_config}
+
+
 def merge_new_config(config, new_config):
     """Recursively merge ``new_config`` into ``config`` (in place); the new
     keys win."""

@@ -3,8 +3,9 @@
 The detector of the JAX package's model tests (``tests/test_model_forward.
 py::tiny_cfg``: a 16 x 16 x 4 m range at 0.1 m voxels, 8-32 channels, ROT_NUM
 2) over VirConv-T's data config, for comparing the CUDA kernels with their
-plain versions on a whole model (``chip_smoke.py`` phases 4, 7 and 9b,
-``tests/test_torch_cuda.py``).
+plain versions on a whole model (``chip_smoke.py`` phases 4, 7, 9b and
+10b, ``tests/test_torch_cuda.py``), and for training and evaluating on the
+CPU in the tests.
 """
 
 from __future__ import annotations
@@ -56,4 +57,20 @@ def tiny_eval_config(data_path):
     d.ROT_NUM = cfg.MODEL.ROI_HEAD.ROT_NUM
     d.MAX_POINTS = {'lidar': 4096, 'mm': 4096}
     cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.3
+    return cfg
+
+
+def tiny_train_config(data_path=None):
+    """``tiny_config()`` with training sizes: NMS 128 -> 32 proposals and
+    32 sampled ROIs per image per stage. With ``data_path``, the data
+    settings of ``tiny_eval_config(data_path)`` (the loader's KITTI
+    tree)."""
+    cfg = tiny_config() if data_path is None else \
+        tiny_eval_config(data_path)
+    rh = cfg.MODEL.ROI_HEAD
+    rh.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
+    rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 32
+    for stage in rh.TARGET_CONFIG.values():
+        if isinstance(stage, dict) and 'ROI_PER_IMAGE' in stage:
+            stage.ROI_PER_IMAGE = 32
     return cfg

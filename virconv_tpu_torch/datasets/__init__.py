@@ -1,11 +1,13 @@
-"""Dataset registry and the evaluation loader.
+"""Dataset registry and the loader.
 
-The port's copy of ``virconv_tpu/datasets/__init__.py`` at evaluation: a
-string registry, pad + stride sharding of the frames over ``num_shards``
-processes, and one producer thread that loads and collates batches ahead
+The port's copy of ``virconv_tpu/datasets/__init__.py``: a string
+registry; in training an epoch shuffle from ``np.random.default_rng(
+shuffle_seed + epoch)`` (``set_epoch``) and no last partial batch; at
+evaluation pad + stride sharding of the frames over ``num_shards``
+processes; and one producer thread that loads and collates batches ahead
 of the consumer (``DataLoader.PREFETCH`` batches). The producer draws
 every random number of the samples, in order, from the dataset's
-``RandomState``.
+``RandomState``, a replacement index for a ``None`` sample included.
 """
 
 from __future__ import annotations
@@ -29,23 +31,34 @@ PRODUCER = 'virconv-loader-producer'
 
 
 class DataLoader:
-    """Batches of ``dataset.collate_batch`` in index order.
+    """Batches of ``dataset.collate_batch``, in index order or (``shuffle``)
+    in the epoch's permutation.
 
     ``host_seconds`` and ``frames`` add up the producer's time to load and
     collate and the frames it loaded."""
 
     PREFETCH = 2              # batches the producer may run ahead
 
-    def __init__(self, dataset, batch_size, num_shards=1, shard_id=0):
+    def __init__(self, dataset, batch_size, num_shards=1, shard_id=0,
+                 shuffle=False, seed=0, drop_last=False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_shards = num_shards
         self.shard_id = shard_id
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.epoch = 0
         self.host_seconds = 0.0
         self.frames = 0
 
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
     def _indices(self):
         idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         if self.num_shards > 1:
             # pad + stride sharding (the reference's eval sampler)
             pad = (-len(idx)) % self.num_shards
@@ -54,12 +67,23 @@ class DataLoader:
         return idx
 
     def __len__(self):
-        return -(-len(self._indices()) // self.batch_size)
+        n = len(self._indices())
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _sample(self, i):
+        s = self.dataset[int(i)]
+        while s is None:
+            s = self.dataset[int(self.dataset.rng.randint(
+                len(self.dataset)))]
+        return s
 
     def __iter__(self):
         idx = self._indices()
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
         q = queue.Queue(maxsize=self.PREFETCH)
         stop = threading.Event()
 
@@ -77,7 +101,7 @@ class DataLoader:
                 for bidx in batches:
                     t0 = time.perf_counter()
                     batch = self.dataset.collate_batch(
-                        [self.dataset[int(i)] for i in bidx])
+                        [self._sample(i) for i in bidx])
                     self.host_seconds += time.perf_counter() - t0
                     self.frames += len(bidx)
                     if not put(('batch', batch)):
@@ -103,16 +127,21 @@ class DataLoader:
 
 
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None,
-                     logger=None, seed=0, num_shards=1, shard_id=0):
+                     logger=None, seed=0, num_shards=1, shard_id=0,
+                     training=False, shuffle_seed=None):
     """(dataset, loader) of ``dataset_cfg.DATASET``; ``seed`` seeds the
-    dataset's ``RandomState``."""
+    dataset's ``RandomState``. ``training``: the training split and
+    augmentations, shuffled epochs (from ``shuffle_seed``, by default
+    ``seed``) and no last partial batch."""
     if dataset_cfg.DATASET not in __all__:
         raise NotImplementedError(
             f'dataset {dataset_cfg.DATASET!r} is not ported (registered: '
             f'{sorted(__all__)}); KittiDatasetSemi comes with VirConv-S')
     dataset = __all__[dataset_cfg.DATASET](
         dataset_cfg=dataset_cfg, class_names=class_names,
-        root_path=root_path, logger=logger, seed=seed)
+        root_path=root_path, logger=logger, seed=seed, training=training)
     loader = DataLoader(dataset, batch_size, num_shards=num_shards,
-                        shard_id=shard_id)
+                        shard_id=shard_id, shuffle=training,
+                        seed=seed if shuffle_seed is None else shuffle_seed,
+                        drop_last=training)
     return dataset, loader

@@ -1,25 +1,27 @@
-"""Dataset template at evaluation: StVD input discard of virtual points,
-test-time replicas, batching.
+"""Dataset template: the training augmentations, StVD input discard of
+virtual points, test-time replicas, batching.
 
-The port's copy of the evaluation half of ``virconv_tpu/datasets/
-dataset.py``: distance-bin partition and stochastic discard of virtual
-points (StVD, ``input_point_discard``; at eval with 10 bins), the X_TRANS
-replicas, the split of the fused cloud by its indicator column (virtual =
-1, real LiDAR = 2), and a collation into fixed-shape padded arrays
-(per (sample, replica) point streams, per-entry calibration matrices and
-transform params, padded gt boxes with validity masks).
+The port's copy of ``virconv_tpu/datasets/dataset.py``: distance-bin
+partition and stochastic discard of virtual points (StVD,
+``input_point_discard``; 2 bins in training, 10 at evaluation), the split
+of the fused cloud by its indicator column (virtual = 1, real LiDAR = 2),
+and a collation into fixed-shape padded arrays (per (sample, replica)
+point streams, per-entry calibration matrices and transform params,
+padded gt boxes with validity masks). In training a sample has one entry
+(``rot_num`` 1): the augmentation queue (``augmentor/data_augmentor.py``),
+then with probability 1/2 a scene swap along x, then the training StVD
+rate; a sample left without a gt box is ``None`` (the caller draws
+another), and the collation carries ``aug_param`` as ``trans_params``. At
+evaluation the X_TRANS replicas make ``ROT_NUM`` entries per sample.
 
-Random draws: every draw (the StVD permutations, and in the data
-processor the shuffle and the over-capacity ``choice``) comes from one
-``np.random.RandomState(seed)`` that the dataset holds, in the order the
-JAX loader draws them from numpy's global state in its one producer
-thread. ``RandomState.permutation`` and ``RandomState.choice`` give the
-numbers that ``np.random.permutation`` and ``np.random.choice`` give
-after ``np.random.seed(seed)``, so the two loaders make the same samples;
+Random draws: every draw (the augmentors, the scene swap, the StVD
+permutations, and in the data processor the shuffle and the
+over-capacity ``choice``) comes from one ``np.random.RandomState(seed)``
+that the dataset holds, in the order the JAX loader draws them from
+numpy's global state in its one producer thread. ``RandomState`` gives
+the numbers that the ``np.random`` functions give after
+``np.random.seed(seed)``, so the two loaders make the same samples;
 ``np.random.default_rng`` draws another stream and would not.
-
-Training (augmentors, the scene swap along x, the training discard rate)
-is not ported: ``training=True`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,44 +31,49 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import common as common_utils
+from .augmentor.data_augmentor import DataAugmentor
 from .augmentor.x_transform import X_TRANS
 from .processor.data_processor import DataProcessor
 from .processor.point_feature_encoder import PointFeatureEncoder
 
 MAX_GT_BOXES = 64
 VIRTUAL, LIDAR = 1, 2        # indicator column of the fused cloud
+SCENE_X = 70.4               # the scene swap's x extent (m)
 
 
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=False,
                  root_path=None, logger=None, seed=0):
-        if training:
-            raise NotImplementedError(
-                'the training loader is not ported: the augmentors (gt and '
-                'DA sampling, local and world augmentations), the scene '
-                'swap and the training StVD rate come with the next item '
-                'of the port (ROADMAP Queue A item 3, training half)')
         self.dataset_cfg = dataset_cfg
+        self.training = training
         self.class_names = class_names
         self.logger = logger
         self.rng = np.random.RandomState(seed)
         self.root_path = Path(root_path) if root_path is not None \
             else Path(dataset_cfg.DATA_PATH)
-        self.rot_num = dataset_cfg.get('ROT_NUM', 1)
+        self.rot_num = 1 if training else dataset_cfg.get('ROT_NUM', 1)
         self.point_cloud_range = np.array(dataset_cfg.POINT_CLOUD_RANGE,
                                           dtype=np.float32)
         self.point_feature_encoder = PointFeatureEncoder(
             dataset_cfg.POINT_FEATURE_ENCODING, rot_num=self.rot_num)
+        self.data_augmentor = DataAugmentor(
+            self.root_path, dataset_cfg.DATA_AUGMENTOR, class_names,
+            self.rng, logger=logger) if training else None
         self.data_processor = DataProcessor(
             dataset_cfg.DATA_PROCESSOR,
             point_cloud_range=self.point_cloud_range, rng=self.rng,
             rot_num=self.rot_num,
             max_points=dict(dataset_cfg.get(
-                'MAX_POINTS', {'lidar': 65536, 'mm': 65536})))
+                'MAX_POINTS', {'lidar': 65536, 'mm': 65536})),
+            training=training)
         x_trans_cfg = dataset_cfg.get('X_TRANS', None)
         self.x_trans = X_TRANS(x_trans_cfg, rot_num=self.rot_num) \
             if x_trans_cfg is not None else None
         self.input_discard_rate = dataset_cfg.get('INPUT_DISCARD_RATE', 0.8)
+
+    @property
+    def mode(self):
+        return 'train' if self.training else 'test'
 
     # --------------------------------------------------------- StVD ---------
     @staticmethod
@@ -110,8 +117,30 @@ class DatasetTemplate:
         return np.concatenate(parts) if parts else points
 
     # ------------------------------------------------------ pipeline --------
+    def scene_swap(self, data_dict, sid=''):
+        """Cut the scene at a random x and swap the two parts along x
+        (points beyond ``SCENE_X`` are zeroed first, in place)."""
+        randx = self.rng.random_sample() * SCENE_X
+        randx_1 = SCENE_X - randx
+        for key in ('points' + sid, 'gt_boxes' + sid):
+            arr = data_dict[key]
+            if key.startswith('points'):
+                arr[arr[:, 0] > SCENE_X] = 0
+            near = arr[arr[:, 0] <= randx].copy()
+            near[:, 0] += randx_1
+            far = arr[arr[:, 0] > randx].copy()
+            far[:, 0] -= randx
+            data_dict[key] = np.concatenate([near, far])
+        return data_dict
+
     def prepare_data(self, data_dict):
-        if self.x_trans is not None:
+        """One sample: augmentations (training) or replicas (evaluation),
+        the class column on the gt boxes, the scene swap (training), the
+        stream split with StVD, the feature encoder and the processors.
+        ``None`` when training leaves no gt box."""
+        if self.training:
+            data_dict = self.data_augmentor.forward(data_dict)
+        elif self.x_trans is not None:
             data_dict = self.x_trans.input_transform(data_dict)
 
         if data_dict.get('gt_boxes', None) is not None:
@@ -127,13 +156,17 @@ class DatasetTemplate:
         later_fusion = self.dataset_cfg.get('LATER_FUSION', True)
         for i in range(self.rot_num):
             sid = '' if i == 0 else str(i)
+            if self.training and self.rng.choice([0, 1]):
+                data_dict = self.scene_swap(data_dict, sid)
             if 'mm' not in data_dict:
                 continue
             pts = data_dict['points' + sid]
-            points_mm = self.input_point_discard(
-                pts[pts[:, -1] == VIRTUAL], bin_num=10,
-                rate=self.input_discard_rate)
+            virtual = pts[pts[:, -1] == VIRTUAL]
             points = pts[pts[:, -1] == LIDAR]
+            points_mm = self.input_point_discard(
+                virtual, rate=self.input_discard_rate) if self.training \
+                else self.input_point_discard(
+                    virtual, bin_num=10, rate=self.input_discard_rate)
             if later_fusion:
                 data_dict['points_mm' + sid] = points_mm
                 data_dict['points' + sid] = points
@@ -147,7 +180,10 @@ class DatasetTemplate:
 
         data_dict = self.point_feature_encoder.forward(data_dict)
         data_dict = self.data_processor.forward(data_dict)
+        if self.training and len(data_dict.get('gt_boxes', [])) == 0:
+            return None
         data_dict.pop('gt_names', None)
+        data_dict.pop('valid_noise', None)
         return data_dict
 
     # ------------------------------------------------------ collation -------
@@ -170,16 +206,8 @@ class DatasetTemplate:
         mats = [s['calib'].device_matrices() for s in batch_list]
         ret['v2r'] = np.stack([m[0] for m in mats for _ in sids])
         ret['p2t'] = np.stack([m[1] for m in mats for _ in sids])
-        if 'transform_param' in batch_list[0]:
-            tp = np.stack([s['transform_param'].astype(np.float32)
-                           for s in batch_list])          # (B, R, 3)
-            ret['transform_param'] = tp
-            ret['trans_params'] = tp.reshape(-1, 3)
-        else:
-            ret['transform_param'] = ret['trans_params'] = None
-        ret['gt_boxes'] = ret['gt_valid'] = None
-
-        # gt boxes travel in the meta for the recall records (replica 0)
+        # gt boxes: the training targets, and in the meta the recall
+        # records (replica 0)
         if all('gt_boxes' in s for s in batch_list):
             gt = np.zeros((b, MAX_GT_BOXES, 8), np.float32)
             gt_valid = np.zeros((b, MAX_GT_BOXES), bool)
@@ -189,6 +217,19 @@ class DatasetTemplate:
                 gt_valid[k, :n] = True
         else:
             gt, gt_valid = None, None
+        ret['transform_param'] = ret['trans_params'] = None
+        ret['gt_boxes'] = ret['gt_valid'] = None
+        if self.training:
+            ret['gt_boxes'], ret['gt_valid'] = gt, gt_valid
+            if 'aug_param' in batch_list[0]:
+                ret['trans_params'] = np.stack(
+                    [s['aug_param'][:3].astype(np.float32)
+                     for s in batch_list])
+        elif 'transform_param' in batch_list[0]:
+            tp = np.stack([s['transform_param'].astype(np.float32)
+                           for s in batch_list])          # (B, R, 3)
+            ret['transform_param'] = tp
+            ret['trans_params'] = tp.reshape(-1, 3)
         meta = {'gt_boxes': gt, 'gt_valid': gt_valid,
                 'frame_id': [s.get('frame_id') for s in batch_list],
                 'calib': [s['calib'] for s in batch_list],

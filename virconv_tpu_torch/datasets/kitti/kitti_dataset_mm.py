@@ -1,12 +1,22 @@
-"""KITTI multimodal dataset (LiDAR + virtual points) at evaluation.
+"""KITTI multimodal dataset (LiDAR + virtual points).
 
-The port's copy of the evaluation half of ``virconv_tpu/datasets/kitti/
-kitti_dataset_mm.py``: 8-feature ``velodyne_depth/*.npy`` points (x, y, z,
-intensity, r, g, b, indicator), the camera field-of-view crop, info
-generation (``get_infos``), and the KITTI-format prediction dicts with
-host WBF and the small-box height fix (+2 px below 25 px). Image sizes are
-read from the PNG header, so no image library is needed. The gt database
-(``create_groundtruth_database``) is training-side and not ported.
+The port's copy of ``virconv_tpu/datasets/kitti/kitti_dataset_mm.py``:
+8-feature ``velodyne_depth/*.npy`` points (x, y, z, intensity, r, g, b,
+indicator), the camera field-of-view crop, info generation
+(``get_infos``), the gt database of the training split
+(``create_groundtruth_database``: ``gt_database_mm/*.bin`` and
+``kitti_dbinfos_train_mm.pkl``), the KITTI-format prediction dicts with
+host WBF and the small-box height fix (+2 px below 25 px). Training
+samples rename Van to Car under ``USE_VAN``, keep the gt boxes with LiDAR
+points inside, carry the road plane for the gt sampler, and an index whose
+sample is left without gt boxes is replaced by a random one (drawn from
+the dataset's ``RandomState``). Image sizes are read from the PNG header,
+so no image library is needed.
+
+Infos and the gt database of a KITTI tree:
+
+    python -m virconv_tpu_torch.datasets.kitti.kitti_dataset_mm \\
+        create_kitti_infos virconv_t <kitti root>
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from ...ops import boxes_np
 from ...ops.wbf import compute_wbf
 from ...utils import common as common_utils
 from ...utils.calibration import Calibration
-from ..dataset import DatasetTemplate
+from ..dataset import LIDAR, DatasetTemplate
 from . import kitti_utils
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
@@ -45,21 +55,22 @@ class KittiDatasetMM(DatasetTemplate):
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names,
                          training=training, root_path=root_path,
                          logger=logger, seed=seed)
-        self.set_split(self.dataset_cfg.DATA_SPLIT['test'])
+        self.set_split(self.dataset_cfg.DATA_SPLIT[self.mode])
         self.kitti_infos = []
         self.include_kitti_data()
 
     def include_kitti_data(self):
-        """Load the infos of ``INFO_PATH['test']``."""
+        """Load the infos of ``INFO_PATH[mode]``."""
         infos = []
-        for info_path in self.dataset_cfg.INFO_PATH['test']:
+        for info_path in self.dataset_cfg.INFO_PATH[self.mode]:
             path = self.root_path / info_path
             if path.exists():
                 with open(path, 'rb') as f:
                     infos.extend(pickle.load(f))
         self.kitti_infos.extend(infos)
         if self.logger is not None:
-            self.logger.info(f'Loaded {len(infos)} KITTI infos for test')
+            self.logger.info(
+                f'Loaded {len(infos)} KITTI infos for {self.mode}')
 
     def set_split(self, split):
         self.split = split
@@ -174,6 +185,48 @@ class KittiDatasetMM(DatasetTemplate):
                 lambda i: self._scene_info(i, has_label, count_inside_pts),
                 ids))
 
+    def create_groundtruth_database(self, info_path=None, used_classes=None,
+                                    split='train'):
+        """Write each labelled object's points (box-centred, all 8
+        features) to ``gt_database_mm/<frame>_<name>_<i>.bin`` and their
+        records to ``kitti_dbinfos_<split>_mm.pkl``; returns the records by
+        class. ``num_points_in_gt`` counts the object's LiDAR points."""
+        db_dir = self.root_path / ('gt_database_mm' if split == 'train'
+                                   else f'gt_database_{split}_mm')
+        db_info_path = self.root_path / f'kitti_dbinfos_{split}_mm.pkl'
+        db_dir.mkdir(parents=True, exist_ok=True)
+        all_db_infos = {}
+        with open(info_path, 'rb') as f:
+            infos = pickle.load(f)
+        for info in infos:
+            sample_idx = info['point_cloud']['lidar_idx']
+            points = self.get_lidar_mm(sample_idx)
+            annos = info['annos']
+            gt_boxes = annos['gt_boxes_lidar']
+            inside = boxes_np.points_in_boxes(points[:, :3], gt_boxes)
+            for i in range(gt_boxes.shape[0]):
+                name = annos['name'][i]
+                filename = f'{sample_idx}_{name}_{i}.bin'
+                gt_points = points[inside == i].copy()
+                gt_points[:, :3] -= gt_boxes[i, :3]
+                gt_points.tofile(str(db_dir / filename))
+                if used_classes is None or name in used_classes:
+                    all_db_infos.setdefault(name, []).append({
+                        'name': name,
+                        'path': str((db_dir / filename).relative_to(
+                            self.root_path)),
+                        'image_idx': sample_idx, 'gt_idx': i,
+                        'box3d_lidar': gt_boxes[i],
+                        'num_points_in_gt': int(
+                            (gt_points[:, -1] == LIDAR).sum()),
+                        'difficulty': annos['difficulty'][i],
+                        'bbox': annos['bbox'][i],
+                        'score': annos['score'][i],
+                    })
+        with open(db_info_path, 'wb') as f:
+            pickle.dump(all_db_infos, f)
+        return all_db_infos
+
     # ------------------------------------------------------ predictions -----
     def generate_prediction_dicts(self, batch_meta, pred_dicts, class_names,
                                   output_path=None):
@@ -264,17 +317,66 @@ class KittiDatasetMM(DatasetTemplate):
         if 'annos' in info:
             annos = common_utils.drop_info_with_name(info['annos'],
                                                      name='DontCare')
+            gt_names = annos['name']
+            if self.dataset_cfg.get('USE_VAN', None) is True \
+                    and self.training:
+                gt_names = np.array(['Car' if n == 'Van' else n
+                                     for n in gt_names])
             cam = np.concatenate([annos['location'], annos['dimensions'],
                                   annos['rotation_y'][..., None]],
                                  axis=1).astype(np.float32)
-            input_dict['gt_names'] = annos['name']
-            input_dict['gt_boxes'] = \
-                kitti_utils.boxes3d_kitti_camera_to_lidar(cam, calib)
+            gt_boxes = kitti_utils.boxes3d_kitti_camera_to_lidar(cam, calib)
+            if self.training and 'num_points_in_gt' in annos:
+                nmask = annos['num_points_in_gt'] > 0
+                gt_names, gt_boxes = gt_names[nmask], gt_boxes[nmask]
+            input_dict['gt_names'] = gt_names
+            input_dict['gt_boxes'] = gt_boxes
             plane = self.get_road_plane(sample_idx)
             if plane is not None:
                 input_dict['road_plane'] = plane
 
         data_dict = self.prepare_data(input_dict)
+        if data_dict is None:            # no gt box left: another sample
+            return self.__getitem__(self.rng.randint(len(self)))
         data_dict['image_shape'] = img_shape
         data_dict['calib'] = calib
         return data_dict
+
+
+def create_kitti_infos(dataset_cfg, class_names, data_path, save_path,
+                       workers=4):
+    """``kitti_infos_{train,val,test}.pkl`` of the splits that have an
+    ``ImageSets`` file, then the gt database of the train split."""
+    dataset = KittiDatasetMM(dataset_cfg=dataset_cfg,
+                             class_names=class_names, root_path=data_path)
+    splits = {'train': 'kitti_infos_train.pkl', 'val': 'kitti_infos_val.pkl',
+              'test': 'kitti_infos_test.pkl'}
+    for split, fname in splits.items():
+        dataset.set_split(split)
+        if dataset.sample_id_list is None:
+            continue
+        has_label = split != 'test'
+        infos = dataset.get_infos(num_workers=workers, has_label=has_label,
+                                  count_inside_pts=has_label)
+        with open(Path(save_path) / fname, 'wb') as f:
+            pickle.dump(infos, f)
+        print(f'kitti infos {split}: {len(infos)} -> {fname}')
+    dataset.set_split('train')
+    dataset.create_groundtruth_database(
+        info_path=Path(save_path) / 'kitti_infos_train.pkl', split='train')
+
+
+if __name__ == '__main__':
+    import sys
+    if len(sys.argv) > 2 and sys.argv[1] == 'create_kitti_infos':
+        from ...config import CONFIGS
+        cfg = CONFIGS[sys.argv[2]]()
+        root = Path(sys.argv[3]) if len(sys.argv) > 3 else Path('data/kitti')
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+        create_kitti_infos(cfg.DATA_CONFIG,
+                           class_names=['Car', 'Pedestrian', 'Cyclist'],
+                           data_path=root, save_path=root)
+    else:
+        raise SystemExit('usage: python -m virconv_tpu_torch.datasets.kitti.'
+                         'kitti_dataset_mm create_kitti_infos <config> '
+                         '<kitti root>')

@@ -8,7 +8,9 @@ kernel's time summed over a request (serving, phase 8; K6 with bf16 and
 f32 operands) or a training step (phase 5) beside its bound, and K5's and
 K6's launches by mode; the widest and the first call of K1, K4, K5 and
 K6; the training step times; the evaluation's seconds per frame (phase
-9); and phase 8's sums by layer shape (K, C -> C'). A row a log lacks (an
+9); the training CLI's ms per step, peak memory, loader seconds per frame
+and share of the loop spent waiting on the loader (phase 10a); and phase
+8's sums by layer shape (K, C -> C'). A row a log lacks (an
 older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
@@ -82,6 +84,16 @@ def rows_of(data):
                     f'{ev["sec_per_example"]:.4f} '
                     f'{ev["loader_sec_per_frame"]:.4f} '
                     f'{ev["seconds"]["post"] / ev["frames"]:.4f}'))
+    tc = data.get('train_cli')               # phase 10 (absent before)
+    if tc is not None:
+        out.append(('train_gpu: ms/step after the first, peak GiB, loader '
+                    's/frame, wait share',
+                    f'{tc["ms_per_step_after_first"]:.1f} '
+                    f'{tc["peak_memory_gib"]:.2f} '
+                    f'{tc["loader_sec_per_frame"]:.4f} '
+                    f'{tc["wait_share"]:.3f}'))
+        out.append(('train_gpu ms per step', ' '.join(
+            f'{t:.1f}' for t in tc['ms_per_step'])))
     shapes = {}
     f32 = cases.get('onehot_conv_fwd_f32')   # absent before K6 f32 timing
     for i, (c5, c6) in enumerate(zip(cases['gather_conv_fwd'],

@@ -1,10 +1,21 @@
-"""The ``adam_onecycle`` optimizer: fastai-style OneCycle learning-rate and
-momentum schedules, global-norm gradient clipping and AdamW with decoupled
-weight decay on kernels only, skipping (and counting) any step whose
-gradients are not all finite. Counterpart of ``virconv_tpu/train/optim.py``,
-whose optax chain is ``apply_if_finite(chain(clip_by_global_norm,
-inject_hyperparams(adamw)(lr=schedule, b1=momentum schedule)))``; the
-schedules and the update follow optax's arithmetic in float32.
+"""The optimizers of ``OPTIMIZATION.OPTIMIZER``, counterparts of
+``virconv_tpu/train/optim.py``'s optax chains, following optax's
+arithmetic in float32:
+
+* ``adam_onecycle``: fastai-style OneCycle learning-rate and momentum
+  schedules, global-norm gradient clipping and AdamW with decoupled weight
+  decay on kernels only, skipping (and counting) any step whose gradients
+  are not all finite (``apply_if_finite(chain(clip_by_global_norm,
+  inject_hyperparams(adamw)(lr=schedule, b1=momentum schedule)))``);
+* ``adam``: clipping, then Adam (``chain(clip_by_global_norm,
+  adam(piecewise_constant_schedule))``);
+* ``sgd``: clipping, then SGD with momentum, not Nesterov.
+
+The last two decay the learning rate by ``LR_DECAY`` at each epoch of
+``DECAY_STEP_LIST`` (steps per epoch = total steps // ``NUM_EPOCHS``) and,
+as in the JAX package, apply non-finite steps. ``state_dict()`` /
+``load_state_dict()`` save and restore each optimizer's moments and
+counters, keyed by parameter name.
 """
 
 from __future__ import annotations
@@ -60,32 +71,155 @@ def decayed_parameters(model: nn.Module):
     return names
 
 
-class AdamOneCycle:
-    """``adam_onecycle`` over the parameters of ``model``, reading their
-    ``.grad``. ``step()`` returns whether the update was applied;
-    ``total_notfinite`` counts the skipped steps."""
+def piecewise_lr(init, boundaries_and_scales):
+    """optax's ``piecewise_constant_schedule``: ``init`` times the scale of
+    every boundary the step has reached, as a float32 tensor."""
+    bounds = sorted(boundaries_and_scales.items())
 
-    def __init__(self, model: nn.Module, opt_cfg, total_steps: int):
+    def lr_fn(step):
+        v = torch.tensor(init, dtype=torch.float32)
+        for threshold, scale in bounds:
+            ind = torch.tensor(float(int(step) < threshold))
+            v = v * ind + (1 - ind) * scale * v
+        return v
+    return lr_fn
+
+
+def step_decay_lr(opt_cfg, total_steps):
+    """The ``adam`` / ``sgd`` schedule: ``LR`` times ``LR_DECAY`` at each
+    epoch of ``DECAY_STEP_LIST``."""
+    steps_per_epoch = max(total_steps // max(opt_cfg.NUM_EPOCHS, 1), 1)
+    return piecewise_lr(opt_cfg.LR, {int(e) * steps_per_epoch:
+                                     opt_cfg.LR_DECAY
+                                     for e in opt_cfg.DECAY_STEP_LIST})
+
+
+class _Optimizer:
+    """The parameters of ``model`` that take gradients (read from their
+    ``.grad``), global-norm clipping at ``GRAD_NORM_CLIP``, and the state
+    of the subclass's ``SLOTS`` (per-parameter tensors) and ``COUNTERS``
+    (ints). ``count`` is the number of applied updates, the step index of
+    the schedules; ``total_notfinite`` counts skipped steps."""
+
+    SLOTS: tuple = ()
+    COUNTERS = ('count', 'total_notfinite')
+
+    def __init__(self, model: nn.Module, opt_cfg):
         self.params = [(n, p) for n, p in model.named_parameters()
                        if p.requires_grad]
+        self.max_norm = float(opt_cfg.get('GRAD_NORM_CLIP', 10.0))
+        self.count = 0
+        self.total_notfinite = 0
+        for slot in self.SLOTS:
+            setattr(self, slot, [torch.zeros_like(p)
+                                 for _, p in self.params])
+
+    def lr(self):
+        """The learning rate the next update applies (float32 tensor)."""
+        return self.lr_fn(self.count)
+
+    def _grads(self):
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for _, p in self.params]
+
+    def _clip(self, grads):
+        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        if not bool(g_norm < self.max_norm):
+            grads = [g / g_norm * self.max_norm for g in grads]
+        return grads
+
+    def state_dict(self):
+        names = [n for n, _ in self.params]
+        state = {k: int(getattr(self, k)) for k in self.COUNTERS}
+        for slot in self.SLOTS:
+            state[slot] = dict(zip(names, getattr(self, slot)))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        names = [n for n, _ in self.params]
+        for slot in self.SLOTS:
+            saved = state[slot]
+            if set(saved) != set(names):
+                raise KeyError(f'optimizer state {slot}: parameters differ '
+                               f'({sorted(set(saved) ^ set(names))[:4]})')
+            for n, t in zip(names, getattr(self, slot)):
+                t.copy_(saved[n])
+        for k in self.COUNTERS:
+            setattr(self, k, int(state[k]))
+
+
+class Adam(_Optimizer):
+    """``adam``: clipping, then Adam (b1 0.9, b2 0.999, eps 1e-8) at the
+    step-decay learning rate."""
+
+    SLOTS = ('mu', 'nu')
+
+    def __init__(self, model: nn.Module, opt_cfg, total_steps: int):
+        super().__init__(model, opt_cfg)
+        self.lr_fn = step_decay_lr(opt_cfg, total_steps)
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        grads = self._clip(self._grads())
+        dev = grads[0].device
+        lr = self.lr_fn(self.count).to(dev)
+        t = self.count + 1
+        bc1 = (1 - torch.tensor(self.b1, dtype=torch.float32) ** t).to(dev)
+        bc2 = (1 - torch.tensor(self.b2, dtype=torch.float32) ** t).to(dev)
+        for (_, p), g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * g * g + self.b2 * nu)
+            p.add_(-lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)))
+        self.count += 1
+        return True
+
+
+class SGD(_Optimizer):
+    """``sgd``: clipping, then SGD with momentum ``MOMENTUM`` (the trace
+    g + momentum * trace, not Nesterov) at the step-decay learning
+    rate."""
+
+    SLOTS = ('trace',)
+
+    def __init__(self, model: nn.Module, opt_cfg, total_steps: int):
+        super().__init__(model, opt_cfg)
+        self.lr_fn = step_decay_lr(opt_cfg, total_steps)
+        self.momentum = float(opt_cfg.MOMENTUM)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        grads = self._clip(self._grads())
+        lr = self.lr_fn(self.count).to(grads[0].device)
+        for (_, p), g, tr in zip(self.params, grads, self.trace):
+            tr.copy_(g + self.momentum * tr)
+            p.add_(-lr * tr)
+        self.count += 1
+        return True
+
+
+class AdamOneCycle(_Optimizer):
+    """``adam_onecycle``. ``step()`` returns whether the update was
+    applied."""
+
+    SLOTS = ('mu', 'nu')
+    COUNTERS = ('count', 'notfinite_count', 'total_notfinite')
+
+    def __init__(self, model: nn.Module, opt_cfg, total_steps: int):
+        super().__init__(model, opt_cfg)
         decay = decayed_parameters(model)
         self.decay = [n in decay for n, _ in self.params]
         self.lr_fn, self.mom_fn = one_cycle_lr(
             opt_cfg.LR, total_steps, tuple(opt_cfg.MOMS), opt_cfg.DIV_FACTOR,
             opt_cfg.PCT_START)
         self.weight_decay = float(opt_cfg.get('WEIGHT_DECAY', 0.0))
-        self.max_norm = float(opt_cfg.get('GRAD_NORM_CLIP', 10.0))
         self.b2, self.eps = 0.999, 1e-8
-        self.count = 0                 # applied updates
         self.notfinite_count = 0
-        self.total_notfinite = 0
-        self.mu = [torch.zeros_like(p) for _, p in self.params]
-        self.nu = [torch.zeros_like(p) for _, p in self.params]
 
     @torch.no_grad()
     def step(self) -> bool:
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for _, p in self.params]
+        grads = self._grads()
         finite = bool(torch.stack([torch.isfinite(g).all()
                                    for g in grads]).all())
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
@@ -93,9 +227,7 @@ class AdamOneCycle:
             self.total_notfinite += 1
             if self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return False
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        if not bool(g_norm < self.max_norm):
-            grads = [g / g_norm * self.max_norm for g in grads]
+        grads = self._clip(grads)
         dev = grads[0].device
         lr = self.lr_fn(self.count).to(dev)
         b1 = self.mom_fn(self.count).to(dev)
@@ -112,3 +244,17 @@ class AdamOneCycle:
             p.add_(-lr * u)
         self.count += 1
         return True
+
+
+OPTIMIZERS = {'adam_onecycle': AdamOneCycle, 'adam': Adam, 'sgd': SGD}
+
+
+def build_optimizer(model: nn.Module, opt_cfg, total_steps: int):
+    """The optimizer ``opt_cfg.OPTIMIZER`` names over ``model``'s
+    parameters; ``NotImplementedError`` for any other name."""
+    name = opt_cfg.OPTIMIZER
+    if name not in OPTIMIZERS:
+        raise NotImplementedError(
+            f'optimizer {name!r}: the JAX package builds '
+            f'{sorted(OPTIMIZERS)} only')
+    return OPTIMIZERS[name](model, opt_cfg, total_steps)

@@ -1,6 +1,7 @@
 """Training entry point: a VirConv-T ``Trainer`` that takes one optimizer
-step per batch (forward in train mode, losses, backward, ``adam_onecycle``).
-Counterpart of the train step of ``virconv_tpu/train/trainer.py``.
+step per batch (forward in train mode, losses, backward, the optimizer of
+``OPTIMIZATION.OPTIMIZER``). Counterpart of the train step and training
+state of ``virconv_tpu/train/trainer.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,14 @@ from ..config import CfgNode, virconv_t_config
 from ..models.detectors.voxel_rcnn import VoxelRCNN
 from ..utils.jax_weights import load_state_dict_checked, random_init_
 from .draws import Draws
-from .optim import AdamOneCycle
+from .optim import OPTIMIZERS, build_optimizer
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of step ``step``: a function of (seed, step)
+    only, as the JAX step folds ``state.step`` into its keys."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
 
 
 class Trainer:
@@ -25,20 +33,22 @@ class Trainer:
     ``state_dict``: the port's weights (``utils.jax_weights``); without one
     the weights are random from ``seed``. ``device`` defaults to CUDA and
     raises when there is none, unless the caller passes ``device="cpu"``.
-    Every random draw of a step (StVD, ROI sampling, dropout) comes from
-    one ``torch.Generator`` on the device, seeded with ``seed``.
-    ``total_steps`` sizes the OneCycle schedule. ``OPTIMIZATION.OPTIMIZER``
-    must be ``adam_onecycle``: any other name raises
-    ``NotImplementedError`` before the model is built."""
+    Every random draw of step t (StVD, ROI sampling, dropout) comes from a
+    ``torch.Generator`` on the device seeded with ``step_seed(seed, t)``,
+    so a resumed run draws what an uninterrupted one draws.
+    ``total_steps`` sizes the learning-rate schedules.
+    ``OPTIMIZATION.OPTIMIZER`` is ``adam_onecycle``, ``adam`` or ``sgd``:
+    any other name raises ``NotImplementedError`` before the model is
+    built."""
 
     def __init__(self, cfg: CfgNode | None = None, state_dict=None,
                  device="cuda", seed: int = 0, total_steps: int = 1000):
         self.cfg = cfg if cfg is not None else virconv_t_config()
         name = self.cfg.OPTIMIZATION.OPTIMIZER
-        if name != 'adam_onecycle':
+        if name not in OPTIMIZERS:
             raise NotImplementedError(
-                f'optimizer {name!r}: only adam_onecycle is ported; adam '
-                'and sgd are not yet')
+                f'optimizer {name!r}: the port builds {sorted(OPTIMIZERS)}, '
+                'as the JAX package does')
         self.device = resolve_device(device)
         model = VoxelRCNN(self.cfg.MODEL, self.cfg.DATA_CONFIG,
                           num_class=len(self.cfg.CLASS_NAMES))
@@ -47,31 +57,54 @@ class Trainer:
         else:
             load_state_dict_checked(model, state_dict)
         self.model = model.to(self.device).train()
+        self.seed = seed
+        self.step_count = 0
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
-        self.optimizer = AdamOneCycle(self.model, self.cfg.OPTIMIZATION,
-                                      total_steps)
+        self.optimizer = build_optimizer(self.model, self.cfg.OPTIMIZATION,
+                                         total_steps)
 
     def to_device(self, batch: Dict[str, np.ndarray]):
         return {k: None if v is None else torch.as_tensor(
             np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v,
             device=self.device) for k, v in batch.items()}
 
+    def lr(self) -> float:
+        """The learning rate the next step applies: the schedule at the
+        number of applied updates (steps less skipped ones)."""
+        return float(self.optimizer.lr())
+
     def step(self, batch, draws: Draws | None = None):
-        """One optimizer step on ``batch`` (numpy arrays or tensors, as
-        ``utils.bench_inputs.train_batch`` builds them). ``draws`` replaces
-        the generator's draws (tests hand in recorded ones). Returns (loss,
-        tb): the loss tensor and the per-term dict with ``nonfinite_skips``.
-        The parameters' ``.grad`` keep this step's gradients, and the BN
-        running statistics are updated in the model."""
+        """One optimizer step on ``batch`` (numpy arrays or tensors: a
+        loader batch, or ``utils.bench_inputs.train_batch``). ``draws``
+        replaces the step's generator (tests hand in recorded draws).
+        Returns (loss, tb): the loss tensor and the per-term dict with
+        ``nonfinite_skips``. The step applies the learning rate ``lr()``
+        gave before it. The parameters' ``.grad`` keep this step's
+        gradients, and the BN running statistics are updated in the
+        model."""
         batch = self.to_device(batch)
-        rng = draws if draws is not None else Draws(self.generator)
+        if draws is None:
+            self.generator.manual_seed(step_seed(self.seed, self.step_count))
+            draws = Draws(self.generator)
         self.model.zero_grad(set_to_none=True)
-        out = self.model(batch, rng=rng)
+        out = self.model(batch, rng=draws)
         with record_function('backward'):
             out['loss'].backward()
         with record_function('optimizer'):
             self.optimizer.step()
+        self.step_count += 1
         tb = {**{k: v.detach() for k, v in out['tb'].items()},
               'nonfinite_skips': self.optimizer.total_notfinite}
         return out['loss'].detach(), tb
+
+    def state_dict(self):
+        """``model_state`` (parameters and BN statistics), the optimizer's
+        state and ``step``: everything a resumed run needs."""
+        return {'model_state': self.model.state_dict(),
+                'optimizer_state': self.optimizer.state_dict(),
+                'step': self.step_count}
+
+    def load_state_dict(self, state):
+        load_state_dict_checked(self.model, state['model_state'])
+        self.optimizer.load_state_dict(state['optimizer_state'])
+        self.step_count = int(state['step'])

@@ -1,11 +1,13 @@
-"""Common host helpers of the loader and the eval loop: angle wrap, range
-mask, class filters, logger. The port's copy of the parts of
-``virconv_tpu/utils/common.py`` that its evaluation path calls.
+"""Common host helpers of the loaders, the training CLI and the eval
+loop: angle wrap, range mask, class filters, logger, seeding. The port's
+copy of the parts of ``virconv_tpu/utils/common.py`` that they call.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import random
 
 import numpy as np
 
@@ -46,3 +48,12 @@ def create_logger(log_file=None):
         logger.addHandler(h)
     logger.propagate = False
     return logger
+
+
+def set_random_seed(seed):
+    """Seed Python's and numpy's global generators and the hash seed, as
+    the JAX package does. The port's loaders and trainer draw from
+    generators of their own, seeded explicitly."""
+    random.seed(seed)
+    np.random.seed(seed)
+    os.environ['PYTHONHASHSEED'] = str(seed)

@@ -3,7 +3,9 @@
 Writes the layout of ``tools/make_mini_kitti.py`` (``training/{velodyne,
 velodyne_depth, calib, label_2, planes, image_2}``, ``ImageSets``), then
 the info files ``kitti_infos_{train,val}.pkl`` with the port's
-``KittiDatasetMM.get_infos``. Two modes:
+``KittiDatasetMM.get_infos`` and, when the train split has frames, its gt
+database (``gt_database_mm/``, ``kitti_dbinfos_train_mm.pkl``) with
+``KittiDatasetMM.create_groundtruth_database``. Two modes:
 
 * ``mini``: the frames ``build_mini_kitti`` writes for the same seed (a
   plane of random points and three car clusters per frame), so the infos
@@ -20,7 +22,7 @@ points and 2 for real LiDAR points, whose intensity is scaled by 10.
 Images are valid black PNGs written with ``zlib`` and ``struct``.
 
     python -m virconv_tpu_torch.utils.mini_kitti <root> --mode scene \\
-        [--frames 4] [--seed 0]
+        [--frames 4] [--seed 0] [--n_train N]
 """
 
 from __future__ import annotations
@@ -187,12 +189,13 @@ def write_tree(root, mode='scene', frames=4, seed=0, n_train=None):
     for split, part in (('train', ids[:n_train]), ('val', ids[n_train:])):
         (root / 'ImageSets' / f'{split}.txt').write_text(
             ''.join(f'{i}\n' for i in part))
-    write_infos(root)
+    write_infos(root, gt_database=n_train > 0)
     return root
 
 
-def write_infos(root):
-    """``kitti_infos_{train,val}.pkl`` of the tree's splits."""
+def write_infos(root, gt_database=False):
+    """``kitti_infos_{train,val}.pkl`` of the tree's splits; with
+    ``gt_database`` also the train split's gt database."""
     from ..config import virconv_t_config
     from ..datasets.kitti.kitti_dataset_mm import KittiDatasetMM
     root = Path(root)
@@ -202,6 +205,9 @@ def write_infos(root):
         ds.set_split(split)
         with open(root / f'kitti_infos_{split}.pkl', 'wb') as f:
             pickle.dump(ds.get_infos(num_workers=1), f)
+    if gt_database:
+        ds.create_groundtruth_database(root / 'kitti_infos_train.pkl',
+                                       split='train')
 
 
 if __name__ == '__main__':
