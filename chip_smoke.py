@@ -8,18 +8,23 @@ Phases (each prints one line; any failure exits non-zero):
      native host box library (g++);
   2. hold every kernel call of one full-width request against its plain
      PyTorch version on the same inputs (captured from a warm-up forward:
-     every 3D submanifold, strided, 2D first-wins and conv_out layer, every
-     stride-8 and stride-4 pool the kernel runs): f32 and bf16 operands,
-     identical ROI selections, kernel and plain times, each call's bound,
-     and each kernel's sums over the request;
+     every 3D submanifold, strided, 2D first-wins and conv_out layer, the
+     gather patch of each whose band windows do not all fit (the exact
+     conv from a neighbor map, ``nmap_conv``), every stride-8 and stride-4
+     pool the kernel runs): f32 and bf16 operands, identical ROI
+     selections, kernel and plain times, each call's bound, and each
+     kernel's sums over the request;
   3. serve 3 requests of FRAMES=2 synthetic KITTI-scale frames through the
      full-width VirConv-T Detector (ROT_NUM=3, seeded random weights), with
-     every launch count set to 0 just before and read just after;
+     every launch count set to 0 just before and read just after: K1 and
+     the gather patches launched as often as in the warm-up, no conv
+     context on the neighbor-map branch;
   4. the tiny test configuration on CUDA (kernels) and on the CPU (plain
      versions) with the same weights, TF32 off: final boxes and scores
      compared;
-  5. every K1 call (forward, and input gradient with transposed weights)
-     and every K4 call of one full-width VirConv-T training step
+  5. every K1 call (forward, and input gradient with transposed weights),
+     every gather patch and every K4 call of one full-width VirConv-T
+     training step
      (``Trainer.step(train_batch())``: 2 frames x ROT_NUM 3) against its
      plain version, f32 and bf16 operands; each K4 call run twice for
      identical bits and named by its CTA layout (chunks x taps x slabs);
@@ -28,7 +33,8 @@ Phases (each prints one line; any failure exits non-zero):
   6. the main training path: 3 full-width steps with every launch count
      set to 0 just before and read just after: finite losses, no skipped
      step, both kernels launched, no band training conv on the
-     neighbor-map fallback; ms per step and peak memory;
+     neighbor-map branch; ms per step, peak memory and each step's loss
+     terms;
   7. one training step of the tiny configuration on CUDA and on the CPU
      with the same weights and the same random draws (drawn once on the
      CPU), TF32 off: loss and every gradient compared;
@@ -70,12 +76,38 @@ Phases (each prints one line; any failure exits non-zero):
      two loader batches of a ``mini`` tree under the tiny training config,
      one step each on the CPU and on CUDA with the CPU's draws replayed:
      phase 7's tolerances;
-then one JSON line of per-kernel numbers (times and bounds per request or
+ 11. VirConv-L and VirConv-S at full width (seeded weights): (a) every K1
+     and K2+K3 call of one VirConv-L request (FRAMES=2 frames of one fused
+     stream, no replica; all 20 sparse convs, 19 NRConv convs and
+     conv_out, on K1, and their gather patches) and every K1 forward, K1
+     input-gradient, gather-patch and K4 call of one training step
+     (``train_batch_l``: 2 frames, one entry each) against their plain
+     versions, as phases 2 and 5; the contexts whose non-fitting rows
+     exceed the JAX package's patch cap (which sends them to its full
+     neighbor map) timed on both routes; (b) 3 requests through
+     ``serve.Detector(virconv_l_config())`` with every launch count set
+     to 0 just before and read just after, gated as phase 3: ms and
+     launches per request, the pools by route; (c) 3 training steps
+     (finite losses, no skip, K1
+     forward, K1 input gradient and K4 launched; ms per step, peak
+     memory), then the first seeded step of two fresh trainers, whose two
+     losses are printed and not gated; (d) the tiny-L config CUDA vs CPU:
+     evaluation as phase 4, one training step as phase 7; (e)
+     ``eval_one_ckpt`` of a seeded VirConv-L checkpoint on phase 9's scene
+     tree through the single-stream loader, gated as phase 9a; (f)
+     ``tools/train_gpu.py --cfg virconv_s`` for one epoch of 2 steps on a
+     ``scene`` tree of 2 train and 2 semi frames from phase 10's VirConv-T
+     checkpoint as ``--pretrained_model``: frames from both ``training/``
+     and ``semi/``, finite losses, K1 and K4 on every step;
+then one JSON line of per-kernel numbers (the six kernels' ports and the
+gather patch's; times and bounds per request or
 per training step, summed over its calls; launches over the phase 3
 requests, the phase 6 steps and the phase 8 path, K1's and K2+K3's over
 the phase 9a run as ``launches_eval``, and over phase 10a's steps and
-evaluation as ``launches_train_cli`` and ``launches_train_cli_eval``)
-with phase 9's numbers under ``eval`` and phase 10's under ``train_cli``,
+evaluation as ``launches_train_cli`` and ``launches_train_cli_eval``;
+VirConv-L's per request and per step under ``virconv_l``) with phase 9's
+numbers under ``eval``, phase 10's under ``train_cli`` and phase 11's under
+``virconv_l`` and ``virconv_s``,
 the card's name and power limit, and the device JSON as the last line. Each phase prints its seconds. It needs the repository around it:
 alone, or without a CUDA device, it exits non-zero and prints no result.
 """
@@ -136,13 +168,14 @@ class Capture:
     calls still launch the kernels)."""
 
     def __init__(self):
-        from virconv_tpu_torch.ops import band_conv, roi_pool
-        self.band, self.pool = [], []
-        self._bc, self._rp = band_conv, roi_pool
-        self._orig = band_conv._band_conv_cuda, roi_pool._roi_pool_cuda
+        from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool
+        self.band, self.pool, self.nmap = [], [], []
+        self._bc, self._rp, self._nc = band_conv, roi_pool, nmap_conv
+        self._orig = (band_conv._band_conv_cuda, roi_pool._roi_pool_cuda,
+                      nmap_conv._nmap_conv_cuda)
 
     def __enter__(self):
-        orig_bc, orig_rp = self._orig
+        orig_bc, orig_rp, orig_nc = self._orig
 
         def bc(feats, keys, plan, weights, scale, bias, relu, bf16):
             self.band.append((feats, keys, plan, weights, scale, bias, relu))
@@ -154,29 +187,37 @@ class Capture:
             self.pool.append((plan, fg, w_eff, b_eff, specs, vs, stride, pcr))
             return orig_rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr,
                            bf16, sel_out)
+
+        def nc(feats, nmap, weights):
+            self.nmap.append((feats, nmap, weights))
+            return orig_nc(feats, nmap, weights)
         self._bc._band_conv_cuda, self._rp._roi_pool_cuda = bc, rp
+        self._nc._nmap_conv_cuda = nc
         return self
 
     def __exit__(self, *exc):
-        self._bc._band_conv_cuda, self._rp._roi_pool_cuda = self._orig
+        (self._bc._band_conv_cuda, self._rp._roi_pool_cuda,
+         self._nc._nmap_conv_cuda) = self._orig
         return False
 
 
 class TrainCapture:
-    """Records the inputs of every K1 and K4 call of one training step (the
-    calls still launch the kernels). K1 calls made while the model's
-    forward runs are the convs; those after it, in the backward, are the
-    input-gradient passes."""
+    """Records the inputs of every K1, K4 and neighbor-map conv call of one
+    training step (the calls still launch the kernels). K1 calls made while
+    the model's forward runs are the convs; those after it, in the
+    backward, are the input-gradient passes; the neighbor-map convs are
+    the gather patches of both."""
 
     def __init__(self, model):
-        from virconv_tpu_torch.ops import band_conv
-        self.fwd, self.dgrad, self.dw = [], [], []
-        self._bc, self._model = band_conv, model
-        self._orig = band_conv._band_conv_cuda, band_conv._band_conv_dw_cuda
+        from virconv_tpu_torch.ops import band_conv, nmap_conv
+        self.fwd, self.dgrad, self.dw, self.nmap = [], [], [], []
+        self._bc, self._nc, self._model = band_conv, nmap_conv, model
+        self._orig = (band_conv._band_conv_cuda,
+                      band_conv._band_conv_dw_cuda, nmap_conv._nmap_conv_cuda)
         self._in_forward = False
 
     def __enter__(self):
-        orig_k1, orig_k4 = self._orig
+        orig_k1, orig_k4, orig_nc = self._orig
         forward = self._model.forward
 
         def model_forward(*a, **k):
@@ -195,12 +236,18 @@ class TrainCapture:
         def k4(feats, keys, plan, g, valid_bits, bf16):
             self.dw.append((feats, keys, plan, g, valid_bits))
             return orig_k4(feats, keys, plan, g, valid_bits, bf16)
+
+        def nc(feats, nmap, weights):
+            self.nmap.append((feats, nmap, weights))
+            return orig_nc(feats, nmap, weights)
         self._model.forward = model_forward
         self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = k1, k4
+        self._nc._nmap_conv_cuda = nc
         return self
 
     def __exit__(self, *exc):
-        self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = self._orig
+        (self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda,
+         self._nc._nmap_conv_cuda) = self._orig
         del self._model.forward
         return False
 
@@ -302,6 +349,39 @@ def check_dw_case(name, args):
     return line
 
 
+def check_nmap_case(name, args):
+    """One exact neighbor-map conv call (a gather patch): kernel vs plain,
+    two kernel runs with identical bits, both timed, and the call's bound
+    at the f32 peak."""
+    import torch
+    from virconv_tpu_torch.ops import nmap_conv as nc
+    feats, nmap, w = args
+    line = {'case': name, 'rows_in': feats.shape[0], 'rows_out':
+            nmap.shape[0], 'c_in': w.shape[1], 'c_out': w.shape[2],
+            'taps': w.shape[0]}
+    got = nc.nmap_conv(feats, nmap, w)
+    if not torch.equal(got, nc.nmap_conv(feats, nmap, w)):
+        fail(f'nmap_conv {name}: two runs differ')
+    want = nc.nmap_conv_plain(feats, nmap, w)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
+    line['max_abs_err_f32'] = err
+    if not err <= tol:
+        fail(f'nmap_conv {name}: max err {err} > {tol}')
+    line['ms'] = cuda_ms(lambda: nc.nmap_conv(feats, nmap, w))
+    line['plain_ms'] = cuda_ms(lambda: nc.nmap_conv_plain(feats, nmap, w),
+                               reps=3, warmup=1)
+    # bound: the feature rows the map names, the map and the weights read
+    # once, the output written once; 2*C*C' operations per (row, tap) hit
+    hit = nmap[nmap >= 0]
+    line['taps_hit'] = int(hit.numel())
+    line['bytes'] = (int(torch.unique(hit).numel()) * feats.shape[1] * 4
+                     + nbytes(nmap, w) + nmap.shape[0] * w.shape[2] * 4)
+    line['ops'] = 2.0 * line['taps_hit'] * w.shape[1] * w.shape[2]
+    bound(line, F32_FLOPS)
+    return line
+
+
 def check_pool_case(name, args):
     """One main-path ROI-pool call: identical selections, kernel vs plain
     (f32 and bf16 features), both timed with bf16, and the call's bound."""
@@ -355,12 +435,13 @@ def check_pool_case(name, args):
 class SubmCapture:
     """Records every ``sparse.subm_conv_ctx`` call of one forward (its
     sorted tensor, kernel size and whether duplicate keys take first-wins
-    sources) and the (feats, weights) of each conv made on it; the convs
-    still run."""
+    sources, in ``contexts``; the conv function, in ``fns``) and the
+    (feats, weights) of each conv made on it (its epilogue arguments in
+    ``epilogues``); the convs still run."""
 
     def __init__(self):
         from virconv_tpu_torch.ops import sparse
-        self.contexts, self.convs = [], []
+        self.contexts, self.fns, self.convs, self.epilogues = [], [], [], []
         self._sp, self._orig = sparse, sparse.subm_conv_ctx
 
     def __enter__(self):
@@ -371,9 +452,11 @@ class SubmCapture:
             i = len(self.contexts)
             self.contexts.append(
                 (st, kernel_size, kw.get('first_wins_sources', False)))
+            self.fns.append(conv)
 
             def recorded(feats, weights, *ca, **ckw):
                 self.convs.append((i, feats, weights.detach()))
+                self.epilogues.append((ca, ckw))
                 return conv(feats, weights, *ca, **ckw)
             return recorded
         self._sp.subm_conv_ctx = ctx
@@ -382,6 +465,79 @@ class SubmCapture:
     def __exit__(self, *exc):
         self._sp.subm_conv_ctx = self._orig
         return False
+
+
+# The JAX package's static gather patch (virconv_tpu/ops/sparse.py:758-764):
+# a submanifold context with more non-fitting rows than
+# max(JAX_PATCH_CAP, rows // JAX_PATCH_FRACTION) takes its full
+# neighbor-map branch there.
+JAX_PATCH_CAP, JAX_PATCH_FRACTION = 2048, 64
+
+
+def sized_patch_contexts(det, frames, tag):
+    """Phase 11a: the submanifold contexts of one request of ``det`` whose
+    non-fitting rows exceed the JAX package's patch cap. Each of their
+    convs is timed on the port's route (K1 with bf16 operands, then the
+    sized gather patch on ``nmap_conv``) and on the JAX package's branch
+    for such a context (the full neighbor map, built once per context, and
+    the plain gathered conv in f32), and the route with f32 operands is
+    held against that branch (1e-4 x the output scale). Returns a line
+    per context."""
+    import torch
+    from virconv_tpu_torch.ops import sparse as sp
+    with SubmCapture() as cap:
+        det.forward(frames)
+        torch.cuda.synchronize()
+
+    def epilogue(scale=None, bias=None, relu=False):
+        return scale, bias, relu
+    lines = []
+    for i, (st, ks, first_wins) in enumerate(cap.contexts):
+        plan, keys = sp.subm_band_plan(st, ks)
+        n_bad = int(sp._band_patch(plan, lambda qk: sp.lookup(keys, qk),
+                                   patch_cap=0)[3])
+        jax_cap = max(JAX_PATCH_CAP, plan.n_out // JAX_PATCH_FRACTION)
+        if n_bad <= jax_cap:
+            continue
+        convs = [(f, w, epilogue(*ca, **ckw)) for (c, f, w), (ca, ckw) in
+                 zip(cap.convs, cap.epilogues) if c == i]
+        f32 = sp.subm_conv_ctx(st, ks, first_wins_sources=first_wins,
+                               bf16=False)
+        nmap = sp.build_subm_neighbor_map(st, ks)
+        line = {'case': f'ctx{i:02d} k{convs[0][1].shape[0]}',
+                'rows': plan.n_out, 'patch_rows': n_bad, 'jax_cap': jax_cap,
+                'convs': len(convs),
+                'ctx_ms': cuda_ms(lambda: sp.subm_conv_ctx(
+                    st, ks, first_wins_sources=first_wins), reps=5,
+                    warmup=1),
+                'map_ms': cuda_ms(lambda: sp.build_subm_neighbor_map(st, ks),
+                                  reps=5, warmup=1),
+                'ms': 0.0, 'jax_branch_ms': 0.0, 'max_abs_err_f32': 0.0}
+        for feats, w, epi in convs:
+            src = feats
+            if first_wins:
+                is_first = torch.ones_like(keys, dtype=torch.bool)
+                is_first[1:] = keys[1:] != keys[:-1]
+                src = torch.where((st.mask & is_first)[:, None], feats,
+                                  torch.zeros_like(feats))
+
+            def branch():
+                return sp._epilogue(sp.gathered_conv(src, nmap, w, st.mask),
+                                    st.mask, *epi)
+            want = branch()
+            err = float((f32(feats, w, *epi) - want).abs().max())
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            if not err <= tol:
+                fail(f'{line["case"]}: the sized patch route is {err} off '
+                     f'the neighbor-map conv (tol {tol})')
+            line['max_abs_err_f32'] = max(line['max_abs_err_f32'], err)
+            line['ms'] += cuda_ms(lambda: cap.fns[i](feats, w, *epi))
+            line['jax_branch_ms'] += cuda_ms(branch, reps=5, warmup=1)
+        line['jax_branch_ms'] += line['map_ms']
+        lines.append(line)
+        print(f'[{tag}] context past the JAX patch cap: {json.dumps(line)}',
+              flush=True)
+    return lines
 
 
 def gather_layers(cap):
@@ -587,8 +743,9 @@ def summed(lines, unit='request'):
     t_bytes = sum(c['t_bytes_ms'] for c in lines)
     t_ops = sum(c['t_ops_ms'] for c in lines)
     return {f'launches_per_{unit}': len(lines),
-            'max_abs_err': max(v for c in lines for k, v in c.items()
-                               if k.startswith('max_abs_err')),
+            'max_abs_err': max((v for c in lines for k, v in c.items()
+                                if k.startswith('max_abs_err')),
+                               default=None),
             'ms': sum(c['ms'] for c in lines),
             'plain_ms': sum(c['plain_ms'] for c in lines),
             'bound_ms': max(t_bytes, t_ops),
@@ -639,21 +796,133 @@ def tiny_train_batch(rng, frames=2):
     return batch
 
 
-def train_kernel_calls(trainer, batch):
-    """Phase 5: one training step under TrainCapture, every captured call
-    checked and timed. Returns the per-call lines by kernel."""
+def request_kernel_calls(det, frames, tag='phase 2'):
+    """Phase 2 (and 11a): every K1, gather-patch (``nmap_conv``) and K2+K3
+    call of one request of ``det``, captured from a warm-up forward, held
+    against its plain version (``check_band_case``, ``check_nmap_case``,
+    ``check_pool_case``). Returns (per-call lines by kernel, the band
+    convs' tap counts, the pools' (stride, Q))."""
+    import torch
+    with Capture() as cap:
+        det.forward(frames)
+        torch.cuda.synchronize()
+    taps = {a[3].shape[0] for a in cap.band}
+    pools = {(a[6], a[0].q_per_roi) for a in cap.pool}
+    cases = {'band_conv_fwd': [], 'nmap_conv_fwd': [], 'roi_pool_fwd': []}
+    for i, a in enumerate(cap.band):
+        line = check_band_case(f'{i:02d} {band_kind(a[0], a[2], a[3])}', a)
+        cases['band_conv_fwd'].append(line)
+        print(f'[{tag}] band_conv {short(line)}', flush=True)
+    for i, a in enumerate(cap.nmap):
+        line = check_nmap_case(f'{i:02d} patch_k{a[2].shape[0]}', a)
+        cases['nmap_conv_fwd'].append(line)
+        print(f'[{tag}] nmap_conv {short(line)}', flush=True)
+    for i, a in enumerate(cap.pool):
+        line = check_pool_case(
+            f'{i} stride{a[6]}_q{a[0].q_per_roi}', a)
+        cases['roi_pool_fwd'].append(line)
+        print(f'[{tag}] roi_pool {short(line)}', flush=True)
+    return cases, taps, pools
+
+
+def serve_requests(det, frames, n_requests, model, per_request,
+                   tag='phase 3'):
+    """Phase 3 (and 11b), the serving path: ``n_requests`` requests of
+    ``det`` with every launch count set to 0 just before and read just
+    after; finite detections and raw outputs, K1 and K2+K3 launched, K1
+    and the gather patches launched ``per_request`` times per request
+    (the warm-up's calls), no conv context on the neighbor-map branch.
+    Returns (launch counts, the run's numbers)."""
+    import torch
+    from virconv_tpu_torch.models.roi_heads import voxel_pool
+    from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool, sparse
+    band_conv.launches = roi_pool.launches = nmap_conv.launches = 0
+    sparse.branch_counts.clear()
+    voxel_pool.branch_counts.clear()
+    times, dets = [], []
+    for _ in range(n_requests):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = det(frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        dets.append([len(r['scores']) for r in res])
+        for r in res:
+            if not (np.isfinite(r['boxes']).all()
+                    and np.isfinite(r['scores']).all()):
+                fail('non-finite detections')
+    counts = {'band_conv_fwd': band_conv.launches,
+              'roi_pool_fwd': roi_pool.launches,
+              'nmap_conv_fwd': nmap_conv.launches}
+    conv_branches = dict(sparse.branch_counts)
+    pool_branches = dict(voxel_pool.branch_counts)
+    raw = det.forward(frames)
+    for k in ('batch_box_preds', 'batch_cls_preds'):
+        if not bool(torch.isfinite(raw[k]).all()):
+            fail(f'non-finite {k}')
+    print(f'[{tag}] {model} full width, {frames["points"].shape[0]} frames '
+          f'x ROT_NUM '
+          f'{det.rot_num}, {n_requests} requests: ms/request '
+          f'{times}, detections/frame {dets}, '
+          f'launches {counts}, conv branches {conv_branches}, pool '
+          f'branches {pool_branches} (over all {n_requests} requests)',
+          flush=True)
+    for k in ('band_conv_fwd', 'roi_pool_fwd'):
+        if counts[k] == 0:
+            fail(f'{k} was never launched on the main path')
+    for k in ('band_conv_fwd', 'nmap_conv_fwd'):
+        if counts[k] != per_request[k] * n_requests:
+            fail(f'{counts[k]} {k} launches over {n_requests} requests, '
+                 f'{per_request[k]} per request in the warm-up')
+    if conv_branches.get('nmap_slow', 0):
+        fail(f'a conv context left the band kernel: {conv_branches}')
+    return counts, {'ms_per_request': times, 'detections_per_frame': dets,
+                    'conv_branches': conv_branches,
+                    'pool_branches': pool_branches}
+
+
+def tiny_serve_parity(cfg, frames=None, tag='phase 4'):
+    """Phase 4 (and 11d): a tiny configuration on CUDA (kernels) and on the
+    CPU (plain versions) with the same weights, f32 operands: roi validity
+    identical, boxes within 5e-3, logits within 2e-3. Returns the
+    errors."""
+    import torch
+    from virconv_tpu_torch.serve import Detector
+    tf = tiny_frames(np.random.default_rng(0)) if frames is None else frames
+    outs = {}
+    for d in ('cuda', 'cpu'):
+        tdet = Detector(cfg=cfg, device=d, seed=1, bf16=False)
+        o = tdet.forward(tf)
+        outs[d] = {k: o[k].detach().cpu() for k in
+                   ('batch_box_preds', 'batch_cls_preds', 'roi_valid')}
+    a, b = outs['cuda'], outs['cpu']
+    box_err = float((a['batch_box_preds'] - b['batch_box_preds']).abs().max())
+    cls_err = float((a['batch_cls_preds'] - b['batch_cls_preds']).abs().max())
+    valid_same = bool(torch.equal(a['roi_valid'], b['roi_valid']))
+    print(f'[{tag}] tiny config CUDA vs CPU: box max err {box_err:.3g} '
+          f'(tol 5e-3), logit max err {cls_err:.3g} (tol 2e-3), roi_valid '
+          f'identical {valid_same}', flush=True)
+    if not (valid_same and box_err <= 5e-3 and cls_err <= 2e-3):
+        fail('tiny config CUDA and CPU disagree')
+    return {'box_max_err': box_err, 'logit_max_err': cls_err}
+
+
+def train_kernel_calls(trainer, batch, tag='phase 5'):
+    """Phase 5 (and 11a): one training step under TrainCapture, every
+    captured call checked and timed. Returns the per-call lines by
+    kernel."""
     import torch
     cap = TrainCapture(trainer.model)
     with cap:
         trainer.step(batch)
     torch.cuda.synchronize()
-    print(f'[phase 5] one training step: {len(cap.fwd)} K1 forward, '
-          f'{len(cap.dgrad)} K1 input-gradient, {len(cap.dw)} K4 calls',
-          flush=True)
+    print(f'[{tag}] one training step: {len(cap.fwd)} K1 forward, '
+          f'{len(cap.dgrad)} K1 input-gradient, {len(cap.dw)} K4, '
+          f'{len(cap.nmap)} gather-patch calls', flush=True)
     if not (cap.fwd and cap.dgrad and cap.dw):
         fail('the training step missed a kernel use')
     cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
-             'band_conv_dw': []}
+             'band_conv_dw': [], 'nmap_conv_fwd_train': []}
     with torch.no_grad():
         for key, calls in (('band_conv_fwd_train', cap.fwd),
                            ('band_conv_fwd_train_dgrad', cap.dgrad)):
@@ -662,23 +931,29 @@ def train_kernel_calls(trainer, batch):
                     f'{i:02d} {band_kind(a[0], a[2], a[3])}', a,
                     bf16_timed=False, peak=F32_FLOPS)
                 cases[key].append(line)
-                print(f'[phase 5] {key} {short(line)}', flush=True)
+                print(f'[{tag}] {key} {short(line)}', flush=True)
         for i, a in enumerate(cap.dw):
             line = check_dw_case(f'{i:02d} k{len(a[2].deltas)}', a)
             cases['band_conv_dw'].append(line)
-            print(f'[phase 5] band_conv_dw {short(line)}', flush=True)
+            print(f'[{tag}] band_conv_dw {short(line)}', flush=True)
+        for i, a in enumerate(cap.nmap):
+            line = check_nmap_case(f'{i:02d} patch_k{a[2].shape[0]}', a)
+            cases['nmap_conv_fwd_train'].append(line)
+            print(f'[{tag}] nmap_conv {short(line)}', flush=True)
     return cases
 
 
-def train_steps(trainer, batch, n_steps):
-    """Phase 6, the main training path: ``n_steps`` steps with every launch
-    count set to 0 just before and read just after."""
+def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
+    """Phase 6 (and 11c), the main training path: ``n_steps`` steps with
+    every launch count set to 0 just before and read just after; no band
+    training conv may take its neighbor-map branch. Each step's loss
+    terms are printed."""
     import torch
-    from virconv_tpu_torch.ops import band_conv, sparse
-    band_conv.launches = band_conv.dw_launches = 0
+    from virconv_tpu_torch.ops import band_conv, nmap_conv, sparse
+    band_conv.launches = band_conv.dw_launches = nmap_conv.launches = 0
     sparse.branch_counts.clear()
     torch.cuda.reset_peak_memory_stats()
-    times, losses = [], []
+    times, losses, terms = [], [], []
     for _ in range(n_steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -686,25 +961,29 @@ def train_steps(trainer, batch, n_steps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         losses.append(float(loss))
+        terms.append({k: float(v) for k, v in tb.items()})
+        print(f'[{tag}] step {len(losses)} loss {losses[-1]!r}, terms '
+              f'{json.dumps(terms[-1])}', flush=True)
         bad = [k for k, v in tb.items() if not np.isfinite(float(v))]
         if not np.isfinite(losses[-1]) or bad:
             fail(f'non-finite training loss {losses[-1]} / terms {bad}')
         if tb['nonfinite_skips'] != 0:
             fail(f'{tb["nonfinite_skips"]} skipped steps')
     counts = {'band_conv_fwd': band_conv.launches,
-              'band_conv_dw': band_conv.dw_launches}
+              'band_conv_dw': band_conv.dw_launches,
+              'nmap_conv_fwd': nmap_conv.launches}
     branches = dict(sparse.branch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'[phase 6] VirConv-T training, {n_steps} steps of '
+    print(f'[{tag}] {model} training, {n_steps} steps of '
           f'{batch["points"].shape[0]} entries: ms/step {times}, loss '
           f'{losses}, peak memory {peak_gib:.2f} GiB, launches {counts}, '
           f'conv branches {branches}', flush=True)
-    for k, v in counts.items():
-        if v == 0:
+    for k in ('band_conv_fwd', 'band_conv_dw'):
+        if counts[k] == 0:
             fail(f'{k} was never launched on the training path')
-    if branches.get('band_train_nmap', 0) or not branches.get('band_train'):
+    if not branches.get('band_train') or branches.get('band_train_nmap', 0):
         fail(f'a band training conv left the band kernels: {branches}')
-    return counts, {'ms_per_step': times, 'loss': losses,
+    return counts, {'ms_per_step': times, 'loss': losses, 'terms': terms,
                     'peak_memory_gib': peak_gib, 'conv_branches': branches}
 
 
@@ -737,20 +1016,25 @@ def train_step_parity(cfg, batch, devices=('cpu', 'cuda')):
     return loss_rel, worst, (l_ref, l_dev)
 
 
-def tiny_train_parity(devices=('cpu', 'cuda')):
-    """Phase 7: one tiny-config training step on a synthetic batch on each
-    device (``train_step_parity``): the loss within rtol 1e-4, each
-    gradient within 1e-3 x its scale."""
+def tiny_train_parity(devices=('cpu', 'cuda'), cfg=None, batch=None,
+                      tag='phase 7'):
+    """Phase 7 (and 11d): one training step of a tiny config (the tiny
+    training config by default) on a synthetic batch on each device
+    (``train_step_parity``): the loss within rtol 1e-4, each gradient
+    within 1e-3 x its scale. Returns the errors."""
     from virconv_tpu_torch.configs.tiny import tiny_train_config
     loss_rel, worst, (l_ref, l_dev) = train_step_parity(
-        tiny_train_config(), tiny_train_batch(np.random.default_rng(0)),
-        devices)
-    print(f'[phase 7] tiny config training step {devices[1]} vs '
+        tiny_train_config() if cfg is None else cfg,
+        tiny_train_batch(np.random.default_rng(0)) if batch is None
+        else batch, devices)
+    print(f'[{tag}] tiny config training step {devices[1]} vs '
           f'{devices[0]}: loss {l_dev:.6g} vs {l_ref:.6g} (rel err '
           f'{loss_rel:.3g}, tol 1e-4), worst gradient {worst[1]} at '
           f'{worst[0]:.3g} x its scale (tol 1e-3)', flush=True)
     if not (loss_rel <= 1e-4 and worst[0] <= 1e-3):
         fail('tiny config training step: devices disagree')
+    return {'loss_rel_err': loss_rel, 'worst_grad': worst[0],
+            'worst_param': worst[1]}
 
 
 R40_KEYS = {f'Car_{m}/{d}_R40' for m in ('3d', 'bev', 'image')
@@ -771,27 +1055,36 @@ def eval_checkpoint(cfg, ckpt_dir, seed):
     return save_checkpoint(ckpt_dir, model.state_dict(), epoch=1)
 
 
-def eval_scene(tmp, frames, batch_size, logger):
-    """Phase 9a, the evaluation path at full width: a ``scene`` KITTI tree
-    of ``frames`` val frames, its infos, a checkpoint, then
-    ``eval_one_ckpt`` on CUDA with every launch count set to 0 just before
-    and read just after. Fails unless K1 and K2+K3 were launched, the
-    native box library is loaded, each frame has its KITTI dict (finite
-    fields) and ``.txt`` file, and the metric has the R40 keys."""
+def eval_scene(tmp, frames, batch_size, logger, make_cfg=None,
+               tag='phase 9'):
+    """Phase 9a (and 11e), the evaluation path at full width: a ``scene``
+    KITTI tree of ``frames`` val frames (written once, under ``tmp``), its
+    infos, a checkpoint of ``make_cfg``'s model (VirConv-T by default),
+    then ``eval_one_ckpt`` on CUDA with every launch count set to 0 just
+    before and read just after. Fails unless K1 and K2+K3 were launched,
+    the native box library is loaded, each frame has its KITTI dict
+    (finite fields) and ``.txt`` file, and the metric has the R40 keys."""
     from virconv_tpu_torch.config import virconv_t_config
-    from virconv_tpu_torch.ops import band_conv, native, roi_pool
+    from virconv_tpu_torch.ops import band_conv, native, roi_pool, sparse
     from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
     from virconv_tpu_torch.utils.mini_kitti import write_tree
     t = time.perf_counter()
-    root = write_tree(tmp / 'scene', 'scene', frames=frames, seed=0)
+    root = tmp / 'scene'
+    if not (root / 'kitti_infos_val.pkl').exists():
+        write_tree(root, 'scene', frames=frames, seed=0)
     write_s = time.perf_counter() - t
-    cfg = virconv_t_config()
+    cfg = (make_cfg or virconv_t_config)()
     cfg.DATA_CONFIG.DATA_PATH = str(root)
-    ckpt = eval_checkpoint(cfg, tmp / 'ckpt_full', seed=0)
-    out = tmp / 'eval_full'
+    name = cfg.MODEL.BACKBONE_3D.NAME
+    ckpt = eval_checkpoint(cfg, tmp / f'ckpt_full_{name}', seed=0)
+    out = tmp / f'eval_full_{name}'
     band_conv.launches = roi_pool.launches = 0
+    sparse.branch_counts.clear()
     res = eval_one_ckpt(cfg, ckpt, logger, out, batch_size=batch_size,
                         device='cuda', save_to_file=True, seed=1024)
+    if sparse.branch_counts.get('nmap_slow', 0):
+        fail(f'a conv context left the band kernel: '
+             f'{dict(sparse.branch_counts)}')
     launches = {'band_conv_fwd': band_conv.launches,
                 'roi_pool_fwd': roi_pool.launches}
     n_det = [len(a['score']) for a in res.det_annos]
@@ -804,13 +1097,13 @@ def eval_scene(tmp, frames, batch_size, logger):
              'detections_per_frame': n_det,
              'ap_r40': {k: float(v) for k, v in res.result_dict.items()},
              'native_box_ops': native.available()}
-    print(f'[phase 9] scene tree of {frames} frames, batches of '
-          f'{batch_size} x ROT_NUM {cfg.DATA_CONFIG.ROT_NUM}: '
+    print(f'[{tag}] {name} on a scene tree of {frames} frames, batches of '
+          f'{batch_size} x ROT_NUM {cfg.DATA_CONFIG.get("ROT_NUM", 1)}: '
           f'sec_per_example {res.sec_per_example:.4f}, loader '
           f'{stats["loader_sec_per_frame"]:.4f} s/frame, seconds '
           f'{json.dumps(res.seconds)}, launches {launches}, detections '
           f'{n_det}, recalls {json.dumps(stats["recalls"])}', flush=True)
-    print(f'[phase 9] AP(R40) with random weights (not gated): '
+    print(f'[{tag}] AP(R40) with random weights (not gated): '
           f'{json.dumps(stats["ap_r40"])}', flush=True)
     for k, v in launches.items():
         if v == 0:
@@ -1097,6 +1390,225 @@ def train_loader_tiny_parity(tmp, devices=('cpu', 'cuda')):
     return out
 
 
+L_CONVS = 20        # VirConv-L's sparse convs: 19 NRConv convs and conv_out
+SEMI_FRAMES, SEMI_N_TRAIN, SEMI_N_SEMI = 3, 2, 2   # phase 11f's tree
+
+
+def first_step_twice(cfg, batch):
+    """The first step of two fresh trainers of ``cfg`` from one seed on
+    ``batch``: the two losses (printed, not gated), whether they are the
+    same bits, and the first stage of the forward whose output differs
+    between the two runs (voxels, each backbone scale, BEV map,
+    proposals, the stage's sampled ROIs, predictions, loss) with its
+    largest difference."""
+    import torch
+    from virconv_tpu_torch.train.trainer import Trainer
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(cfg=cfg, device='cuda', seed=0)
+        model, seen = trainer.model, {}
+        voxelize, forward = model.voxelize, model.forward
+
+        def vox(*a, **k):
+            st = voxelize(*a, **k)
+            seen.setdefault('voxels', st.feats.detach().clone())
+            return st
+
+        def fwd(*a, **k):
+            out = forward(*a, **k)
+            feats = out['backbone']['multi_scale_3d_features']
+            for name in ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4'):
+                seen[name] = feats[name].feats.detach().clone()
+            seen['encoded'] = out['backbone'][
+                'encoded_spconv_tensor'].feats.detach().clone()
+            seen['bev'] = out['bev_feats'].detach().clone()
+            seen['rois'] = out['rois'].detach().clone()
+            seen['sampled'] = torch.cat([t['targets']['sampled'].reshape(-1)
+                                         for t in out['stage_targets']])
+            seen['preds'] = out['batch_box_preds'].detach().clone()
+            seen['loss'] = out['loss'].detach().clone()
+            return out
+        model.voxelize, model.forward = vox, fwd
+        trainer.step(batch)
+        runs.append(seen)
+        del trainer, model
+        torch.cuda.empty_cache()
+    a, b = runs
+    losses = [float(a['loss']), float(b['loss'])]
+    first = next((k for k in a if not torch.equal(a[k], b[k])), None)
+    diff = None if first is None else float(
+        (a[first].double() - b[first].double()).abs().max())
+    print(f'[phase 11] the first seeded step twice (not gated): losses '
+          f'{losses!r}, same bits {losses[0] == losses[1]}, relative '
+          f'difference {abs(losses[1] - losses[0]) / abs(losses[0]):.3g}; '
+          f'first stage that differs: {first} (max abs difference {diff})',
+          flush=True)
+    return {'losses': losses, 'same_bits': losses[0] == losses[1],
+            'first_differing_stage': first, 'max_abs_difference': diff}
+
+
+def semi_train_cli(tmp, t_ckpt, batch_size):
+    """Phase 11f: ``tools/train_gpu.py --cfg virconv_s`` in this process for
+    one epoch (2 steps of ``batch_size`` frames) on a ``scene`` tree with
+    SEMI_N_TRAIN train and SEMI_N_SEMI semi frames, from the VirConv-T
+    checkpoint ``t_ckpt`` as ``--pretrained_model``. Fails unless the
+    batches read frames from both ``training/`` and ``semi/``, every loss
+    is finite with no skipped step, and K1 (forward and input gradient)
+    and K4 ran on every step."""
+    import torch
+    from virconv_tpu_torch.datasets.kitti.kitti_dataset_semi import \
+        KittiDatasetSemi
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
+    import train_gpu
+    t = time.perf_counter()
+    root = write_tree(tmp / 'semi_scene', 'scene', frames=SEMI_FRAMES,
+                      seed=0, n_train=SEMI_N_TRAIN, n_semi=SEMI_N_SEMI)
+    write_s = time.perf_counter() - t
+    roots, state = [], {'counter': None, 'steps': []}
+    frame_root = KittiDatasetSemi.frame_root
+
+    def recording(self, info):
+        root_dir = frame_root(self, info)
+        roots.append(root_dir.name)
+        return root_dir
+
+    def on_start(trainer, start_epoch, resumed_from):
+        state['counter'] = StepCounts(trainer).__enter__()
+
+    def on_step(rec, tb):
+        torch.cuda.synchronize()
+        state['steps'].append({
+            **rec, **state['counter'].take(),
+            'terms_finite': all(np.isfinite(float(v)) for v in tb.values())})
+    KittiDatasetSemi.frame_root = recording
+    try:
+        run = train_gpu.main(
+            ['--cfg', 'virconv_s', '--batch_size', str(batch_size),
+             '--epochs', '1', '--no_eval', '--fix_random_seed',
+             '--log_interval', '1', '--output_dir', str(tmp / 'semi_run'),
+             '--pretrained_model', str(t_ckpt),
+             '--set', 'DATA_CONFIG.DATA_PATH', str(root)],
+            on_start, on_step)
+    finally:
+        KittiDatasetSemi.frame_root = frame_root
+        if state['counter'] is not None:
+            state['counter'].__exit__()
+    steps = state['steps']
+    stats = {'frames': SEMI_FRAMES, 'train_frames': SEMI_N_TRAIN,
+             'semi_frames': SEMI_N_SEMI, 'tree_write_s': write_s,
+             'steps': len(steps),
+             'ms_per_step': [1e3 * r['seconds'] for r in steps],
+             'loss': [r['loss'] for r in steps],
+             'frames_read': {d: roots.count(d) for d in set(roots)},
+             'launches_per_step': [{k: r[k] for k in StepCounts.KEYS}
+                                   for r in steps],
+             'pretrained_model': Path(t_ckpt).name}
+    print(f'[phase 11] train_gpu --cfg virconv_s from {Path(t_ckpt).name} '
+          f'on a scene tree of {SEMI_N_TRAIN} train + {SEMI_N_SEMI} semi '
+          f'frames, batches of {batch_size}: {len(steps)} steps, ms/step '
+          f'{[round(x, 1) for x in stats["ms_per_step"]]}, loss '
+          f'{stats["loss"]}, frames read by subdirectory '
+          f'{stats["frames_read"]}, launches per step '
+          f'{stats["launches_per_step"]}', flush=True)
+    n_steps = (SEMI_N_TRAIN + SEMI_N_SEMI) // batch_size
+    if len(steps) != n_steps or run.frames != n_steps * batch_size:
+        fail(f'{len(steps)} VirConv-S steps, expected {n_steps}')
+    if not {'training', 'semi'} <= set(roots):
+        fail(f'the VirConv-S batches read {sorted(set(roots))}')
+    for r in steps:
+        if not (np.isfinite(r['loss']) and r['terms_finite']
+                and r['nonfinite_skips'] == 0):
+            fail(f'VirConv-S step {r["step"]}: loss {r["loss"]}')
+        if not (r['k1_forward'] and r['k1_input_grad'] and r['k4']):
+            fail(f'VirConv-S step {r["step"]} missed a kernel: {r}')
+    return stats
+
+
+def virconv_l_phase(tmp, logger):
+    """Phase 11, VirConv-L at full width (seeded weights): (a) every K1 and
+    K2+K3 call of one request and every K1 forward, K1 input-gradient and
+    K4 call of one training step against their plain versions; (b)
+    N_REQUESTS requests through ``serve.Detector(virconv_l_config())``;
+    (c) N_TRAIN_STEPS training steps of ``train_batch_l``, then the first
+    seeded step of two fresh trainers; (d) the tiny-L config CUDA vs CPU,
+    evaluation and one training step; (e) ``eval_one_ckpt`` on phase 9's
+    scene tree. Returns (per-call lines by kernel, the phase's numbers)."""
+    import torch
+    from virconv_tpu_torch.config import virconv_l_config
+    from virconv_tpu_torch.configs.tiny import (tiny_l_config,
+                                                tiny_l_train_config)
+    from virconv_tpu_torch.serve import Detector
+    from virconv_tpu_torch.train.trainer import Trainer
+    from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames_l,
+                                                      train_batch_l)
+    tag = 'phase 11'
+    cfg = virconv_l_config()
+    det = Detector(cfg=cfg, device='cuda', seed=0)
+    frames = synth_frames_l(FRAMES)
+    cases, taps, pools = request_kernel_calls(det, frames, tag)
+    n_k1 = len(cases['band_conv_fwd'])
+    print(f'[{tag}] one VirConv-L request: {n_k1} of its {L_CONVS} sparse '
+          f'convs on K1 (taps {sorted(taps)}), '
+          f'{len(cases["nmap_conv_fwd"])} gather patches, '
+          f'{len(cases["roi_pool_fwd"])} K2+K3 calls (stride, Q) '
+          f'{sorted(pools)}', flush=True)
+    if n_k1 != L_CONVS or {27, 9, 3} - taps:
+        fail(f'{n_k1} K1 calls with taps {sorted(taps)} in one VirConv-L '
+             f'request, expected {L_CONVS} with taps 27, 9 and 3')
+    if not cases['roi_pool_fwd']:
+        fail('no VirConv-L pool took the kernel')
+    past_cap = sized_patch_contexts(det, frames, tag)
+    per_request = {k: len(cases[k]) for k in ('band_conv_fwd',
+                                              'nmap_conv_fwd')}
+    counts, serve = serve_requests(det, frames, N_REQUESTS, 'VirConv-L',
+                                   per_request, tag)
+    serve['contexts_past_the_jax_patch_cap'] = past_cap
+    del det
+    torch.cuda.empty_cache()
+    serve['launches_per_request'] = {k: v / N_REQUESTS
+                                     for k, v in counts.items()}
+    serve['pool_routes_per_request'] = {
+        route: serve['pool_branches'].get(route, 0) / N_REQUESTS
+        for route in ('kernel', 'probe')}
+    serve['conv_routes_per_request'] = {
+        route: n / N_REQUESTS for route, n in serve['conv_branches'].items()}
+    with torch.enable_grad():
+        trainer = Trainer(cfg=cfg, device='cuda', seed=0)
+        batch = trainer.to_device(train_batch_l())
+        train_cases = train_kernel_calls(trainer, batch, tag)
+        cases.update(train_cases)
+        counter = StepCounts(trainer).__enter__()
+        try:
+            train_counts, train = train_steps(trainer, batch, N_TRAIN_STEPS,
+                                              tag, 'VirConv-L')
+        finally:
+            kinds = counter.take()
+            counter.__exit__()
+        train['launches_by_kind'] = kinds
+        if not (kinds['k1_forward'] and kinds['k1_input_grad']
+                and kinds['k4']):
+            fail(f'a VirConv-L training step missed a kernel: {kinds}')
+        del trainer
+        torch.cuda.empty_cache()
+        train['first_step_twice'] = first_step_twice(cfg, batch)
+        del batch
+        torch.cuda.empty_cache()
+        tiny_batch = {k: v for k, v in
+                      tiny_train_batch(np.random.default_rng(0)).items()
+                      if not k.startswith('points_mm')}
+        tiny_train = tiny_train_parity(('cpu', 'cuda'), tiny_l_train_config(),
+                                       tiny_batch, tag)
+    tiny_eval = tiny_serve_parity(tiny_l_config(), tag=tag)
+    evaluation = eval_scene(tmp, EVAL_FRAMES, FRAMES, logger,
+                            virconv_l_config, tag)
+    return cases, {'serve': {'launches': counts, **serve},
+                   'train': {'launches': train_counts, **train},
+                   'tiny_cuda_vs_cpu': {'eval': tiny_eval,
+                                        'train': tiny_train},
+                   'eval': evaluation}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1105,9 +1617,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.set_grad_enabled(False)
     from virconv_tpu_torch.configs.tiny import tiny_config
-    from virconv_tpu_torch.models.roi_heads import voxel_pool
-    from virconv_tpu_torch.ops import (_cuda, band_conv, native, roi_pool,
-                                       sparse)
+    from virconv_tpu_torch.ops import _cuda, native
     from virconv_tpu_torch.serve import Detector
     from virconv_tpu_torch.train.trainer import Trainer
     from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames,
@@ -1134,87 +1644,27 @@ def main():
     t0 = phase_done(1, t0)
     det = Detector(device='cuda', seed=0)
     frames = synth_frames(FRAMES)
-    with Capture() as cap:
-        det.forward(frames)
-        torch.cuda.synchronize()
-    taps = {a[3].shape[0] for a in cap.band}
-    pools = {(a[6], a[0].q_per_roi) for a in cap.pool}
+    cases, taps, pools = request_kernel_calls(det, frames)
     missing = ({27, 9, 3} - taps) | ({(8, 216), (8, 64), (4, 64)} - pools)
     if missing:
         fail(f'warm-up forward never reached {sorted(missing)} '
              '(band-conv taps / pool (stride, Q))')
-    cases = {'band_conv_fwd': [], 'roi_pool_fwd': []}
-    for i, a in enumerate(cap.band):
-        line = check_band_case(f'{i:02d} {band_kind(a[0], a[2], a[3])}', a)
-        cases['band_conv_fwd'].append(line)
-        print(f'[phase 2] band_conv {short(line)}', flush=True)
-    for i, a in enumerate(cap.pool):
-        line = check_pool_case(
-            f'{i} stride{a[6]}_q{a[0].q_per_roi}', a)
-        cases['roi_pool_fwd'].append(line)
-        print(f'[phase 2] roi_pool {short(line)}', flush=True)
     totals = {k: summed(v) for k, v in cases.items()}
     print(f'[phase 2] per request, summed over its calls: '
           f'{json.dumps(totals)}', flush=True)
-    del cap
 
     # ---- phase 3: the main path --------------------------------------------
     t0 = phase_done(2, t0)
-    band_conv.launches = roi_pool.launches = 0
-    sparse.branch_counts.clear()
-    voxel_pool.branch_counts.clear()
-    times, dets = [], []
-    for _ in range(N_REQUESTS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = det(frames)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        dets.append([len(r['scores']) for r in res])
-        for r in res:
-            if not (np.isfinite(r['boxes']).all()
-                    and np.isfinite(r['scores']).all()):
-                fail('non-finite detections')
-    counts = {'band_conv_fwd': band_conv.launches,
-              'roi_pool_fwd': roi_pool.launches}
-    conv_branches = dict(sparse.branch_counts)
-    pool_branches = dict(voxel_pool.branch_counts)
-    raw = det.forward(frames)
-    for k in ('batch_box_preds', 'batch_cls_preds'):
-        if not bool(torch.isfinite(raw[k]).all()):
-            fail(f'non-finite {k}')
-    print(f'[phase 3] VirConv-T full width, {FRAMES} frames x ROT_NUM '
-          f'{det.rot_num}, {N_REQUESTS} requests: ms/request '
-          f'{times}, detections/frame {dets}, '
-          f'launches {counts}, conv branches {conv_branches}, pool '
-          f'branches {pool_branches} (over all {N_REQUESTS} requests)',
-          flush=True)
-    for k, v in counts.items():
-        if v == 0:
-            fail(f'{k} was never launched on the main path')
-    del raw, det
+    counts, _ = serve_requests(
+        det, frames, N_REQUESTS, 'VirConv-T',
+        {k: len(cases[k]) for k in ('band_conv_fwd', 'nmap_conv_fwd')})
+    del det
 
     # ---- phase 4: tiny config, CUDA kernels vs CPU plain -------------------
     t0 = phase_done(3, t0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = tiny_config()
-    tf = tiny_frames(np.random.default_rng(0))
-    outs = {}
-    for d in ('cuda', 'cpu'):
-        tdet = Detector(cfg=cfg, device=d, seed=1, bf16=False)
-        o = tdet.forward(tf)
-        outs[d] = {k: o[k].detach().cpu() for k in
-                   ('batch_box_preds', 'batch_cls_preds', 'roi_valid')}
-    a, b = outs['cuda'], outs['cpu']
-    box_err = float((a['batch_box_preds'] - b['batch_box_preds']).abs().max())
-    cls_err = float((a['batch_cls_preds'] - b['batch_cls_preds']).abs().max())
-    valid_same = bool(torch.equal(a['roi_valid'], b['roi_valid']))
-    print(f'[phase 4] tiny config CUDA vs CPU: box max err {box_err:.3g} '
-          f'(tol 5e-3), logit max err {cls_err:.3g} (tol 2e-3), roi_valid '
-          f'identical {valid_same}', flush=True)
-    if not (valid_same and box_err <= 5e-3 and cls_err <= 2e-3):
-        fail('tiny config CUDA and CPU disagree')
+    tiny_serve_parity(tiny_config())
 
     # ---- phase 5: every kernel call of one training step vs plain ---------
     # (training phases run f32 with TF32 off, as set for phase 4)
@@ -1256,19 +1706,28 @@ def main():
 
     # ---- phase 9: the evaluation path (loader, model, dicts, AP) ------------
     t0 = phase_done(8, t0)
+    from virconv_tpu_torch.train.checkpoint import latest_checkpoint
     from virconv_tpu_torch.utils.common import create_logger
     logger = create_logger()
-    with tempfile.TemporaryDirectory() as tmp:
-        eval_run = eval_scene(Path(tmp), EVAL_FRAMES, FRAMES, logger)
-        eval_run['tiny_cuda_vs_cpu'] = eval_tiny_parity(Path(tmp), logger)
-    t0 = phase_done(9, t0)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        eval_run = eval_scene(tmp, EVAL_FRAMES, FRAMES, logger)
+        eval_run['tiny_cuda_vs_cpu'] = eval_tiny_parity(tmp, logger)
+        t0 = phase_done(9, t0)
 
-    # ---- phase 10: training from a KITTI tree (loader, CLI, resume) ---------
-    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
-        train_cli = train_cli_scene(Path(tmp), TRAIN_FRAMES, TRAIN_N_TRAIN,
-                                    FRAMES)
-        train_cli['tiny_cuda_vs_cpu'] = train_loader_tiny_parity(Path(tmp))
-    phase_done(10, t0)
+        # ---- phase 10: training from a KITTI tree (loader, CLI, resume) -----
+        with torch.enable_grad():
+            train_cli = train_cli_scene(tmp, TRAIN_FRAMES, TRAIN_N_TRAIN,
+                                        FRAMES)
+            train_cli['tiny_cuda_vs_cpu'] = train_loader_tiny_parity(tmp)
+        t0 = phase_done(10, t0)
+
+        # ---- phase 11: VirConv-L, and VirConv-S from phase 10's checkpoint --
+        l_cases, virconv_l = virconv_l_phase(tmp, logger)
+        with torch.enable_grad():
+            virconv_s = semi_train_cli(
+                tmp, latest_checkpoint(tmp / 'train_run' / 'ckpt'), FRAMES)
+    phase_done(11, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -1279,7 +1738,10 @@ def main():
             'gather_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
                                 'virconv_tpu/ops/pallas/gather_conv.py:42'),
             'onehot_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
-                                'virconv_tpu/ops/pallas/onehot_conv.py:40')}
+                                'virconv_tpu/ops/pallas/onehot_conv.py:40'),
+            # the band conv's gather patch: XLA's gather + matmul there
+            'nmap_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
+                              'virconv_tpu/ops/sparse.py:238')}
     launches = {**counts, 'band_conv_dw': train_counts['band_conv_dw'],
                 **gather_counts}
     totals['band_conv_dw'] = step_totals['band_conv_dw']
@@ -1302,6 +1764,9 @@ def main():
         'launches': train_counts['band_conv_fwd'], **k1_train,
         'forward': step_totals['band_conv_fwd_train'],
         'input_grad': step_totals['band_conv_fwd_train_dgrad']}
+    by_name['nmap_conv_fwd']['train'] = {
+        'launches': train_counts['nmap_conv_fwd'],
+        **step_totals['nmap_conv_fwd_train']}
     for k in kernels[:2]:
         k['launches_eval'] = eval_run['launches'][k['name']]
     # phase 10: the training CLI's steps, and the evaluation after them
@@ -1312,9 +1777,38 @@ def main():
         r['k4'] for r in per_step)
     for k in kernels[:2]:
         k['launches_train_cli_eval'] = train_cli['launches_eval'][k['name']]
+    # phase 11: VirConv-L's K1 and K2+K3 per request, K1 and K4 per step
+    l_totals = {k: summed(v) for k, v in l_cases.items()
+                if k in ('band_conv_fwd', 'roi_pool_fwd', 'nmap_conv_fwd')}
+    l_steps = {k: summed(v, 'step') for k, v in l_cases.items()
+               if k not in l_totals}
+    l_serve, l_train = virconv_l['serve'], virconv_l['train']
+    for k in kernels[:2]:
+        k['virconv_l'] = {'launches': l_serve['launches'][k['name']],
+                          **l_totals[k['name']],
+                          'launches_eval':
+                          virconv_l['eval']['launches'][k['name']]}
+    kernels[0]['virconv_l']['train'] = {
+        'launches': l_train['launches']['band_conv_fwd'],
+        **summed(l_cases['band_conv_fwd_train']
+                 + l_cases['band_conv_fwd_train_dgrad'], 'step'),
+        'forward': l_steps['band_conv_fwd_train'],
+        'input_grad': l_steps['band_conv_fwd_train_dgrad']}
+    by_name['band_conv_dw']['virconv_l'] = {
+        'launches': l_train['launches']['band_conv_dw'],
+        **l_steps['band_conv_dw']}
+    by_name['nmap_conv_fwd']['virconv_l'] = {
+        'launches': l_serve['launches']['nmap_conv_fwd'],
+        **l_totals['nmap_conv_fwd'],
+        'contexts_past_the_jax_patch_cap':
+        l_serve['contexts_past_the_jax_patch_cap'],
+        'train': {'launches': l_train['launches']['nmap_conv_fwd'],
+                  **l_steps['nmap_conv_fwd_train']}}
     print(json.dumps({'kernels': kernels, 'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,
-                      'cases': cases}), flush=True)
+                      'virconv_l': virconv_l, 'virconv_s': virconv_s,
+                      'cases': cases,
+                      'cases_virconv_l': l_cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

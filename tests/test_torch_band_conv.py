@@ -107,7 +107,8 @@ def test_2d_first_wins_plain_matches_jax_kernel():
 @pytest.mark.parametrize('first_wins', [False, True])
 def test_subm_ctx_exact_vs_gathered_conv(first_wins, monkeypatch):
     """Band ctx (kernel + gather patch) and its full neighbor-map branch
-    both equal the exact conv of the JAX oracle."""
+    (taken when the plan's keys are not sorted) both equal the exact conv
+    of the JAX oracle."""
     rng = np.random.default_rng(3)
     if first_wins:
         st = _duplicate_2d(rng, 400, (30, 12))
@@ -134,10 +135,14 @@ def test_subm_ctx_exact_vs_gathered_conv(first_wins, monkeypatch):
     mask = np.asarray(st.mask)[:, None]
     want = np.maximum(raw * scale + bias, 0.0) * mask
     tst = to_torch_st(st)
-    for cap, branch in ((None, 'band'), (0, 'nmap_slow')):
-        if cap is not None:
-            monkeypatch.setattr(tsp, 'BAND_PATCH_CAP', cap)
-            monkeypatch.setattr(tsp, 'BAND_PATCH_FRACTION', 10 ** 9)
+    plan_of = tsp.subm_band_plan
+
+    def unsorted_plan(*a, **k):
+        plan, keys = plan_of(*a, **k)
+        return plan._replace(keys_sorted=torch.tensor(False)), keys
+    for sorted_keys, branch in ((True, 'band'), (False, 'nmap_slow')):
+        if not sorted_keys:
+            monkeypatch.setattr(tsp, 'subm_band_plan', unsorted_plan)
         tsp.branch_counts.clear()
         conv = tsp.subm_conv_ctx(tst, 3, tile=16, block=16,
                                  first_wins_sources=first_wins, bf16=False)
@@ -146,6 +151,32 @@ def test_subm_ctx_exact_vs_gathered_conv(first_wins, monkeypatch):
                        relu=True)
         assert tsp.branch_counts[branch] == 1, tsp.branch_counts
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=1e-5)
+
+
+def test_ctx_past_the_jax_patch_cap_stays_on_the_band(monkeypatch):
+    """A context with more non-fitting rows than the JAX package's patch
+    cap: JAX's ctx takes its full neighbor-map branch, the port's patch
+    holds every such row and stays on the band kernel; the same output."""
+    rng = np.random.default_rng(8)
+    st = make_random_sparse(rng, 2, (6, 24, 20), 700, 768, 8)
+    w = _weights(rng, 27, 8, 8)
+    scale, bias = _affine(rng, 8)
+    monkeypatch.setattr(jsp, 'BAND_PATCH_CAP', 8)
+    monkeypatch.setattr(jsp, 'BAND_PATCH_FRACTION', 10 ** 9)
+    jctx = jsp.subm_conv_ctx(st, 3, use_band=True, tile=16, block=16,
+                             bf16=False)
+    want = np.asarray(jctx.conv(st.feats, jnp.asarray(w), jnp.asarray(scale),
+                                jnp.asarray(bias), relu=True))
+    tst = to_torch_st(st)
+    plan, keys = tsp.subm_band_plan(tst, 3, tile=16, block=16)
+    patch = tsp._sized_patch(plan, lambda qk: tsp.lookup(keys, qk))
+    assert patch is not None and patch[0].shape[0] > 8
+    tsp.branch_counts.clear()
+    conv = tsp.subm_conv_ctx(tst, 3, tile=16, block=16, bf16=False)
+    got = conv(tst.feats, torch.from_numpy(w), torch.from_numpy(scale),
+               torch.from_numpy(bias), relu=True)
+    assert tsp.branch_counts == {'band': 1}
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=1e-5)
 
 
 def test_strided_ctx_exact_vs_gathered_conv():

@@ -12,6 +12,7 @@ import torch
 
 from virconv_tpu_torch.ops import band_conv as tbc
 from virconv_tpu_torch.ops import gather_conv as tgc
+from virconv_tpu_torch.ops import nmap_conv as tnc
 from virconv_tpu_torch.ops import onehot_conv as toc
 from virconv_tpu_torch.ops import roi_pool as trp
 from virconv_tpu_torch.ops import sparse as tsp
@@ -673,6 +674,46 @@ def test_gather_conv_edge_cases(case):
         assert float(want[0].abs().max()) > 0
 
 
+@pytest.mark.parametrize('case', [
+    'row_k27', 'tile_k27_fewer_rows', 'tile_k9_more_rows', 'tile_k3_cout72',
+    'cin5', 'fma_cin130', 'empty'])
+def test_nmap_conv_edge_cases(case):
+    """The exact conv from a neighbor map vs its plain version: each mode
+    (row, tile, fma), fewer and more output rows than feature rows (a
+    patch, a strided map), K = 27, 9 and 3, an input width not a multiple
+    of 4, a map with no output row (no launch). Each run twice with
+    identical bits; outputs within 1e-4 x max(1, the output scale)."""
+    dev = _cuda()
+    k, n_in, n_out, c, c_out, mode = {
+        'row_k27': (27, 1000, 1000, 8, 16, 'row'),
+        'tile_k27_fewer_rows': (27, 4000, 333, 64, 64, 'tile'),
+        'tile_k9_more_rows': (9, 500, 1500, 16, 32, 'tile'),
+        'tile_k3_cout72': (3, 900, 600, 32, 72, 'tile'),
+        'cin5': (27, 700, 700, 5, 24, 'tile'),
+        'fma_cin130': (9, 640, 640, 130, 24, 'fma'),
+        'empty': (27, 100, 0, 16, 16, 'tile')}[case]
+    assert tgc.kernel_mode(c, c_out) == mode
+    rng = np.random.default_rng(sum(map(ord, case)))
+    nmap = torch.from_numpy(np.where(
+        rng.random((n_out, k)) < 0.7, rng.integers(0, n_in, (n_out, k)),
+        -1).astype(np.int32))
+    feats = torch.from_numpy(rng.standard_normal((n_in, c)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    want = tnc.nmap_conv_plain(feats, nmap, w)
+    args = (feats.to(dev), nmap.to(dev), w.to(dev))
+    n0 = tnc.launches
+    got = tnc.nmap_conv(*args)
+    again = tnc.nmap_conv(*args)
+    torch.cuda.synchronize()
+    assert tnc.launches == n0 + (2 if n_out else 0)
+    assert got.shape == (n_out, c_out) and torch.equal(got, again)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), want.numpy(), rtol=0,
+        atol=1e-4 * max(1.0, float(want.abs().max()) if n_out else 0.0))
+
+
 def test_eval_loop_launches_band_conv_and_pool(tmp_path):
     """``eval_one_ckpt`` of the tiny configuration over a 1-frame ``mini``
     tree on the card goes through K1 and K2+K3 and gives the KITTI dicts
@@ -746,3 +787,73 @@ def test_training_loader_steps_match_cpu(tmp_path):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
+
+
+def test_tiny_l_forward_launches_band_conv_and_pool():
+    """VirConv-L's structure (``tiny_l_config``: one fused stream, one
+    refinement stage, no replica) through ``serve.Detector`` on the card
+    and on the CPU from one seed, f32 operands, TF32 off: K1 and K2+K3
+    launched on the card, roi validity identical, boxes within 5e-3 and
+    logits within 2e-3 (chip_smoke.py phase 11d's tolerances)."""
+    from virconv_tpu_torch.configs.tiny import tiny_l_config
+    from virconv_tpu_torch.serve import Detector
+    _cuda()
+    rng = np.random.default_rng(0)
+    n = 1500
+    pts = rng.uniform([0, -8, -3, 0, 0, 0, 0, 1], [16, 8, 1, 1, 1, 1, 1, 2.01],
+                      (2, n, 8)).astype(np.float32)
+    pts[..., 7] = np.round(pts[..., 7])
+    v2r = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0], [0, 0, 0]],
+                   np.float32)
+    p2t = np.array([[200., 0, 0], [0, 200., 0], [700., 300., 1.],
+                    [0, 0, 0]], np.float32)
+    frames = {'points': pts, 'points_valid': np.ones((2, n), bool),
+              'v2r': np.tile(v2r, (2, 1, 1)), 'p2t': np.tile(p2t, (2, 1, 1))}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = {}
+        for d in ('cuda', 'cpu'):
+            tbc.launches = trp.launches = 0
+            det = Detector(cfg=tiny_l_config(), device=d, seed=1, bf16=False)
+            o = det.forward(frames)
+            outs[d] = {k: o[k].detach().cpu() for k in
+                       ('batch_box_preds', 'batch_cls_preds', 'roi_valid')}
+            if d == 'cuda':
+                assert tbc.launches > 0 and trp.launches > 0
+                assert det.rot_num == 1 and det.params is None
+        a, b = outs['cuda'], outs['cpu']
+        assert torch.equal(a['roi_valid'], b['roi_valid'])
+        assert float((a['batch_box_preds'] - b['batch_box_preds'])
+                     .abs().max()) <= 5e-3
+        assert float((a['batch_cls_preds'] - b['batch_cls_preds'])
+                     .abs().max()) <= 2e-3
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def test_voxelize_is_repeatable_on_the_card():
+    """``sparse.voxelize`` of crowded voxels on the card: two runs give the
+    same bits, and the CPU's means to within f32 rounding (each voxel's
+    points are summed in rank order, no atomics)."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    n = 200000
+    pts = rng.uniform([0, -40, -3, 0, 0, 0, 0, 1],
+                      [70.4, 40, 1, 1, 1, 1, 1, 2.01], (n, 8)).astype(
+                          np.float32)
+    pts[:, :3] = np.round(pts[:, :3] * 2) / 2 + np.float32(0.01)
+    args = ((0, -40, -3, 70.4, 40, 1), (0.05, 0.05, 0.05), 40000, 5)
+    mask = torch.ones(n, dtype=torch.bool)
+    runs = [tsp.voxelize(torch.from_numpy(pts).to(dev), mask.to(dev), *args,
+                         indicator_max=True) for _ in range(2)]
+    assert torch.equal(runs[0].feats, runs[1].feats)
+    assert torch.equal(runs[0].coords, runs[1].coords)
+    cpu = tsp.voxelize(torch.from_numpy(pts), mask, *args,
+                       indicator_max=True)
+    assert torch.equal(runs[0].coords.cpu(), cpu.coords)
+    torch.testing.assert_close(runs[0].feats.cpu(), cpu.feats, atol=1e-6,
+                               rtol=1e-6)

@@ -201,12 +201,30 @@ def test_input_point_discard_equals_jax(bin_num, rate, seed):
     assert len(got[0]) < len(pts)
 
 
-def test_training_loader_raises():
+def test_training_loader_raises(tmp_path):
+    """``build_dataloader`` raises for a dataset the port does not register,
+    and builds VirConv-S's ``KittiDatasetSemi`` training loader over
+    ``training/`` and ``semi/`` frames."""
+    from virconv_tpu_torch.config import virconv_s_config
     from virconv_tpu_torch.datasets import build_dataloader
-    cfg = virconv_t_config()
-    cfg.DATA_CONFIG.DATASET = 'KittiDatasetSemi'
-    with pytest.raises(NotImplementedError, match='KittiDatasetSemi'):
+    from virconv_tpu_torch.datasets.kitti.kitti_dataset_semi import \
+        KittiDatasetSemi
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    cfg = virconv_s_config()
+    cfg.DATA_CONFIG.DATASET = 'KittiDatasetUnknown'
+    with pytest.raises(NotImplementedError, match='KittiDatasetUnknown'):
         build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1)
+    root = write_tree(tmp_path / 'kitti', 'mini', frames=3, seed=0,
+                      n_train=2, n_semi=1)
+    cfg = virconv_s_config()
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    dataset, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1,
+                                       training=True)
+    assert isinstance(dataset, KittiDatasetSemi)
+    assert {s[0] for s in dataset.sample_id_list} == {'training', 'semi'}
+    batches = list(loader)
+    assert len(batches) == 3
+    assert all(b['gt_valid'].any() for b, _ in batches)
 
 
 # ---------------------------------------------------- tree, infos, loader ---

@@ -1,10 +1,10 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points refuse a missing CUDA device instead of falling back, its
-shipped config equals the YAML, flax weights carry across by name at the
-full VirConv-T width, the serving entry point runs end to end on the CPU
-when asked to, the CUDA build digest covers every header a source
-includes, and each kernel wrapper's limits are the ones its ``.cu`` file
-declares."""
+shipped configs (VirConv-T, -L, -S) equal their YAML, flax weights carry
+across by name at the full VirConv-T and VirConv-L widths, the serving
+entry point runs end to end on the CPU when asked to, the CUDA build
+digest covers every header a source includes, and each kernel wrapper's
+limits are the ones its ``.cu`` file declares."""
 import functools
 import os
 import re
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from virconv_tpu_torch.ops import (_cuda, band_conv, gather_conv,
-                                   onehot_conv, roi_pool)
+                                   nmap_conv, onehot_conv, roi_pool)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'virconv_tpu_torch'
@@ -30,12 +30,17 @@ torch.set_num_threads(1)
 EVAL_MODULES = (
     'virconv_tpu_torch.ops.native', 'virconv_tpu_torch.ops.wbf',
     'virconv_tpu_torch.config', 'virconv_tpu_torch.configs.tiny',
+    'virconv_tpu_torch.configs.virconv_l',
+    'virconv_tpu_torch.configs.virconv_s',
+    'virconv_tpu_torch.utils.bench_inputs',
+    'virconv_tpu_torch.utils.reference_import',
     'virconv_tpu_torch.utils.common', 'virconv_tpu_torch.utils.metrics',
     'virconv_tpu_torch.utils.mini_kitti',
     'virconv_tpu_torch.datasets',
     'virconv_tpu_torch.datasets.dataset',
     'virconv_tpu_torch.datasets.kitti.kitti_utils',
     'virconv_tpu_torch.datasets.kitti.kitti_dataset_mm',
+    'virconv_tpu_torch.datasets.kitti.kitti_dataset_semi',
     'virconv_tpu_torch.datasets.kitti.eval',
     'virconv_tpu_torch.datasets.processor.point_feature_encoder',
     'virconv_tpu_torch.datasets.processor.data_processor',
@@ -59,7 +64,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         'virconv_tpu_torch.utils.jax_weights, '
         'virconv_tpu_torch.utils.synth_scene, '
         'virconv_tpu_torch.ops.gather_conv, '
-        'virconv_tpu_torch.ops.onehot_conv, ' + ', '.join(EVAL_MODULES)
+        'virconv_tpu_torch.ops.onehot_conv, '
+        'virconv_tpu_torch.ops.nmap_conv, ' + ', '.join(EVAL_MODULES)
         + '\n'
         "runpy.run_path('tools/test_gpu.py', run_name='imported')\n"
         "runpy.run_path('tools/train_gpu.py', run_name='imported')\n"
@@ -124,43 +130,50 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
         assert '"ok": true' not in res.stdout
 
 
-def test_config_dict_equals_yaml():
+SHIPPED = {'virconv_t': 'VirConv-T', 'virconv_l': 'VirConv-L',
+           'virconv_s': 'VirConv-S'}
+
+
+@pytest.mark.parametrize('name', sorted(SHIPPED))
+def test_config_dict_equals_yaml(name):
     from virconv_tpu.config import CfgNode as JCfg, cfg_from_yaml_file
-    from virconv_tpu_torch.config import virconv_t_config
+    from virconv_tpu_torch.config import CONFIGS
     want = cfg_from_yaml_file(
-        str(ROOT / 'tools/cfgs/models/kitti/VirConv-T.yaml'),
+        str(ROOT / f'tools/cfgs/models/kitti/{SHIPPED[name]}.yaml'),
         JCfg({'ROOT_DIR': ROOT}))
-    got = virconv_t_config()
+    got = CONFIGS[name]()
     assert set(got) == {'CLASS_NAMES', 'DATA_CONFIG', 'MODEL',
                         'OPTIMIZATION'}
     for k in got:
         assert got[k] == want[k], k
 
 
-def test_full_width_weights_carry_across():
-    """Every parameter and BN statistic of the full VirConv-T flax tree
-    lands on a port parameter of the same shape, and nothing is left
-    over."""
+@pytest.mark.parametrize('name', ['virconv_t', 'virconv_l'])
+def test_full_width_weights_carry_across(name):
+    """Every parameter and BN statistic of the full-width flax tree
+    (VirConv-T, VirConv-L) lands on a port parameter of the same shape, and
+    nothing is left over."""
     from virconv_tpu.config import CfgNode as JCfg, cfg_from_yaml_file
     from virconv_tpu.models.detectors.voxel_rcnn import VoxelRCNN as JRCNN
-    from virconv_tpu_torch.config import virconv_t_config
+    from virconv_tpu_torch.config import CONFIGS
     from virconv_tpu_torch.models.detectors.voxel_rcnn import VoxelRCNN
     from virconv_tpu_torch.utils.jax_weights import (from_jax_variables,
                                                      load_state_dict_checked)
     cfg = cfg_from_yaml_file(
-        str(ROOT / 'tools/cfgs/models/kitti/VirConv-T.yaml'),
+        str(ROOT / f'tools/cfgs/models/kitti/{SHIPPED[name]}.yaml'),
         JCfg({'ROOT_DIR': ROOT}))
     jm = JRCNN(model_cfg=cfg.MODEL, dataset_cfg=cfg.DATA_CONFIG)
     n = 4096
     pts = np.zeros((1, n, 8), np.float32)
     batch = {'points': pts, 'points_valid': np.ones((1, n), bool),
-             'points_mm': pts, 'points_mm_valid': np.ones((1, n), bool),
              'v2r': np.zeros((1, 4, 3), np.float32),
              'p2t': np.zeros((1, 4, 3), np.float32),
              'trans_params': np.zeros((1, 3), np.float32),
              'transform_param': None,
              'gt_boxes': np.zeros((1, 4, 8), np.float32),
              'gt_valid': np.zeros((1, 4), bool)}
+    if cfg.MODEL.BACKBONE_3D.get('MM', False):
+        batch.update(points_mm=pts, points_mm_valid=np.ones((1, n), bool))
     shapes = jax.eval_shape(
         functools.partial(jm.init, train=True),
         {k: jax.random.PRNGKey(i) for i, k in
@@ -169,12 +182,20 @@ def test_full_width_weights_carry_across():
     variables = {c: jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32),
         shapes[c]) for c in ('params', 'batch_stats')}
-    c = virconv_t_config()
+    c = CONFIGS[name]()
     model = VoxelRCNN(c.MODEL, c.DATA_CONFIG)
     load_state_dict_checked(model, from_jax_variables(variables))
-    w = variables['params']['backbone']['lidar']['conv1']['kernel']
-    assert torch.equal(model.backbone.lidar.conv1.kernel,
-                       torch.from_numpy(w))
+    bb = variables['params']['backbone']
+    spots = [(bb['mm']['vir_conv2']['down']['kernel'],
+              model.backbone.mm.vir_conv2.down.kernel)]
+    if name == 'virconv_t':
+        spots.append((bb['lidar']['conv1']['kernel'],
+                      model.backbone.lidar.conv1.kernel))
+    else:
+        spots.append((bb['conv_out']['kernel'],
+                      model.backbone.conv_out.kernel))
+    for w, p in spots:
+        assert torch.equal(p, torch.from_numpy(w))
 
 
 def _tiny_detector_cfg():
@@ -260,7 +281,8 @@ def _cuda_name(py_name):
 
 @pytest.mark.parametrize('module,source', [
     (band_conv, 'band_conv'), (roi_pool, 'roi_pool'),
-    (gather_conv, 'gather_conv'), (onehot_conv, 'gather_conv')])
+    (gather_conv, 'gather_conv'), (onehot_conv, 'gather_conv'),
+    (nmap_conv, 'gather_conv')])
 def test_wrapper_limits_match_kernel_constexprs(module, source):
     limits = {n: getattr(module, n) for n in dir(module)
               if re.fullmatch(r'([A-Z]+_)?MAX_[A-Z_]+', n)}

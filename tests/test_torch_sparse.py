@@ -148,6 +148,22 @@ def test_subm_band_plan_and_patch_match_jax():
     assert jp[4] == tp[4]
 
 
+def test_sized_patch_holds_every_bad_row():
+    """The port's patch without a cap: exactly the rows of non-fitting
+    tiles, in row order, with the JAX package's neighbor map of each."""
+    rng = np.random.default_rng(4)
+    st = make_random_sparse(rng, 2, (6, 24, 20), 700, 768, 4)
+    jplan, jkeys = jsp.subm_band_plan(st, 3, tile=32, block=32)
+    tplan, tkeys = tsp.subm_band_plan(to_torch_st(st), 3, tile=32, block=32)
+    jidx, jvalid, jnmap, jcnt, _ = jsp._band_patch(
+        jplan, lambda qk: jsp.lookup(jkeys, qk), patch_cap=tplan.n_out)
+    jvalid = np.asarray(jvalid)
+    assert 0 < int(jcnt) == jvalid.sum()
+    idx, nmap = tsp._sized_patch(tplan, lambda qk: tsp.lookup(tkeys, qk))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx)[jvalid])
+    np.testing.assert_array_equal(nmap.numpy(), np.asarray(jnmap)[jvalid])
+
+
 @pytest.mark.parametrize('padding,ksize', [((1, 1, 1), (3, 3, 3)),
                                            ((0, 1, 1), (3, 3, 3)),
                                            ((0, 0, 0), (3, 1, 1))])
@@ -208,3 +224,38 @@ def test_gathered_conv_and_to_dense_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     np.testing.assert_array_equal(tsp.to_dense(tst).numpy(),
                                   np.asarray(jsp.to_dense(st)))
+
+
+def test_voxel_sums_are_sequential_in_point_order():
+    """Each voxel's feature sum is its first MAX_POINTS_PER_VOXEL points
+    added one after another in input order (what a sequential
+    ``index_add_`` gives), with no atomics, so the means are the same bits
+    on every run and device: crowded voxels (points on a 1 m lattice at
+    0.1 m voxels) and a voxel cap that binds."""
+    rng = np.random.default_rng(5)
+    n, cap, per = 6000, 512, 5
+    pts = rng.uniform([0, -8, -3, 0, 0, 0, 0, 1],
+                      [16, 8, 1, 1, 1, 1, 1, 2.01], (n, 8)).astype(np.float32)
+    pts[:, :3] = np.round(pts[:, :3]) + np.float32(0.05)
+    mask = np.ones(n, bool)
+    mask[-100:] = False
+    st = tsp.voxelize(torch.from_numpy(pts), torch.from_numpy(mask),
+                      (0, -8, -3, 16, 8, 1), (0.1, 0.1, 0.1), cap, per)
+    vox = np.floor((pts[:, :3] - np.float32([0, -8, -3]))
+                   / np.float32(0.1)).astype(np.int64)
+    want = {}
+    for i in np.nonzero(mask)[0]:
+        key = (vox[i, 2], vox[i, 1], vox[i, 0])
+        acc = want.setdefault(key, [np.zeros(8, np.float32), 0])
+        if acc[1] < per:
+            acc[0] = acc[0] + pts[i]
+            acc[1] += 1
+    coords = st.coords.numpy()
+    assert int(st.mask.sum()) == cap < len(want)
+    crowded = 0
+    for row in np.nonzero(st.mask.numpy())[0]:
+        s, k = want[tuple(coords[row, 1:])]
+        crowded += k == per
+        np.testing.assert_array_equal(st.feats.numpy()[row],
+                                      s / np.float32(k))
+    assert crowded > 50

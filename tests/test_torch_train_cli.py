@@ -161,3 +161,80 @@ def test_cli_refuses_missing_cuda(tree, cli, tmp_path):
     args, _ = cli.parse_args([])
     assert args.device == 'cuda' and args.cfg == 'virconv_t'
     assert args.max_ckpt_save_num == 30 and args.log_interval == 50
+
+
+def test_cli_fine_tunes_s_from_a_t_checkpoint_on_cpu(tmp_path, monkeypatch):
+    """VirConv-S's recipe at the tiny widths: ``KittiDatasetSemi`` over the
+    ``trainsemi`` split of a tree with 2 train and 1 semi frames, the
+    weights of a T checkpoint through ``--pretrained_model``, one epoch in
+    batches of 1: the trainer starts from the checkpoint's weights, takes
+    one step per frame with finite losses, and reads frames from both
+    ``training/`` and ``semi/``."""
+    import train_gpu
+    from virconv_tpu_torch.configs.tiny import tiny_train_config
+    from virconv_tpu_torch.datasets.kitti.kitti_dataset_semi import \
+        KittiDatasetSemi
+    from virconv_tpu_torch.models.detectors.voxel_rcnn import VoxelRCNN
+    from virconv_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from virconv_tpu_torch.utils.jax_weights import random_init_
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    root = write_tree(tmp_path / 'kitti', 'mini', frames=3, seed=3,
+                      n_train=2, n_semi=1)
+    t_cfg = tiny_train_config(root)
+    s_cfg = tiny_train_config(root)
+    d = s_cfg.DATA_CONFIG
+    d.DATASET = 'KittiDatasetSemi'
+    d.DATA_SPLIT.train = 'trainsemi'
+    d.INFO_PATH.train = ['kitti_infos_trainsemi.pkl']
+    t_ckpt = save_checkpoint(tmp_path / 't', random_init_(VoxelRCNN(
+        t_cfg.MODEL, t_cfg.DATA_CONFIG), 4).state_dict(), 60)
+    monkeypatch.setitem(train_gpu.CONFIGS, 'tiny_s', lambda: s_cfg)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    roots = []
+    frame_root = KittiDatasetSemi.frame_root
+
+    def recording(self, info):
+        root = frame_root(self, info)
+        roots.append(root.name)
+        return root
+    monkeypatch.setattr(KittiDatasetSemi, 'frame_root', recording)
+    start = {}
+
+    def on_start(trainer, start_epoch, resumed_from):
+        want = load_checkpoint(t_ckpt)['model_state']
+        start['equal'] = all(torch.equal(v, want[k]) for k, v in
+                             trainer.model.state_dict().items())
+        start['resumed_from'] = resumed_from
+    run = train_gpu.main(['--cfg', 'tiny_s', '--batch_size', '1',
+                          '--epochs', '1', '--no_eval', '--device', 'cpu',
+                          '--pretrained_model', str(t_ckpt),
+                          '--output_dir', str(tmp_path / 'run')],
+                         on_start=on_start)
+    assert start == {'equal': True, 'resumed_from': None}
+    assert len(run.steps) == 3 and run.frames == 3
+    assert all(np.isfinite(s['loss']) and s['nonfinite_skips'] == 0
+               for s in run.steps)
+    assert {'training', 'semi'} <= set(roots)
+
+
+def test_cli_trains_and_evaluates_l_on_cpu(tmp_path, monkeypatch):
+    """VirConv-L's structure at the tiny widths through the CLI: the
+    single-stream loader, one epoch (2 frames in batches of 1), then the
+    evaluation of the last checkpoint on the val frame."""
+    import train_gpu
+    from virconv_tpu_torch.configs.tiny import tiny_l_train_config
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    root = write_tree(tmp_path / 'kitti', 'mini', frames=3, seed=3,
+                      n_train=2)
+    cfg = tiny_l_train_config(root)
+    monkeypatch.setitem(train_gpu.CONFIGS, 'tiny_l', lambda: cfg)
+    monkeypatch.setitem(sys.modules, 'torch.utils.tensorboard', None)
+    run = train_gpu.main(['--cfg', 'tiny_l', '--batch_size', '1',
+                          '--epochs', '1', '--device', 'cpu',
+                          '--output_dir', str(tmp_path / 'run')])
+    assert not run.trainer.model.is_mm
+    assert [s['step'] for s in run.steps] == [1, 2]
+    assert all(np.isfinite(s['loss']) for s in run.steps)
+    assert run.eval is not None and run.eval.frames == 1
+    assert len(run.eval.result_dict) == 9

@@ -4,7 +4,8 @@ The counterpart of ``tools/test.py``: evaluate one checkpoint (``--ckpt``)
 or poll a directory for ``checkpoint_epoch_*.pth`` (``--eval_all``), write
 KITTI-format prediction files (``--save_to_file``), log the recalls and
 sec/example, and run the official AP(R40) metric. Runs on CUDA unless
-``--device cpu`` is passed.
+``--device cpu`` is passed. ``--cfg`` is one of the shipped configurations
+(``virconv_t``, ``virconv_l``, ``virconv_s``).
 
     python tools/test_gpu.py --cfg virconv_t --ckpt <file>.pth \\
         --set DATA_CONFIG.DATA_PATH <kitti tree>

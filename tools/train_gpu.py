@@ -16,7 +16,10 @@ saved epoch; the step's random draws depend on (seed, step) only, so they
 continue as in an uninterrupted run. The loader's augmentation state
 (its numpy ``RandomState``) is not saved, as the JAX CLI does not save
 numpy's, so a resumed run augments differently from an uninterrupted one.
-``--pretrained_model`` loads a port checkpoint's weights only.
+``--pretrained_model`` loads a port checkpoint's weights only: VirConv-S
+(``--cfg virconv_s``, the semi dataset's ``trainsemi`` split) fine-tunes
+from a VirConv-T checkpoint that way. ``--cfg`` is one of the shipped
+configurations (``virconv_t``, ``virconv_l``, ``virconv_s``).
 
     python tools/train_gpu.py --cfg virconv_t \\
         --set DATA_CONFIG.DATA_PATH <kitti tree>

@@ -1,8 +1,9 @@
-"""Attribute-access config nodes and the shipped VirConv-T configuration.
+"""Attribute-access config nodes and the shipped configurations.
 
-The JAX package loads its configs from YAML. The port ships the one
-configuration its main path runs as a Python dict
-(``configs/virconv_t.py``), so it needs no YAML parser: ``merge_new_config``
+The JAX package loads its configs from YAML. The port ships the three
+published ones as Python dicts (``configs/virconv_t.py``,
+``configs/virconv_l.py``, ``configs/virconv_s.py``), so it needs no YAML
+parser: ``merge_new_config``
 merges a dict over a config and ``cfg_from_list`` applies the CLI's
 ``--set KEY VALUE`` overrides with a literal parser of its own.
 """
@@ -59,8 +60,22 @@ def virconv_t_config() -> CfgNode:
     return CfgNode(copy.deepcopy(VIRCONV_T))
 
 
+def virconv_l_config() -> CfgNode:
+    """A fresh copy of the VirConv-L config."""
+    from .configs.virconv_l import VIRCONV_L
+    return CfgNode(copy.deepcopy(VIRCONV_L))
+
+
+def virconv_s_config() -> CfgNode:
+    """A fresh copy of the VirConv-S config (VirConv-T on the semi
+    dataset)."""
+    from .configs.virconv_s import VIRCONV_S
+    return CfgNode(copy.deepcopy(VIRCONV_S))
+
+
 # the shipped configurations by the name the command lines take
-CONFIGS = {'virconv_t': virconv_t_config}
+CONFIGS = {'virconv_t': virconv_t_config, 'virconv_l': virconv_l_config,
+           'virconv_s': virconv_s_config}
 
 
 def merge_new_config(config, new_config):

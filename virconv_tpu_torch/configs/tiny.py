@@ -1,22 +1,23 @@
-"""The tiny configuration: VirConv-T's graph at a few narrow layers.
+"""The tiny configurations: VirConv-T's and VirConv-L's graphs at a few
+narrow layers.
 
 The detector of the JAX package's model tests (``tests/test_model_forward.
 py::tiny_cfg``: a 16 x 16 x 4 m range at 0.1 m voxels, 8-32 channels, ROT_NUM
 2) over VirConv-T's data config, for comparing the CUDA kernels with their
-plain versions on a whole model (``chip_smoke.py`` phases 4, 7, 9b and
-10b, ``tests/test_torch_cuda.py``), and for training and evaluating on the
-CPU in the tests.
+plain versions on a whole model (``chip_smoke.py`` phases 4, 7, 9b, 10b and
+11d, ``tests/test_torch_cuda.py``), and for training and evaluating on the
+CPU in the tests. ``tiny_l_config`` is VirConv-L's structure (the fused
+single stream, one refinement stage, no PART, no test-time replicas) at
+the same widths (``tiny_cfg(mm=False)``'s).
 """
 
 from __future__ import annotations
 
-from ..config import virconv_t_config
+from ..config import virconv_l_config, virconv_t_config
 
 
-def tiny_config():
-    """The tiny detector of the JAX package's model tests (a few layers,
-    narrow widths, a 16 x 16 x 4 m range at 0.1 m voxels)."""
-    cfg = virconv_t_config()
+def _shrink(cfg):
+    """The tiny widths and range, in place, on a shipped config."""
     m, d = cfg.MODEL, cfg.DATA_CONFIG
     d.POINT_CLOUD_RANGE = [0, -8, -3, 16, 8, 1]
     proc = d.DATA_PROCESSOR[2]
@@ -29,10 +30,6 @@ def tiny_config():
     b2.LAYER_NUMS, b2.NUM_FILTERS = [2, 2], [32, 64]
     b2.NUM_UPSAMPLE_FILTERS = [32, 32]
     rh = m.ROI_HEAD
-    rh.ROT_NUM = 2
-    rh.PART.IN_CHANNEL = 64
-    rh.PART.GRID_OFFSETS = [0., 8.]
-    rh.PART.FEATMAP_STRIDE = 0.8
     rh.SHARED_FC = rh.CLS_FC = rh.REG_FC = [64, 64]
     rh.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE = 128
     rh.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 32
@@ -47,11 +44,30 @@ def tiny_config():
     return cfg
 
 
-def tiny_eval_config(data_path):
-    """``tiny_config()`` reading the KITTI tree at ``data_path`` (a
-    ``utils/mini_kitti`` tree), with the loader's ROT_NUM the ROI head's and
-    a score threshold of 0.3, which leaves random weights detections."""
-    cfg = tiny_config()
+def tiny_config():
+    """The tiny detector of the JAX package's model tests (a few layers,
+    narrow widths, a 16 x 16 x 4 m range at 0.1 m voxels)."""
+    cfg = _shrink(virconv_t_config())
+    rh = cfg.MODEL.ROI_HEAD
+    rh.ROT_NUM = 2
+    rh.PART.IN_CHANNEL = 64
+    rh.PART.GRID_OFFSETS = [0., 8.]
+    rh.PART.FEATMAP_STRIDE = 0.8
+    return cfg
+
+
+def tiny_l_config():
+    """VirConv-L's structure at the tiny widths: ``VirConvL8x`` over the
+    fused stream, ROT_NUM 1 with one target stage, no PART, no X_TRANS."""
+    return _shrink(virconv_l_config())
+
+
+def tiny_eval_config(data_path, base=tiny_config):
+    """``base()`` (the tiny T or L config) reading the KITTI tree at
+    ``data_path`` (a ``utils/mini_kitti`` tree), with the loader's ROT_NUM
+    the ROI head's and a score threshold of 0.3, which leaves random
+    weights detections."""
+    cfg = base()
     d = cfg.DATA_CONFIG
     d.DATA_PATH = str(data_path)
     d.ROT_NUM = cfg.MODEL.ROI_HEAD.ROT_NUM
@@ -60,13 +76,13 @@ def tiny_eval_config(data_path):
     return cfg
 
 
-def tiny_train_config(data_path=None):
-    """``tiny_config()`` with training sizes: NMS 128 -> 32 proposals and
-    32 sampled ROIs per image per stage. With ``data_path``, the data
-    settings of ``tiny_eval_config(data_path)`` (the loader's KITTI
-    tree)."""
-    cfg = tiny_config() if data_path is None else \
-        tiny_eval_config(data_path)
+def tiny_train_config(data_path=None, base=tiny_config):
+    """``base()`` (the tiny T or L config) with training sizes: NMS 128 ->
+    32 proposals and 32 sampled ROIs per image per stage. With
+    ``data_path``, the data settings of ``tiny_eval_config(data_path)``
+    (the loader's KITTI tree)."""
+    cfg = base() if data_path is None else \
+        tiny_eval_config(data_path, base)
     rh = cfg.MODEL.ROI_HEAD
     rh.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
     rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 32
@@ -74,3 +90,8 @@ def tiny_train_config(data_path=None):
         if isinstance(stage, dict) and 'ROI_PER_IMAGE' in stage:
             stage.ROI_PER_IMAGE = 32
     return cfg
+
+
+def tiny_l_train_config(data_path=None):
+    """``tiny_train_config`` of the tiny L config."""
+    return tiny_train_config(data_path, tiny_l_config)

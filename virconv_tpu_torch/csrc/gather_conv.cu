@@ -41,6 +41,11 @@
 // input channels at a time. The caller picks the mode
 // (ops/gather_conv.py::kernel_mode); the entry points refuse any other.
 //
+// The exact conv from a neighbor map (nmap_conv_fwd: the band conv's gather
+// patch and its neighbor-map branch, ops/nmap_conv.py) is K5 with one
+// window over every feature row: n_out output rows, each neighbor index of
+// the n_in feature rows counts, and an index at or past n_in is a miss.
+//
 // All kernels count misses per row tile in shared memory and add them with
 // integer atomics (the same counts on every run).
 //
@@ -92,7 +97,8 @@ __device__ __forceinline__ int window_source(const int* __restrict__ nmap,
     lo = lo < 0 ? 0 : (lo > w.base_max ? w.base_max : lo);
     len = w.span;
   }
-  if (idx >= lo && idx < lo + len) return idx < n_feat ? idx : -1;
+  if (idx >= lo && idx < lo + len)
+    return kOneHot && idx >= n_feat ? -1 : idx;   // K5's windows end at n
   atomicAdd(&miss_s[t - tile0], 1);
   return -1;
 }
@@ -381,6 +387,28 @@ extern "C" int gather_conv_fwd(const float* feats, const int* nmap,
   w.base_max = n - w.span;
   return launch<false, false>(feats, nmap, w, weights, n, c_in, c_out,
                               n_taps, tile, mode, wprep, out, misses,
+                              stream);
+}
+
+extern "C" int nmap_conv_fwd(const float* feats, const int* nmap,
+                             const float* weights, int n_out, int n_in,
+                             int c_in, int c_out, int n_taps, int mode,
+                             void* wprep, float* out, int* misses,
+                             cudaStream_t stream) {
+  // feats (n_in, c_in), nmap (n_out, n_taps) of feature rows (-1 =
+  // missing), weights (n_taps, c_in, c_out); out (n_out, c_out); misses
+  // (1,) zeroed by the caller counts indices at or past n_in; wprep holds
+  // gather_conv_scratch_bytes bytes; mode as gather_conv_fwd's.
+  if (n_taps < 1 || n_taps > kMaxTaps || c_out < 1 || n_out < 0 ||
+      n_in < 0 || mode != mode_of(c_in, c_out))
+    return -1;
+  if (n_out == 0) return 0;
+  Window w{};   // one row tile of n_out rows, its window [0, n_in)
+  w.window = 0;
+  w.span = n_in;
+  w.base_max = 0;
+  return launch<false, false>(feats, nmap, w, weights, n_out, c_in, c_out,
+                              n_taps, n_out, mode, wprep, out, misses,
                               stream);
 }
 

@@ -20,10 +20,12 @@ import numpy as np
 
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset_mm import KittiDatasetMM
+from .kitti.kitti_dataset_semi import KittiDatasetSemi
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
     'KittiDatasetMM': KittiDatasetMM,
+    'KittiDatasetSemi': KittiDatasetSemi,
 }
 
 
@@ -136,7 +138,7 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None,
     if dataset_cfg.DATASET not in __all__:
         raise NotImplementedError(
             f'dataset {dataset_cfg.DATASET!r} is not ported (registered: '
-            f'{sorted(__all__)}); KittiDatasetSemi comes with VirConv-S')
+            f'{sorted(__all__)})')
     dataset = __all__[dataset_cfg.DATASET](
         dataset_cfg=dataset_cfg, class_names=class_names,
         root_path=root_path, logger=logger, seed=seed, training=training)

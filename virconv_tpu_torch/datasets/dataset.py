@@ -41,6 +41,56 @@ VIRTUAL, LIDAR = 1, 2        # indicator column of the fused cloud
 SCENE_X = 70.4               # the scene swap's x extent (m)
 
 
+def partition(points, num=10, max_dis=60, rate=0.2):
+    """Split points into ``num`` distance bins along x, farthest first;
+    find the bin below which subsampling is needed to keep ``rate`` of the
+    points. Returns (bins, position, points in the far bins)."""
+    inter = max_dis / num
+    all_num = max(points.shape[0], 1)
+    points_list = []
+    acc = 0
+    position = num - 1
+    distant_acc = 0
+    for j in range(num):
+        i = num - j - 1
+        if i == num - 1:
+            mask = points[:, 0] >= inter * i
+        else:
+            mask = (points[:, 0] >= inter * i) & \
+                   (points[:, 0] < inter * (i + 1))
+        this = points[mask]
+        acc += this.shape[0]
+        if (acc + i * this.shape[0]) / all_num < rate:
+            position = i
+            distant_acc = acc
+        points_list.append(this)
+    return points_list, max(position, 0), distant_acc
+
+
+def input_point_discard(points, rng, bin_num=2, rate=0.8):
+    """Bin-wise stochastic discard of ``rate`` of the points that keeps the
+    distant bins whole (StVD); the permutations come from the
+    ``RandomState`` ``rng``."""
+    retain = 1 - rate
+    parts, pos, distant_acc = partition(points, num=bin_num, rate=retain)
+    out_num = int(points.shape[0] * retain)
+    per_bin = int((out_num - distant_acc) / (pos + 1e-4))
+    for i in range(len(parts) - pos, len(parts)):
+        if parts[i].shape[0] > per_bin and per_bin >= 0:
+            sel = rng.permutation(parts[i].shape[0])[:per_bin]
+            parts[i] = parts[i][sel]
+    return np.concatenate(parts) if parts else points
+
+
+def fuse_streams(points, points_mm):
+    """The one stream of ``LATER_FUSION`` False: the LiDAR points first,
+    then the kept virtual points, with the intensity column divided by
+    10."""
+    final = np.concatenate([points, points_mm])
+    final[:, 3] /= 10
+    return final
+
+
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=False,
                  root_path=None, logger=None, seed=0):
@@ -76,45 +126,11 @@ class DatasetTemplate:
         return 'train' if self.training else 'test'
 
     # --------------------------------------------------------- StVD ---------
-    @staticmethod
-    def partition(points, num=10, max_dis=60, rate=0.2):
-        """Split points into ``num`` distance bins along x, farthest first;
-        find the bin below which subsampling is needed to keep ``rate`` of
-        the points. Returns (bins, position, points in the far bins)."""
-        inter = max_dis / num
-        all_num = max(points.shape[0], 1)
-        points_list = []
-        acc = 0
-        position = num - 1
-        distant_acc = 0
-        for j in range(num):
-            i = num - j - 1
-            if i == num - 1:
-                mask = points[:, 0] >= inter * i
-            else:
-                mask = (points[:, 0] >= inter * i) & \
-                       (points[:, 0] < inter * (i + 1))
-            this = points[mask]
-            acc += this.shape[0]
-            if (acc + i * this.shape[0]) / all_num < rate:
-                position = i
-                distant_acc = acc
-            points_list.append(this)
-        return points_list, max(position, 0), distant_acc
-
     def input_point_discard(self, points, bin_num=2, rate=0.8):
         """Bin-wise stochastic discard of ``rate`` of the points that keeps
-        the distant bins whole (StVD)."""
-        retain = 1 - rate
-        parts, pos, distant_acc = self.partition(points, num=bin_num,
-                                                 rate=retain)
-        out_num = int(points.shape[0] * retain)
-        per_bin = int((out_num - distant_acc) / (pos + 1e-4))
-        for i in range(len(parts) - pos, len(parts)):
-            if parts[i].shape[0] > per_bin and per_bin >= 0:
-                sel = self.rng.permutation(parts[i].shape[0])[:per_bin]
-                parts[i] = parts[i][sel]
-        return np.concatenate(parts) if parts else points
+        the distant bins whole (StVD), drawing from the dataset's
+        ``RandomState``."""
+        return input_point_discard(points, self.rng, bin_num, rate)
 
     # ------------------------------------------------------ pipeline --------
     def scene_swap(self, data_dict, sid=''):
@@ -171,10 +187,7 @@ class DatasetTemplate:
                 data_dict['points_mm' + sid] = points_mm
                 data_dict['points' + sid] = points
             else:
-                # one fused stream, LiDAR first, intensity rescaled
-                final = np.concatenate([points, points_mm])
-                final[:, 3] /= 10
-                data_dict['points' + sid] = final
+                data_dict['points' + sid] = fuse_streams(points, points_mm)
         if not later_fusion:
             data_dict.pop('mm', None)
 

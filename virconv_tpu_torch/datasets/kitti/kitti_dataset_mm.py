@@ -81,12 +81,17 @@ class KittiDatasetMM(DatasetTemplate):
                                if x.strip()] if split_file.exists() else None
 
     # ------------------------------------------------------- raw access -----
+    def frame_root(self, info):
+        """The directory that holds the raw data of ``info``'s frame."""
+        return self.root_split_path
+
     def get_lidar(self, idx):
         f = self.root_split_path / 'velodyne' / f'{idx}.bin'
         return np.fromfile(str(f), dtype=np.float32).reshape(-1, 4)
 
-    def get_lidar_mm(self, idx):
-        f = self.root_split_path / self.dataset_cfg.MM_PATH / f'{idx}.npy'
+    def get_lidar_mm(self, idx, root=None):
+        root = self.root_split_path if root is None else root
+        f = root / self.dataset_cfg.MM_PATH / f'{idx}.npy'
         return np.load(f).astype(np.float32)
 
     def get_image_shape(self, idx):
@@ -96,11 +101,13 @@ class KittiDatasetMM(DatasetTemplate):
         f = self.root_split_path / 'label_2' / f'{idx}.txt'
         return kitti_utils.get_objects_from_label(f)
 
-    def get_calib(self, idx):
-        return Calibration(self.root_split_path / 'calib' / f'{idx}.txt')
+    def get_calib(self, idx, root=None):
+        root = self.root_split_path if root is None else root
+        return Calibration(root / 'calib' / f'{idx}.txt')
 
-    def get_road_plane(self, idx):
-        f = self.root_split_path / 'planes' / f'{idx}.txt'
+    def get_road_plane(self, idx, root=None):
+        root = self.root_split_path if root is None else root
+        f = root / 'planes' / f'{idx}.txt'
         if not f.exists():
             return None
         with open(f, 'r') as fh:
@@ -305,8 +312,9 @@ class KittiDatasetMM(DatasetTemplate):
     def __getitem__(self, index):
         info = copy.deepcopy(self.kitti_infos[index])
         sample_idx = info['point_cloud']['lidar_idx']
-        points = self.get_lidar_mm(sample_idx)
-        calib = self.get_calib(sample_idx)
+        root = self.frame_root(info)
+        points = self.get_lidar_mm(sample_idx, root)
+        calib = self.get_calib(sample_idx, root)
         img_shape = info['image']['image_shape']
         if self.dataset_cfg.FOV_POINTS_ONLY:
             pts_rect = calib.lidar_to_rect(points[:, 0:3])
@@ -331,7 +339,7 @@ class KittiDatasetMM(DatasetTemplate):
                 gt_names, gt_boxes = gt_names[nmask], gt_boxes[nmask]
             input_dict['gt_names'] = gt_names
             input_dict['gt_boxes'] = gt_boxes
-            plane = self.get_road_plane(sample_idx)
+            plane = self.get_road_plane(sample_idx, root)
             if plane is not None:
                 input_dict['road_plane'] = plane
 

@@ -1,6 +1,6 @@
-"""VirConv 3D backbones: NRConv blocks, the LiDAR stack and the
-dual-stream VirConv8x of VirConv-T. Counterpart of
-``virconv_tpu/models/backbones_3d/virconv.py``.
+"""VirConv 3D backbones: NRConv blocks, the LiDAR stack, the dual-stream
+VirConv8x of VirConv-T/S and the single fused-stream VirConvL8x of
+VirConv-L. Counterpart of ``virconv_tpu/models/backbones_3d/virconv.py``.
 
 Transform replicas ride the batch axis (entry = b * rot_num + i). At eval
 every sparse conv runs through the band-window kernel (ops/band_conv.py),
@@ -172,15 +172,18 @@ class LidarStack(nn.Module):
 
 class NRConvStack(nn.Module):
     """Four NRConv blocks; in train mode StVD drops ``layer_discard_rate``
-    of the voxels of the input and of each block's output but the last."""
+    of the voxels of each block's output but the last, and of the input
+    too when ``discard_input``."""
 
     def __init__(self, in_channels: int, num_filters=(16, 32, 64, 64),
                  voxel_size=(0.05, 0.05, 0.05),
                  point_cloud_range=(0, -40, -3, 70.4, 40, 1),
-                 layer_discard_rate: float = 0.15):
+                 layer_discard_rate: float = 0.15,
+                 discard_input: bool = True):
         super().__init__()
         nf = tuple(num_filters)
         self.layer_discard_rate = layer_discard_rate
+        self.discard_input = discard_input
         kw = dict(voxel_size=voxel_size, point_cloud_range=point_cloud_range)
         self.vir_conv1 = NRConvBlock(in_channels, nf[0], stride=1, **kw)
         self.vir_conv2 = NRConvBlock(nf[0], nf[1], stride=2, **kw)
@@ -197,7 +200,8 @@ class NRConvStack(nn.Module):
             u = rng.uniform((t.capacity,), t.feats.device)
             return layer_voxel_discard(t, self.layer_discard_rate, u)
 
-        st = discard(st)
+        if self.discard_input:
+            st = discard(st)
         n0 = st.capacity
         x1 = self.vir_conv1(st, v2r, p2t, trans_params, 1, None, bf16)
         x2 = self.vir_conv2(discard(x1), v2r, p2t, trans_params, 2,
@@ -230,5 +234,36 @@ class VirConv8x(nn.Module):
                                              'x_conv4')},
                 'multi_scale_3d_features_mm': mm,
                 'encoded_spconv_tensor': lidar['out'],
+                'multi_scale_3d_strides': {'x_conv1': 1, 'x_conv2': 2,
+                                           'x_conv3': 4, 'x_conv4': 8}}
+
+
+class VirConvL8x(nn.Module):
+    """Single fused-stream backbone (VirConv-L): an NRConv stack over the
+    real + virtual voxels with their RGB channels zeroed and no input StVD,
+    then its own K=3 ``conv_out`` on ``x_conv4``."""
+
+    def __init__(self, in_channels: int, num_filters=(16, 32, 64, 64),
+                 out_features: int = 64, voxel_size=(0.05, 0.05, 0.05),
+                 point_cloud_range=(0, -40, -3, 70.4, 40, 1),
+                 layer_discard_rate: float = 0.1):
+        super().__init__()
+        nf = tuple(num_filters)
+        self.mm = NRConvStack(in_channels, nf, voxel_size,
+                              point_cloud_range, layer_discard_rate,
+                              discard_input=False)
+        self.conv_out = SparseDownBlock(
+            nf[3], out_features, kernel_size=(3, 1, 1), stride=(2, 1, 1),
+            padding=(0, 0, 0))
+
+    def forward(self, st, v2r, p2t, trans_params, bf16: bool = True,
+                rng=None):
+        feats = st.feats.clone()
+        feats[:, 4:7] = 0.0
+        mm = self.mm(st.replace(feats=feats), v2r, p2t, trans_params, bf16,
+                     rng)
+        return {'multi_scale_3d_features': mm,
+                'encoded_spconv_tensor': self.conv_out(mm['x_conv4'], None,
+                                                       bf16),
                 'multi_scale_3d_strides': {'x_conv1': 1, 'x_conv2': 2,
                                            'x_conv3': 4, 'x_conv4': 8}}

@@ -1,17 +1,22 @@
-"""VoxelRCNN: voxelize -> VirConv8x -> BEV -> RPN -> TED head, at eval and
-in train mode (``.train()``: the loss of one step). Counterpart of
+"""VoxelRCNN: voxelize -> VirConv8x (VirConv-T/S) or VirConvL8x
+(VirConv-L) -> BEV -> RPN -> TED head, at eval and in train mode
+(``.train()``: the loss of one step). Counterpart of
 ``virconv_tpu/models/detectors/voxel_rcnn.py``.
 
 Batch (tensors on one device):
-    points        (B*R, P, 8)  float32   LiDAR stream
+    points        (B*R, P, 8)  float32   LiDAR stream (T/S) or the fused
+                                         real + virtual stream (L)
     points_valid  (B*R, P)     bool
-    points_mm / points_mm_valid           fused real + virtual stream
+    points_mm / points_mm_valid           fused real + virtual stream (T/S
+                                          only)
     v2r, p2t      (B*R, 4, 3)  float32   calibration matrices
     trans_params  (B*R, 3) | None         world transform of each entry
     transform_param (B, R, 3) | None      test-time replica params
     gt_boxes (B*R, M, 8), gt_valid (B*R, M)   train only
 Transform replicas ride the batch axis (entry = b * R + i). A training batch
-has ``transform_param`` None: each entry is its own sample.
+has ``transform_param`` None: each entry is its own sample. With the
+single-stream backbone both ROI pool families read the one NRConv stream,
+each with its own weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from torch.profiler import record_function
 from ...config import CfgNode
 from ...ops import sparse as sp
 from ..backbones_2d.bev import BaseBEVBackbone, height_compression
-from ..backbones_3d.virconv import VirConv8x
+from ..backbones_3d.virconv import VirConv8x, VirConvL8x
 from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..roi_heads.ted_head import TEDMHead
 
@@ -49,13 +54,15 @@ class VoxelRCNN(nn.Module):
         n_point_features = enc.get('num_features', 8)
 
         bcfg = mcfg.BACKBONE_3D
-        if bcfg.NAME != 'VirConv8x' or not bcfg.get('MM', False):
-            raise NotImplementedError(
-                f'{bcfg.NAME}: the port runs the VirConv-T backbone only')
+        self.is_mm = bcfg.get('MM', False)
         nf = tuple(bcfg.NUM_FILTERS)
-        self.backbone = VirConv8x(n_point_features, nf, bcfg.OUT_FEATURES,
-                                  self.voxel_size, self.pcr,
-                                  bcfg.LAYER_DISCARD_RATE)
+        backbones = {'VirConv8x': VirConv8x, 'VirConvL8x': VirConvL8x}
+        if bcfg.NAME not in backbones or \
+                (bcfg.NAME == 'VirConv8x') != bool(self.is_mm):
+            raise NotImplementedError(f'{bcfg.NAME} with MM {self.is_mm}')
+        self.backbone = backbones[bcfg.NAME](
+            n_point_features, nf, bcfg.OUT_FEATURES, self.voxel_size,
+            self.pcr, bcfg.LAYER_DISCARD_RATE)
         b2 = mcfg.BACKBONE_2D
         self.bev_backbone = BaseBEVBackbone(
             mcfg.MAP_TO_BEV.NUM_BEV_FEATURES, b2.LAYER_NUMS,
@@ -114,13 +121,18 @@ class VoxelRCNN(nn.Module):
         with record_function('voxelize'):
             st = self.voxelize(points, batch['points_valid'], n_entries,
                                self.indicator_max, mode)
-            # the multimodal stream keeps the plain mean (no indicator max)
-            st_mm = self.voxelize(batch['points_mm'],
-                                  batch['points_mm_valid'], n_entries, False,
-                                  mode)
+            if self.is_mm:
+                # the multimodal stream keeps the plain mean (no indicator
+                # max)
+                st_mm = self.voxelize(batch['points_mm'],
+                                      batch['points_mm_valid'], n_entries,
+                                      False, mode)
         with record_function('backbone_3d'):
-            bb = self.backbone(st, st_mm, batch['v2r'], batch['p2t'],
+            streams = (st, st_mm) if self.is_mm else (st,)
+            bb = self.backbone(*streams, batch['v2r'], batch['p2t'],
                                batch.get('trans_params'), bf16, rng)
+        feats_mm = bb['multi_scale_3d_features_mm'] if self.is_mm \
+            else bb['multi_scale_3d_features']
 
         # BEV path uses replica 0 only
         enc = bb['encoded_spconv_tensor']
@@ -148,8 +160,7 @@ class VoxelRCNN(nn.Module):
                                   batch.get('gt_valid'))
         with record_function('roi_head'):
             roi_out = self.roi_head(
-                bb['multi_scale_3d_features'],
-                bb['multi_scale_3d_features_mm'],
+                bb['multi_scale_3d_features'], feats_mm,
                 bb['multi_scale_3d_strides'], rpn, bev_feats, tp, bf16,
                 batch.get('gt_boxes'), batch.get('gt_valid'), rng)
         out = {'batch_box_preds': roi_out['batch_box_preds'],

@@ -499,25 +499,18 @@ def _epilogue(out, mask, scale, bias, relu):
         out = out * scale + bias
     if relu:
         out = torch.relu(out)
-    if scale is not None:      # bias may un-zero invalid rows
+    if scale is not None and mask is not None:   # bias may un-zero them
         out = torch.where(mask[:, None], out, torch.zeros_like(out))
     return out
 
 
-BAND_PATCH_CAP = 2048
-BAND_PATCH_FRACTION = 64
-BAND_PATCH_FRACTION_STRIDED = 16
-
-
-def _band_patch(plan, lookup_fn, first_index=None, patch_cap=None,
-                fraction=None):
+def _band_patch(plan, lookup_fn, first_index=None, patch_cap=None):
     """Gather patch for rows of non-fitting band tiles: (idx, valid, pnmap,
     cnt, cap) -- up to ``cap`` row indices, their validity, a (cap, K)
-    neighbor map, the true bad-row count and the static cap."""
+    neighbor map, the true bad-row count and the cap. ``patch_cap`` None
+    sizes the patch to the bad rows (every entry valid); a number caps it
+    there, as the JAX package's static patch does."""
     n_out = plan.n_out
-    if patch_cap is None:
-        patch_cap = max(BAND_PATCH_CAP,
-                        n_out // (fraction or BAND_PATCH_FRACTION))
     k = len(plan.deltas)
     dev = plan.base_keys.device
     flat_base = plan.base_keys.reshape(-1)[:n_out]
@@ -525,7 +518,7 @@ def _band_patch(plan, lookup_fn, first_index=None, patch_cap=None,
     row_ok = ((flat_bits >> ROW_VALID_BIT) & 1) == 1
     bad = (~plan.fits).repeat_interleave(plan.tile)[:n_out] & row_ok
     cnt = bad.sum()
-    cap = min(patch_cap, n_out)
+    cap = int(cnt) if patch_cap is None else min(patch_cap, n_out)
     sel = bad.to(torch.int32) * (n_out + 1) - torch.arange(
         n_out, dtype=torch.int32, device=dev)
     idx = torch.topk(sel, cap).indices          # distinct values: exact order
@@ -543,49 +536,62 @@ def _band_patch(plan, lookup_fn, first_index=None, patch_cap=None,
     return idx, valid, pnmap, cnt, cap
 
 
+def _sized_patch(plan, lookup_fn, first_index=None):
+    """``(idx, nmap)`` of every row of the plan's non-fitting tiles, or
+    None when every tile fits. The JAX package caps its patch (a static
+    shape) and sends a context that overflows the cap to the full
+    neighbor map; the port's shapes are dynamic, so its patch holds every
+    such row and the band kernel runs on every context with sorted keys
+    (the same values)."""
+    idx, _, pnmap, _, cap = _band_patch(plan, lookup_fn, first_index)
+    return (idx, pnmap) if cap else None
+
+
 def _band_patched(feats, weights, keys, plan, patch, bf16, scale=None,
                   bias=None, relu=False):
     """Band kernel output with the rows of non-fitting tiles replaced by
-    the exact gather patch ``(pidx, pvalid, pnmap)``."""
+    the exact conv over the patch ``(idx, nmap)`` (``nmap_conv``)."""
     from .band_conv import band_conv
-    pidx, pvalid, pnmap = patch
+    from .nmap_conv import nmap_conv
     out = band_conv(feats, keys, plan, weights, scale=scale, bias=bias,
                     relu=relu, bf16=bf16)
-    fix = _epilogue(gathered_conv(feats, pnmap, weights, pvalid), pvalid,
-                    scale, bias, relu)
-    out[pidx] = torch.where(pvalid[:, None], fix, out[pidx])
+    if patch is not None:
+        pidx, pnmap = patch
+        out[pidx] = _epilogue(nmap_conv(feats, pnmap, weights), None, scale,
+                              bias, relu)
     return out
 
 
 def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
-              first_index=None, fraction=None):
+              first_index=None):
     """The conv function of one (key set, geometry) context, shared by the
     layers on it: ``conv(feats (N_in, C), weights (K, C, C'), scale=None,
     bias=None, relu=False) -> (N_out, C')`` with the affine + ReLU epilogue
     fused and invalid output rows zero.
 
     It runs the band-window kernel plus an exact gather patch for the rows
-    of tiles whose window does not fit. If the patch overflows (or the keys
-    are unsorted) every conv of the context takes the full neighbor-map
-    branch instead."""
-    pidx, pvalid, pnmap, bad_cnt, pcap = _band_patch(
-        plan, lambda qk: lookup(keys, qk), first_index, fraction=fraction)
-    fast_ok = bool(plan.keys_sorted) and int(bad_cnt) <= pcap
+    of tiles whose window does not fit. If the keys are unsorted every conv
+    of the context takes the exact conv over the full neighbor map
+    instead."""
+    fast_ok = bool(plan.keys_sorted)
+    patch = _sized_patch(plan, lambda qk: lookup(keys, qk),
+                         first_index) if fast_ok else None
     slow_map = [None]
 
     def conv(feats, weights, scale=None, bias=None, relu=False):
+        from .nmap_conv import nmap_conv
         src = feats if src_sel is None else torch.where(
             src_sel, feats, torch.zeros_like(feats))
         if fast_ok:
             branch_counts['band'] += 1
-            return _band_patched(src, weights, keys, plan,
-                                 (pidx, pvalid, pnmap), bf16, scale, bias,
-                                 relu)
+            return _band_patched(src, weights, keys, plan, patch, bf16,
+                                 scale, bias, relu)
         branch_counts['nmap_slow'] += 1
         if slow_map[0] is None:
             slow_map[0] = slow_nmap()
-        return _epilogue(gathered_conv(src, slow_map[0], weights, out_mask),
-                         out_mask, scale, bias, relu)
+        out = nmap_conv(src, slow_map[0], weights)
+        return _epilogue(out * out_mask[:, None].to(out.dtype), out_mask,
+                         scale, bias, relu)
     return conv
 
 
@@ -614,22 +620,20 @@ class _BandTrain(torch.autograd.Function):
             wt = weights.flip(0).transpose(1, 2).contiguous()
             dfeats = _band_patched(g, wt, keys, plan, patch, bf16=False)
         if ctx.needs_input_grad[1]:
-            pidx, pvalid, pnmap = patch
             dw = band_conv_dw(feats, keys, plan, g, valid_bits=bits_dw,
                               bf16=False)
-            g_patch = g[pidx] * pvalid[:, None].to(g.dtype)
-            dw = dw + torch.stack([
-                _gather(feats, torch.where(pvalid, pnmap[:, j],
-                                           torch.full_like(pnmap[:, j], -1))
-                        ).T @ g_patch
-                for j in range(pnmap.shape[1])])
+            if patch is not None:
+                pidx, pnmap = patch
+                g_patch = g[pidx]
+                dw = dw + torch.stack([_gather(feats, pnmap[:, j]).T @ g_patch
+                                       for j in range(pnmap.shape[1])])
         return dfeats, dw, None, None, None, None
 
 
 def _subm_conv_train_ctx(st, kernel_size, tile, block):
     """Training conv function ``conv(feats, weights)`` of a 3D submanifold
-    conv: ``_BandTrain`` when the keys are sorted and the gather patch holds
-    every row of the non-fitting tiles, else the neighbor-map conv.
+    conv: ``_BandTrain`` (its patch holds every row of the non-fitting
+    tiles) when the plan's keys are sorted, else the neighbor-map conv.
 
     StVD leaves its dropped rows (INVALID keys) between valid ones; such a
     tensor is convolved in key order and its rows are put back, so the
@@ -642,12 +646,11 @@ def _subm_conv_train_ctx(st, kernel_size, tile, block):
         conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block)
         return lambda feats, weights: conv_s(feats[perm], weights)[inv]
     plan, keys = subm_band_plan(st, kernel_size, tile, block)
-    pidx, pvalid, pnmap, bad_cnt, pcap = _band_patch(
-        plan, lambda qk: lookup(keys, qk))
-    fast_ok = bool(plan.keys_sorted) and int(bad_cnt) <= pcap
+    fast_ok = bool(plan.keys_sorted)
+    patch = _sized_patch(plan, lambda qk: lookup(keys, qk)) if fast_ok \
+        else None
     bits_dw = torch.where(plan.fits[:, None], plan.valid_bits,
                           torch.zeros_like(plan.valid_bits))
-    patch = (pidx, pvalid, pnmap)
     slow = [None]
 
     def conv(feats, weights):
@@ -705,7 +708,7 @@ def strided_conv_ctx(st_in, st_out, stride, padding, kernel_size,
         plan, keys, st_out.mask,
         lambda: build_strided_neighbor_map(st_in, st_out, stride, padding,
                                            kernel_size),
-        bf16, fraction=BAND_PATCH_FRACTION_STRIDED)
+        bf16)
 
 
 def to_dense(st: SparseTensor) -> torch.Tensor:
@@ -773,9 +776,22 @@ def voxelize(points, points_mask, point_cloud_range, voxel_size,
     keep = valid_s & (rank < max_points_per_voxel) & (voxel_id < max_voxels)
     slot = torch.clamp(voxel_id, max=max_voxels).long()
 
+    # each voxel's kept points summed in rank order, as a sequential
+    # index_add_ on the CPU sums them: every kept point has its own
+    # (voxel, rank) row, so no two writes meet and the means are the same
+    # bits on every run (index_add_ on CUDA adds with atomics in whatever
+    # order they land)
     c = points.shape[1]
-    sums = torch.zeros((max_voxels + 1, c), dtype=pts_s.dtype, device=dev)
-    sums.index_add_(0, slot, pts_s * keep.to(pts_s.dtype)[:, None])
+    rows = torch.where(keep, slot * max_points_per_voxel + rank.long(),
+                       torch.full_like(slot, (max_voxels + 1)
+                                       * max_points_per_voxel))
+    by_rank = torch.zeros(((max_voxels + 1) * max_points_per_voxel + 1, c),
+                          dtype=pts_s.dtype, device=dev)
+    by_rank[rows] = pts_s
+    by_rank = by_rank[:-1].view(max_voxels + 1, max_points_per_voxel, c)
+    sums = by_rank[:, 0]
+    for r in range(1, max_points_per_voxel):
+        sums = sums + by_rank[:, r]
     cnts = torch.zeros((max_voxels + 1,), dtype=torch.float32, device=dev)
     cnts.index_add_(0, slot, keep.float())
     mean = sums[:max_voxels] / torch.clamp(cnts[:max_voxels, None], min=1.0)

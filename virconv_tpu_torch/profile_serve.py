@@ -1,13 +1,15 @@
-"""Where the time of one full-width VirConv-T request goes, on one card.
+"""Where the time of one full-width request goes, on one card.
 
-    python -m virconv_tpu_torch.profile_serve [--out DIR]
+    python -m virconv_tpu_torch.profile_serve [--cfg virconv_l] [--out DIR]
 
-Serves FRAMES synthetic frames twice to warm up (which builds the kernels),
-then traces one request with ``torch.profiler`` (CPU + CUDA). Prints the
-request's wall time, the device busy time (union of kernel intervals) and
-its share of the wall time, each named stage's host and device span
-(make_batch, voxelize, backbone_3d, bev, rpn, roi_head, postprocess_wbf)
-and the kernels with the most device time. Writes the Chrome trace under
+Serves FRAMES synthetic frames (``utils/bench_inputs.frames_for``) through
+the ``--cfg`` model (default VirConv-T) twice to warm up (which builds the
+kernels), then traces one request with ``torch.profiler`` (CPU + CUDA).
+Prints the request's wall time, the device busy time (union of kernel
+intervals) and its share of the wall time, each named stage's host and
+device span (make_batch, voxelize, backbone_3d, bev, rpn, roi_head,
+postprocess_wbf) and the kernels with the most device time. Writes the
+Chrome trace under
 DIR (default chiprun_out/).
 """
 
@@ -24,6 +26,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .config import CONFIGS
+
 STAGES = ('make_batch', 'voxelize', 'backbone_3d', 'bev', 'rpn', 'roi_head',
           'postprocess_wbf')
 
@@ -31,13 +35,15 @@ STAGES = ('make_batch', 'voxelize', 'backbone_3d', 'bev', 'rpn', 'roi_head',
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default='chiprun_out')
+    ap.add_argument('--cfg', choices=sorted(CONFIGS), default='virconv_t')
     args = ap.parse_args(argv)
 
     from .serve import Detector
-    from .utils.bench_inputs import FRAMES, synth_frames
+    from .utils.bench_inputs import FRAMES, frames_for
     torch.set_grad_enabled(False)
-    det = Detector(device='cuda', seed=0)
-    frames = synth_frames(FRAMES)
+    cfg = CONFIGS[args.cfg]()
+    det = Detector(cfg=cfg, device='cuda', seed=0)
+    frames = frames_for(cfg)
     for _ in range(2):
         det(frames)
     torch.cuda.synchronize()
@@ -56,7 +62,7 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     report.update(card=smi.splitlines()[0] if smi else
-                  torch.cuda.get_device_name(0), frames=FRAMES)
+                  torch.cuda.get_device_name(0), frames=FRAMES, cfg=args.cfg)
     print(json.dumps(report, indent=1))
 
 

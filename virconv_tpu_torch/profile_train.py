@@ -1,10 +1,10 @@
-"""Where the time of one full-width VirConv-T training step goes, on one
-card.
+"""Where the time of one full-width training step goes, on one card.
 
-    python -m virconv_tpu_torch.profile_train [--out DIR]
+    python -m virconv_tpu_torch.profile_train [--cfg virconv_l] [--out DIR]
 
-Takes one training step of ``train_batch()`` (2 frames x ROT_NUM 3) to warm
-up (which builds the kernels), then traces one step with
+Takes one training step of the ``--cfg`` model (default VirConv-T) on
+``utils/bench_inputs.train_batch_for`` (T: 2 frames x ROT_NUM 3; L: 2
+frames) to warm up (which builds the kernels), then traces one step with
 ``torch.profiler`` (CPU + CUDA). Prints the step's wall time, the device
 busy time and its share, each named stage's host and device span (the
 forward's voxelize, backbone_3d, bev, rpn, roi_head and loss, then
@@ -26,6 +26,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .config import CONFIGS
 from .profile_serve import summarize
 
 STAGES = ('voxelize', 'backbone_3d', 'bev', 'rpn', 'roi_head', 'loss',
@@ -35,12 +36,14 @@ STAGES = ('voxelize', 'backbone_3d', 'bev', 'rpn', 'roi_head', 'loss',
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--out', default='output')
+    ap.add_argument('--cfg', choices=sorted(CONFIGS), default='virconv_t')
     args = ap.parse_args(argv)
 
     from .train.trainer import Trainer
-    from .utils.bench_inputs import train_batch
-    trainer = Trainer(device='cuda', seed=0)
-    batch = trainer.to_device(train_batch())
+    from .utils.bench_inputs import train_batch_for
+    cfg = CONFIGS[args.cfg]()
+    trainer = Trainer(cfg=cfg, device='cuda', seed=0)
+    batch = trainer.to_device(train_batch_for(cfg))
     trainer.step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -62,7 +65,7 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     report.update(card=smi.splitlines()[0] if smi else
-                  torch.cuda.get_device_name(0),
+                  torch.cuda.get_device_name(0), cfg=args.cfg,
                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(json.dumps(report, indent=1))
 

@@ -1,10 +1,14 @@
-"""Serving entry point: a VirConv-T ``Detector`` that takes a batch of
-frames and returns per-frame boxes, scores and labels after WBF.
+"""Serving entry point: a ``Detector`` (VirConv-T by default, or any
+shipped config) that takes a batch of frames and returns per-frame boxes,
+scores and labels after WBF.
 
 Each frame is replicated by the test-time world transforms of
 ``DATA_CONFIG.X_TRANS`` (replica i of frame b is batch entry b * R + i),
 run through the model on the device, then score-thresholded and fused by
-weighted box fusion on the host.
+weighted box fusion on the host. A config without ``X_TRANS`` (VirConv-L)
+serves each frame as one entry with no transform (``transform_param`` and
+``trans_params`` None), as the JAX loader collates it; its frames carry
+one fused point stream and no ``points_mm``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from .utils.postprocess import post_process_batch
 
 
 class Detector:
-    """VirConv-T eval on one device.
+    """Detector eval on one device (``cfg``: VirConv-T by default).
 
     ``state_dict``: the port's weights (``utils.jax_weights.
     from_jax_variables`` gives them from a flax checkpoint); without one the
@@ -46,14 +50,16 @@ class Detector:
         self.model = model.to(self.device).eval()
         dcfg = self.cfg.DATA_CONFIG
         self.rot_num = self.cfg.MODEL.ROI_HEAD.ROT_NUM
-        self.params = tr.get_transform_params(dcfg.X_TRANS, self.rot_num)
+        x_trans = dcfg.get('X_TRANS', None)
+        self.params = None if x_trans is None else \
+            tr.get_transform_params(x_trans, self.rot_num)
         self.post_cfg = CfgNode(self.cfg.MODEL.POST_PROCESSING)
 
     def make_batch(self, frames: Dict[str, np.ndarray]):
         """Replicate F frames by the R test-time transforms into device
-        tensors. ``frames``: points (F, P, C), points_valid (F, P),
-        points_mm (F, Pm, C), points_mm_valid (F, Pm), v2r and p2t
-        (F, 4, 3)."""
+        tensors. ``frames``: points (F, P, C), points_valid (F, P), v2r
+        and p2t (F, 4, 3), and for a two-stream model points_mm (F, Pm, C)
+        and points_mm_valid (F, Pm)."""
         n_f = frames['points'].shape[0]
         r = self.rot_num
 
@@ -61,22 +67,29 @@ class Detector:
             return np.repeat(x, r, axis=0)
 
         def transformed(pts):
+            if self.params is None:
+                return rep(pts)
             out = np.stack([np.stack([tr.transform_points_np(f, p)
                                       for p in self.params]) for f in pts])
             return out.reshape(n_f * r, *pts.shape[1:])
 
         dev = self.device
         t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
-        return {
+        batch = {
             'points': t(transformed(frames['points'])),
             'points_valid': t(rep(frames['points_valid'])),
-            'points_mm': t(transformed(frames['points_mm'])),
-            'points_mm_valid': t(rep(frames['points_mm_valid'])),
             'v2r': t(rep(frames['v2r']).astype(np.float32)),
             'p2t': t(rep(frames['p2t']).astype(np.float32)),
-            'transform_param': t(np.tile(self.params[None], (n_f, 1, 1))),
-            'trans_params': t(np.tile(self.params, (n_f, 1))),
+            'transform_param': None, 'trans_params': None,
         }
+        if self.model.is_mm:
+            batch['points_mm'] = t(transformed(frames['points_mm']))
+            batch['points_mm_valid'] = t(rep(frames['points_mm_valid']))
+        if self.params is not None:
+            batch['transform_param'] = t(np.tile(self.params[None],
+                                                 (n_f, 1, 1)))
+            batch['trans_params'] = t(np.tile(self.params, (n_f, 1)))
+        return batch
 
     @torch.no_grad()
     def forward(self, frames: Dict[str, np.ndarray]):

@@ -9,8 +9,12 @@ f32 operands) or a training step (phase 5) beside its bound, and K5's and
 K6's launches by mode; the widest and the first call of K1, K4, K5 and
 K6; the training step times; the evaluation's seconds per frame (phase
 9); the training CLI's ms per step, peak memory, loader seconds per frame
-and share of the loop spent waiting on the loader (phase 10a); and phase
-8's sums by layer shape (K, C -> C'). A row a log lacks (an
+and share of the loop spent waiting on the loader (phase 10a); VirConv-L's
+kernel sums, ms per request and per step, pool routes and evaluation, and
+VirConv-S's CLI steps (phase 11), the gather patch's sums and VirConv-L's
+contexts past the JAX package's patch cap on both routes; and phase 8's
+sums by layer shape (K,
+C -> C'). A row a log lacks (an
 older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
@@ -56,8 +60,12 @@ def rows_of(data):
         unit = 'step' if k['name'] == 'band_conv_dw' else 'request'
         total(f'{k["name"]} per {unit}', k, k['launches'])
         if 'train' in k:
-            for part in ('forward', 'input_grad'):
+            parts = [p for p in ('forward', 'input_grad') if p in k['train']]
+            for part in parts:
                 total(f'{k["name"]} train {part} per step', k['train'][part],
+                      k['train']['launches'])
+            if not parts:
+                total(f'{k["name"]} train per step', k['train'],
                       k['train']['launches'])
         if 'f32' in k:
             total(f'{k["name"]} f32 per request', k['f32'],
@@ -65,6 +73,17 @@ def rows_of(data):
         if 'launches_by_mode' in k:
             out.append((f'{k["name"]} launches by mode',
                         json.dumps(k['launches_by_mode'], sort_keys=True)))
+        lk = k.get('virconv_l')              # phase 11 (absent before)
+        if lk is not None:
+            total(f'VirConv-L {k["name"]} per {unit}', lk, lk['launches'])
+            for part in ('forward', 'input_grad'):
+                if part in lk.get('train', {}):
+                    total(f'VirConv-L {k["name"]} train {part} per step',
+                          lk['train'][part], lk['train']['launches'])
+            for c in lk.get('contexts_past_the_jax_patch_cap', []):
+                out.append((f'VirConv-L {c["case"]} ({c["patch_rows"]} patch '
+                            f'rows, {c["convs"]} convs): ms, JAX branch ms',
+                            f'{c["ms"]:.3f} {c["jax_branch_ms"]:.3f}'))
     for name in ('band_conv_fwd', 'band_conv_fwd_train',
                  'band_conv_fwd_train_dgrad', 'band_conv_dw',
                  'onehot_conv_fwd', 'onehot_conv_fwd_f32',
@@ -94,6 +113,26 @@ def rows_of(data):
                     f'{tc["wait_share"]:.3f}'))
         out.append(('train_gpu ms per step', ' '.join(
             f'{t:.1f}' for t in tc['ms_per_step'])))
+    vl = data.get('virconv_l')               # phase 11 (absent before)
+    if vl is not None:
+        sv, tr = vl['serve'], vl['train']
+        out.append(('VirConv-L ms per request', ' '.join(
+            f'{t:.1f}' for t in sv['ms_per_request'])))
+        out.append(('VirConv-L pools per request by route',
+                    json.dumps(sv['pool_routes_per_request'])))
+        out.append(('VirConv-L ms per step, peak GiB', ' '.join(
+            f'{t:.1f}' for t in tr['ms_per_step'])
+            + f' {tr["peak_memory_gib"]:.2f}'))
+        out.append(('VirConv-L first seeded step twice: losses',
+                    ' '.join(repr(x) for x in
+                             tr['first_step_twice']['losses'])))
+        out.append(('VirConv-L eval: sec_per_example, loader s/frame',
+                    f'{vl["eval"]["sec_per_example"]:.4f} '
+                    f'{vl["eval"]["loader_sec_per_frame"]:.4f}'))
+    vs = data.get('virconv_s')
+    if vs is not None:
+        out.append(('VirConv-S train_gpu ms per step', ' '.join(
+            f'{t:.1f}' for t in vs['ms_per_step'])))
     shapes = {}
     f32 = cases.get('onehot_conv_fwd_f32')   # absent before K6 f32 timing
     for i, (c5, c6) in enumerate(zip(cases['gather_conv_fwd'],

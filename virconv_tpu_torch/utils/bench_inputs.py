@@ -5,15 +5,21 @@ real + virtual ~60k), padded to the loader's per-stream point capacities,
 with a KITTI-typical calibration -- the inputs ``bench.py`` builds for the
 JAX package, made here with numpy from ``seed``. ``train_batch`` is the
 training batch of ``tools/bench_train.py``: each frame's ROT_NUM replicas
-world-transformed, with their gt boxes.
+world-transformed, with their gt boxes. ``synth_frames_l`` and
+``train_batch_l`` are VirConv-L's: the same streets as one fused stream
+per frame, built as the loader builds it with ``LATER_FUSION`` False
+(LiDAR first, StVD on the virtual points, intensity / 10), one entry per
+frame.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..datasets.dataset import (LIDAR, VIRTUAL, fuse_streams,
+                                input_point_discard)
 from .calibration import Calibration
-from .synth_scene import make_scene
+from .synth_scene import fused_cloud, make_scene
 from .transforms import transform_boxes_np, transform_points_np
 
 N_LIDAR_PTS, N_FUSED_PTS = 32768, 65536
@@ -115,3 +121,83 @@ def train_batch(frames=2, seed=0, rot_num=3):
             'transform_param': None,
             'gt_boxes': replicate(gt, transform_boxes_np),
             'gt_valid': np.repeat(gt_valid, rot_num, 0)}
+
+
+def fused_stream(scene, rng, capacity, training=False):
+    """One frame's single stream (VirConv-L) as the loader builds it: the
+    LiDAR points, then the virtual points StVD keeps (rate 0.8 over 10
+    distance bins at evaluation, 2 in training), intensity / 10, at most
+    ``capacity`` points drawn without replacement. Draws from ``rng`` (a
+    ``RandomState``)."""
+    cloud = fused_cloud(scene)
+    kept = input_point_discard(cloud[cloud[:, 7] == VIRTUAL], rng,
+                               bin_num=2 if training else 10, rate=0.8)
+    fused = fuse_streams(cloud[cloud[:, 7] == LIDAR], kept)
+    if len(fused) > capacity:
+        fused = fused[rng.choice(len(fused), capacity, replace=False)]
+    return fused
+
+
+def _padded(streams, capacity):
+    pts = np.zeros((len(streams), capacity, 8), np.float32)
+    valid = np.zeros((len(streams), capacity), bool)
+    for e, s in enumerate(streams):
+        pts[e, :len(s)] = s
+        valid[e, :len(s)] = True
+    return pts, valid
+
+
+def synth_frames_l(frames, seed=0):
+    """``frames`` street scenes as VirConv-L's Detector input: each frame's
+    one fused stream (``points``, no ``points_mm``) of at most
+    ``N_FUSED_PTS`` points."""
+    rng = np.random.RandomState(seed)
+    pts, valid = _padded([fused_stream(make_scene(seed=e), rng, N_FUSED_PTS)
+                          for e in range(frames)], N_FUSED_PTS)
+    v2r, p2t = kitti_calib()
+    return {'points': pts, 'points_valid': valid,
+            'v2r': np.tile(v2r, (frames, 1, 1)),
+            'p2t': np.tile(p2t, (frames, 1, 1))}
+
+
+def train_batch_l(frames=2, seed=0):
+    """VirConv-L's training batch: ``frames`` street scenes, one entry
+    each (a loader batch's shape), each frame's fused stream of
+    ``N_TRAIN_PTS`` points with the training StVD and its gt boxes
+    world-transformed by the first of ``TRAIN_TRANSFORMS``, which is the
+    entry's ``trans_params``."""
+    rng = np.random.RandomState(seed)
+    p = TRAIN_TRANSFORMS[0]
+    streams, gt = [], np.zeros((frames, N_TRAIN_GT, 8), np.float32)
+    gt_valid = np.zeros((frames, N_TRAIN_GT), bool)
+    for e in range(frames):
+        s = make_scene(seed=e)
+        streams.append(transform_points_np(
+            fused_stream(s, rng, N_TRAIN_PTS, training=True), p))
+        boxes = s['boxes'][:N_TRAIN_GT]
+        gt[e, :len(boxes), :7] = transform_boxes_np(boxes[:, :7], p)
+        gt[e, :len(boxes), 7] = 1
+        gt_valid[e, :len(boxes)] = True
+    pts, valid = _padded(streams, N_TRAIN_PTS)
+    v2r, p2t = kitti_calib()
+    return {'points': pts, 'points_valid': valid,
+            'v2r': np.tile(v2r, (frames, 1, 1)),
+            'p2t': np.tile(p2t, (frames, 1, 1)),
+            'trans_params': np.tile(p[None], (frames, 1)),
+            'transform_param': None, 'gt_boxes': gt, 'gt_valid': gt_valid}
+
+
+def frames_for(cfg, frames=FRAMES, seed=0):
+    """The serving frames of ``cfg``'s model: two streams (T, S) or one
+    (L)."""
+    if cfg.MODEL.BACKBONE_3D.get('MM', False):
+        return synth_frames(frames, seed)
+    return synth_frames_l(frames, seed)
+
+
+def train_batch_for(cfg, seed=0):
+    """The training batch of ``cfg``'s model: ``train_batch`` with the
+    ROI head's ROT_NUM replicas (T, S), or ``train_batch_l`` (L)."""
+    if cfg.MODEL.BACKBONE_3D.get('MM', False):
+        return train_batch(seed=seed, rot_num=cfg.MODEL.ROI_HEAD.ROT_NUM)
+    return train_batch_l(seed=seed)

@@ -21,8 +21,11 @@ database (``gt_database_mm/``, ``kitti_dbinfos_train_mm.pkl``) with
 points and 2 for real LiDAR points, whose intensity is scaled by 10.
 Images are valid black PNGs written with ``zlib`` and ``struct``.
 
+With ``n_semi`` the tree also has the semi split of VirConv-S: ``semi/``
+frames, ``ImageSets/semi.txt`` and ``kitti_infos_trainsemi.pkl``.
+
     python -m virconv_tpu_torch.utils.mini_kitti <root> --mode scene \\
-        [--frames 4] [--seed 0] [--n_train N]
+        [--frames 4] [--seed 0] [--n_train N] [--n_semi N]
 """
 
 from __future__ import annotations
@@ -123,14 +126,8 @@ def _mini_frame(rng, calib):
 def _scene_frame(seed, calib):
     """One ``make_scene`` frame: (label lines, fused cloud)."""
     from ..datasets.kitti import kitti_utils
-    from .synth_scene import make_scene
+    from .synth_scene import fused_cloud, make_scene
     s = make_scene(seed=seed)
-    lidar, virt = s['lidar'], s['virtual'].copy()
-    n = len(lidar)
-    real = np.concatenate([lidar[:, :3], lidar[:, 3:4] * 10,
-                           np.zeros((n, 3), np.float32),
-                           np.full((n, 1), 2.0, np.float32)], -1)
-    virt[:, 7] = 1.0
     boxes = s['boxes'].astype(np.float64)
     cam = kitti_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
     uv, depth = calib.rect_to_img(cam[:, 0:3])
@@ -144,52 +141,67 @@ def _scene_frame(seed, calib):
               '%.2f %.2f %.2f' % (alpha[i], *img[i], cam[i, 4], cam[i, 5],
                                   cam[i, 3], *cam[i, 0:3], cam[i, 6])
               for i in range(len(cam))]
-    return labels, np.concatenate([real, virt])
+    return labels, fused_cloud(s)
 
 
-def write_tree(root, mode='scene', frames=4, seed=0, n_train=None):
-    """Write ``frames`` frames and their infos under ``root``; returns
-    ``root``. ``n_train`` frames go to the train split, the rest to val
-    (default: all but the last in ``mini`` mode, as ``build_mini_kitti``;
-    none in ``scene`` mode)."""
-    root = Path(root)
-    train = root / 'training'
-    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+def _write_frames(split_dir, ids, mode, rng, scene_seed):
+    """Write the frames ``ids`` under ``split_dir`` (``training/`` or
+    ``semi/``); ``scene`` frame k is ``make_scene(scene_seed + k)``."""
     for sub in SUBDIRS:
-        (train / sub).mkdir(parents=True, exist_ok=True)
-    ids = [f'{i:06d}' for i in range(frames)]
-    rng = np.random.default_rng(seed)
+        (split_dir / sub).mkdir(parents=True, exist_ok=True)
     for k, fid in enumerate(ids):
-        write_png(train / 'image_2' / f'{fid}.png', *IMAGE_SHAPE)
+        write_png(split_dir / 'image_2' / f'{fid}.png', *IMAGE_SHAPE)
         if mode == 'mini':
-            (train / 'calib' / f'{fid}.txt').write_text(MINI_CALIB)
-            calib = Calibration(train / 'calib' / f'{fid}.txt')
+            (split_dir / 'calib' / f'{fid}.txt').write_text(MINI_CALIB)
+            calib = Calibration(split_dir / 'calib' / f'{fid}.txt')
             labels, cloud = _mini_frame(rng, calib)
             lidar = cloud.copy()
             lidar[:, 4:8] = 0
         elif mode == 'scene':
             from .bench_inputs import KITTI_CALIB
-            (train / 'calib' / f'{fid}.txt').write_text(
+            (split_dir / 'calib' / f'{fid}.txt').write_text(
                 _calib_text(KITTI_CALIB))
-            calib = Calibration(train / 'calib' / f'{fid}.txt')
-            labels, cloud = _scene_frame(seed + k, calib)
+            calib = Calibration(split_dir / 'calib' / f'{fid}.txt')
+            labels, cloud = _scene_frame(scene_seed + k, calib)
             lidar = cloud[cloud[:, 7] == 2].copy()
             lidar[:, 3] /= 10
         else:
             raise ValueError(f'mode {mode!r}: expected mini or scene')
-        (train / 'label_2' / f'{fid}.txt').write_text(
+        (split_dir / 'label_2' / f'{fid}.txt').write_text(
             '\n'.join(labels) + '\n')
-        (train / 'planes' / f'{fid}.txt').write_text(PLANE)
-        np.save(train / 'velodyne_depth' / f'{fid}.npy',
+        (split_dir / 'planes' / f'{fid}.txt').write_text(PLANE)
+        np.save(split_dir / 'velodyne_depth' / f'{fid}.npy',
                 cloud.astype(np.float16))
         lidar[:, :4].astype(np.float32).tofile(
-            train / 'velodyne' / f'{fid}.bin')
+            split_dir / 'velodyne' / f'{fid}.bin')
+
+
+def write_tree(root, mode='scene', frames=4, seed=0, n_train=None,
+               n_semi=0):
+    """Write ``frames`` frames and their infos under ``root``; returns
+    ``root``. ``n_train`` frames go to the train split, the rest to val
+    (default: all but the last in ``mini`` mode, as ``build_mini_kitti``;
+    none in ``scene`` mode). ``n_semi`` more frames go to ``semi/`` (the
+    VirConv-S layout, with ids from 000000 again): ``ImageSets/semi.txt``
+    and ``kitti_infos_trainsemi.pkl``, the train infos with ``split``
+    'training' then the semi ones with ``split`` 'semi'."""
+    root = Path(root)
+    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+    ids = [f'{i:06d}' for i in range(frames)]
+    rng = np.random.default_rng(seed)
+    _write_frames(root / 'training', ids, mode, rng, seed)
     if n_train is None:
         n_train = max(1, frames - 1) if mode == 'mini' else 0
     for split, part in (('train', ids[:n_train]), ('val', ids[n_train:])):
         (root / 'ImageSets' / f'{split}.txt').write_text(
             ''.join(f'{i}\n' for i in part))
     write_infos(root, gt_database=n_train > 0)
+    if n_semi:
+        semi_ids = [f'{i:06d}' for i in range(n_semi)]
+        _write_frames(root / 'semi', semi_ids, mode, rng, seed + frames)
+        (root / 'ImageSets' / 'semi.txt').write_text(
+            ''.join(f'{i}\n' for i in semi_ids))
+        write_semi_infos(root, semi_ids)
     return root
 
 
@@ -210,6 +222,27 @@ def write_infos(root, gt_database=False):
                                        split='train')
 
 
+def write_semi_infos(root, semi_ids):
+    """``kitti_infos_trainsemi.pkl``: the train infos, each with ``split``
+    'training', then the infos of the ``semi/`` frames ``semi_ids`` with
+    ``split`` 'semi'."""
+    from ..config import virconv_t_config
+    from ..datasets.kitti.kitti_dataset_mm import KittiDatasetMM
+    root = Path(root)
+    with open(root / 'kitti_infos_train.pkl', 'rb') as f:
+        infos = pickle.load(f)
+    for info in infos:
+        info['split'] = 'training'
+    cfg = virconv_t_config()
+    ds = KittiDatasetMM(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root_path=root)
+    ds.root_split_path = root / 'semi'
+    for info in ds.get_infos(num_workers=1, sample_id_list=semi_ids):
+        info['split'] = 'semi'
+        infos.append(info)
+    with open(root / 'kitti_infos_trainsemi.pkl', 'wb') as f:
+        pickle.dump(infos, f)
+
+
 if __name__ == '__main__':
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -218,6 +251,7 @@ if __name__ == '__main__':
     ap.add_argument('--frames', type=int, default=4)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--n_train', type=int, default=None)
+    ap.add_argument('--n_semi', type=int, default=0)
     a = ap.parse_args()
-    write_tree(a.root, a.mode, a.frames, a.seed, a.n_train)
+    write_tree(a.root, a.mode, a.frames, a.seed, a.n_train, a.n_semi)
     print(f'{a.mode} KITTI tree of {a.frames} frames at {a.root}')

@@ -172,6 +172,19 @@ def make_scene(seed=0, n_cars=25, n_walls=4, lidar_cols=520,
     return {'lidar': lidar, 'virtual': virt, 'boxes': boxes}
 
 
+def fused_cloud(scene):
+    """The 8-feature cloud of a ``make_scene`` frame as a KITTI tree's
+    ``velodyne_depth`` holds it: the LiDAR points (intensity x 10, no
+    colour, indicator 2), then the virtual points (indicator 1)."""
+    lidar, virt = scene['lidar'], scene['virtual'].copy()
+    n = len(lidar)
+    real = np.concatenate([lidar[:, :3], lidar[:, 3:4] * 10,
+                           np.zeros((n, 3), np.float32),
+                           np.full((n, 1), 2.0, np.float32)], -1)
+    virt[:, 7] = 1.0
+    return np.concatenate([real, virt])
+
+
 def scene_stats(points, pcr=(0, -40, -3, 70.4, 40, 1), voxel=0.05):
     """(n_in_range_points, n_occupied_voxels) at the given voxel size."""
     p = points[:, :3]
