@@ -23,18 +23,24 @@ Phases (each prints one line; any failure exits non-zero):
      versions) with the same weights, TF32 off: final boxes and scores
      compared;
   5. every K1 call (forward, and input gradient with transposed weights),
-     every gather patch and every K4 call of one full-width VirConv-T
+     every gather patch, every K4 call and every pool gather
+     (``gather_rows``, forward and backward) of one full-width VirConv-T
      training step
      (``Trainer.step(train_batch())``: 2 frames x ROT_NUM 3) against its
      plain version, f32 and bf16 operands; each K4 call run twice for
      identical bits and named by its CTA layout (chunks x taps x slabs);
      kernel and plain times with f32 operands, each call's bound at the
-     f32 peak, and the sums per step;
+     f32 peak, and the sums per step (the gather's backward run twice
+     for identical bits, its first two calls also against the CPU's
+     sequential ``index_add_`` bit for bit);
   6. the main training path: 3 full-width steps with every launch count
      set to 0 just before and read just after: finite losses, no skipped
-     step, both kernels launched, no band training conv on the
-     neighbor-map branch; ms per step, peak memory and each step's loss
-     terms;
+     step, K1, K4 and the gather's backward launched, no band training
+     conv on the neighbor-map branch; ms per step, peak memory and each
+     step's loss terms; (6b) one step's forward and backward twice from
+     one trainer with the same draws: every parameter's gradient the same
+     bits (the modules that differ are printed, with the ops PyTorch's
+     deterministic mode flags);
   7. one training step of the tiny configuration on CUDA and on the CPU
      with the same weights and the same random draws (drawn once on the
      CPU), TF32 off: loss and every gradient compared;
@@ -90,26 +96,43 @@ Phases (each prints one line; any failure exits non-zero):
      launches per request, the pools by route; (c) 3 training steps
      (finite losses, no skip, K1
      forward, K1 input gradient and K4 launched; ms per step, peak
-     memory), then the first seeded step of two fresh trainers, whose two
-     losses are printed and not gated; (d) the tiny-L config CUDA vs CPU:
-     evaluation as phase 4, one training step as phase 7; (e)
+     memory), then (fault C4's gate, VirConv-T on phase 6's batch first)
+     two fresh trainers from one seed take 3 steps each: every loss term,
+     parameter and BN statistic the same bits after every step; (d) the
+     tiny-L config CUDA vs CPU: evaluation as phase 4, one training step
+     as phase 7; (e)
      ``eval_one_ckpt`` of a seeded VirConv-L checkpoint on phase 9's scene
      tree through the single-stream loader, gated as phase 9a; (f)
      ``tools/train_gpu.py --cfg virconv_s`` for one epoch of 2 steps on a
      ``scene`` tree of 2 train and 2 semi frames from phase 10's VirConv-T
      checkpoint as ``--pretrained_model``: frames from both ``training/``
      and ``semi/``, finite losses, K1 and K4 on every step;
-then one JSON line of per-kernel numbers (the six kernels' ports and the
-gather patch's; times and bounds per request or
-per training step, summed over its calls; launches over the phase 3
-requests, the phase 6 steps and the phase 8 path, K1's and K2+K3's over
-the phase 9a run as ``launches_eval``, and over phase 10a's steps and
-evaluation as ``launches_train_cli`` and ``launches_train_cli_eval``;
-VirConv-L's per request and per step under ``virconv_l``) with phase 9's
-numbers under ``eval``, phase 10's under ``train_cli`` and phase 11's under
-``virconv_l`` and ``virconv_s``,
-the card's name and power limit, and the device JSON as the last line. Each phase prints its seconds. It needs the repository around it:
-alone, or without a CUDA device, it exits non-zero and prints no result.
+ 12. PENet virtual points at full width (seeded weights): (a) PENetC2 on
+     the card; (b) every CSPN kernel launch (``csrc/cspn.cu``) of one
+     352 x 1216 frame against its plain version (1e-4 x scale), kernel
+     and plain times and the bound, and the frame's depth twice, the
+     same bits; (c)
+     ``tools/generate_virtual_points_gpu.py`` over a 4-frame ``scene``
+     tree (375 x 1242 images) with the CSPN count set to 0 just before
+     and read just after (12 per frame): each ``velodyne_depth`` file
+     float16 with 8 columns, the scan first (indicator 2, intensity x
+     10), then the virtual points (indicator 1, z < 1); seconds per frame
+     by stage and points per frame; (d) ``eval_one_ckpt`` of VirConv-T
+     over the generated tree, gated as 9a; (e) PENetC2 at 64 x 96 on CUDA
+     against the CPU, the depth within 1e-4 x scale;
+then one JSON line of per-kernel numbers (the six kernels' ports, the
+gather patch's, ``gather_rows``' per training step and ``cspn``'s per
+frame; times and bounds per request, step or frame, summed over its
+calls; launches over the phase 3 requests, the phase 6 steps, the phase
+8 path and phase 12c, K1's and K2+K3's over the phase 9a run as
+``launches_eval``, and over phase 10a's steps and evaluation as
+``launches_train_cli`` and ``launches_train_cli_eval``; VirConv-L's per
+request and per step under ``virconv_l``) with phase 9's numbers under
+``eval``, phase 10's under ``train_cli``, phase 11's under ``virconv_l``
+and ``virconv_s`` and phase 12's under ``virtual_points``, the card's
+name and power limit, and the device JSON as the last line. Each phase
+prints its seconds. It needs the repository around it: alone, or without
+a CUDA device, it exits non-zero and prints no result.
 """
 
 import json
@@ -432,6 +455,102 @@ def check_pool_case(name, args):
     return line
 
 
+class RowsCapture:
+    """Records the inputs of every ``gather_rows`` kernel call, forward
+    and backward, while it is entered (the calls still launch)."""
+
+    def __init__(self):
+        from virconv_tpu_torch.ops import gather_rows
+        self.fwd, self.bwd = [], []
+        self._gr = gather_rows
+        self._orig = (gather_rows._gather_rows_cuda,
+                      gather_rows._gather_rows_bwd_cuda)
+
+    def __enter__(self):
+        orig_f, orig_b = self._orig
+
+        def fwd(feats, idx, valid):
+            self.fwd.append((feats, idx, valid))
+            return orig_f(feats, idx, valid)
+
+        def bwd(g, idx, valid, n):
+            self.bwd.append((g, idx, valid, n))
+            return orig_b(g, idx, valid, n)
+        self._gr._gather_rows_cuda, self._gr._gather_rows_bwd_cuda = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self._gr._gather_rows_cuda, self._gr._gather_rows_bwd_cuda = \
+            self._orig
+        return False
+
+
+def check_rows_case(name, args, on_cpu):
+    """One ``gather_rows`` call of the training step. Forward: the kernel
+    equals ``index_select`` bit for bit. Backward: two kernel runs give the
+    same bits, the kernel is within 1e-4 x scale of the plain version on
+    the same CUDA tensors (``index_add_``, atomics) and, with ``on_cpu``,
+    equals it on the CPU bit for bit (a sequential ``index_add_``). Kernel,
+    plain and library times (the library call: ``index_select``, or the
+    ``index_add_`` of ``index_select``'s own backward), and the bound: the
+    inputs read and the output written once."""
+    import torch
+    from virconv_tpu_torch.ops import gather_rows as gr
+    if len(args) == 3:
+        feats, idx, valid = args
+        line = {'case': name, 'rows': idx.shape[0], 'rows_in':
+                feats.shape[0], 'c_in': feats.shape[1]}
+        got = gr._gather_rows_cuda(feats, idx, valid)
+        if not torch.equal(got, gr.gather_rows_plain(feats, idx, valid)):
+            fail(f'gather_rows {name}: the forward differs from '
+                 'index_select')
+        line['max_abs_err_f32'] = 0.0
+        line['ms'] = cuda_ms(lambda: gr._gather_rows_cuda(feats, idx, valid))
+        line['plain_ms'] = cuda_ms(
+            lambda: gr.gather_rows_plain(feats, idx, valid))
+        line['library_ms'] = cuda_ms(lambda: feats.index_select(0, idx))
+        line['bytes'] = (nbytes(feats, idx, valid)
+                         + idx.shape[0] * feats.shape[1] * 4)
+        line['ops'] = float(idx.shape[0] * feats.shape[1])
+    else:
+        g, idx, valid, n = args
+        hot = torch.bincount(idx[valid], minlength=1)
+        line = {'case': name, 'rows': idx.shape[0], 'rows_out': n,
+                'c_in': g.shape[1], 'valid_rows': int(valid.sum()),
+                'max_rows_per_source': int(hot.max())}
+        got = gr._gather_rows_bwd_cuda(g, idx, valid, n)
+        line['bitwise_repeatable'] = torch.equal(
+            got, gr._gather_rows_bwd_cuda(g, idx, valid, n))
+        if not line['bitwise_repeatable']:
+            fail(f'gather_rows backward {name}: two runs differ')
+        want = gr.gather_rows_bwd_plain(g, idx, valid, n)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel()
+                         else 0.0)
+        line['max_abs_err_f32'] = err
+        if not err <= tol:
+            fail(f'gather_rows backward {name}: max err {err} > {tol}')
+        if on_cpu:
+            line['equal_to_cpu_index_add'] = torch.equal(
+                got.cpu(), gr.gather_rows_bwd_plain(g.cpu(), idx.cpu(),
+                                                    valid.cpu(), n))
+            if not line['equal_to_cpu_index_add']:
+                fail(f'gather_rows backward {name}: not the bits of the '
+                     'CPU index_add_')
+        line['ms'] = cuda_ms(
+            lambda: gr._gather_rows_bwd_cuda(g, idx, valid, n))
+        line['plain_ms'] = cuda_ms(
+            lambda: gr.gather_rows_bwd_plain(g, idx, valid, n))
+        line['library_ms'] = cuda_ms(
+            lambda: g.new_zeros((n, g.shape[1])).index_add_(0, idx, g))
+        line['bytes'] = nbytes(g, idx, valid) + n * g.shape[1] * 4
+        line['ops'] = float(g.numel())
+    library = line['library_ms']
+    bound(line, F32_FLOPS)
+    line['library_ms'] = library
+    return line
+
+
 class SubmCapture:
     """Records every ``sparse.subm_conv_ctx`` call of one forward (its
     sorted tensor, kernel size and whether duplicate keys take first-wins
@@ -750,16 +869,20 @@ def summed(lines, unit='request'):
             'plain_ms': sum(c['plain_ms'] for c in lines),
             'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': None}
+            'library_ms': sum(c['library_ms'] for c in lines)
+            if lines and all(c.get('library_ms') is not None for c in lines)
+            else None}
 
 
 def short(line):
-    keep = ('case', 'rows_in', 'rows_out', 'rows', 'c_in', 'c_out', 'taps',
-            'layout', 'mode', 'rois', 'queries_per_roi', 'stride',
+    keep = ('case', 'stage', 'dilation', 'rows_in', 'rows_out', 'rows',
+            'c_in', 'c_out', 'taps', 'layout', 'mode', 'rois',
+            'queries_per_roi', 'stride',
             'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16',
             'k1_err_f32', 'k1_err_bf16', 'k1_bit_equal_f32',
-            'k1_bit_equal_bf16', 'bitwise_repeatable', 'ms', 'plain_ms',
-            'k1_ms', 'bound_ms', 'bound_by')
+            'k1_bit_equal_bf16', 'bitwise_repeatable', 'bit_equal',
+            'equal_to_cpu_index_add', 'max_rows_per_source', 'ms',
+            'plain_ms', 'library_ms', 'k1_ms', 'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
 
 
@@ -913,16 +1036,18 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
     kernel."""
     import torch
     cap = TrainCapture(trainer.model)
-    with cap:
+    with cap, RowsCapture() as rows:
         trainer.step(batch)
     torch.cuda.synchronize()
     print(f'[{tag}] one training step: {len(cap.fwd)} K1 forward, '
           f'{len(cap.dgrad)} K1 input-gradient, {len(cap.dw)} K4, '
-          f'{len(cap.nmap)} gather-patch calls', flush=True)
-    if not (cap.fwd and cap.dgrad and cap.dw):
+          f'{len(cap.nmap)} gather-patch, {len(rows.fwd)} + '
+          f'{len(rows.bwd)} gather_rows calls', flush=True)
+    if not (cap.fwd and cap.dgrad and cap.dw and rows.fwd and rows.bwd):
         fail('the training step missed a kernel use')
     cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
-             'band_conv_dw': [], 'nmap_conv_fwd_train': []}
+             'band_conv_dw': [], 'nmap_conv_fwd_train': [],
+             'gather_rows_fwd': [], 'gather_rows_bwd': []}
     with torch.no_grad():
         for key, calls in (('band_conv_fwd_train', cap.fwd),
                            ('band_conv_fwd_train_dgrad', cap.dgrad)):
@@ -940,6 +1065,15 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
             line = check_nmap_case(f'{i:02d} patch_k{a[2].shape[0]}', a)
             cases['nmap_conv_fwd_train'].append(line)
             print(f'[{tag}] nmap_conv {short(line)}', flush=True)
+        # the pool gathers (ops/gather_rows): the first two backward calls
+        # are also held against the CPU's index_add_, bit for bit
+        for key, calls in (('gather_rows_fwd', rows.fwd),
+                           ('gather_rows_bwd', rows.bwd)):
+            for i, a in enumerate(calls):
+                line = check_rows_case(f'{i:02d}', a, on_cpu=i < 2)
+                cases[key].append(line)
+                print(f'[{tag}] {key} {short(line)}', flush=True)
+        del rows
     return cases
 
 
@@ -949,8 +1083,10 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
     training conv may take its neighbor-map branch. Each step's loss
     terms are printed."""
     import torch
-    from virconv_tpu_torch.ops import band_conv, nmap_conv, sparse
+    from virconv_tpu_torch.ops import (band_conv, gather_rows, nmap_conv,
+                                       sparse)
     band_conv.launches = band_conv.dw_launches = nmap_conv.launches = 0
+    gather_rows.launches = gather_rows.bwd_launches = 0
     sparse.branch_counts.clear()
     torch.cuda.reset_peak_memory_stats()
     times, losses, terms = [], [], []
@@ -971,20 +1107,76 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
             fail(f'{tb["nonfinite_skips"]} skipped steps')
     counts = {'band_conv_fwd': band_conv.launches,
               'band_conv_dw': band_conv.dw_launches,
-              'nmap_conv_fwd': nmap_conv.launches}
+              'nmap_conv_fwd': nmap_conv.launches,
+              'gather_rows': gather_rows.launches + gather_rows.bwd_launches,
+              'gather_rows_bwd': gather_rows.bwd_launches}
     branches = dict(sparse.branch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'[{tag}] {model} training, {n_steps} steps of '
           f'{batch["points"].shape[0]} entries: ms/step {times}, loss '
           f'{losses}, peak memory {peak_gib:.2f} GiB, launches {counts}, '
           f'conv branches {branches}', flush=True)
-    for k in ('band_conv_fwd', 'band_conv_dw'):
+    for k in ('band_conv_fwd', 'band_conv_dw', 'gather_rows_bwd'):
         if counts[k] == 0:
             fail(f'{k} was never launched on the training path')
     if not branches.get('band_train') or branches.get('band_train_nmap', 0):
         fail(f'a band training conv left the band kernels: {branches}')
     return counts, {'ms_per_step': times, 'loss': losses, 'terms': terms,
                     'peak_memory_gib': peak_gib, 'conv_branches': branches}
+
+
+def backward_twice(cfg, batch, tag='phase 6b'):
+    """The forward and backward of one step, twice, from one fresh trainer
+    of ``cfg``: the same inputs, parameters and draws, no optimizer step.
+    Every parameter's ``.grad`` is compared bit for bit and the modules
+    whose gradients differ are printed; then a third pass under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` lists the
+    ops PyTorch knows to be non-repeatable (a listing only: the mode is
+    switched off after it). Fails if the two passes differ."""
+    import warnings
+    import torch
+    from virconv_tpu_torch.train.draws import Draws
+    from virconv_tpu_torch.train.trainer import Trainer, step_seed
+    trainer = Trainer(cfg=cfg, device='cuda', seed=0)
+    model, batch = trainer.model, trainer.to_device(batch)
+
+    def one_pass():
+        trainer.generator.manual_seed(step_seed(0, 0))
+        model.zero_grad(set_to_none=True)
+        out = model(batch, rng=Draws(trainer.generator))
+        out['loss'].backward()
+        torch.cuda.synchronize()
+        return float(out['loss']), {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters()
+                                    if p.grad is not None}
+    (loss_a, a), (loss_b, b) = one_pass(), one_pass()
+    differ = {}
+    for n, g in a.items():
+        if not torch.equal(g, b[n]):
+            mod = n.rsplit('.', 1)[0]
+            diff = float((g.double() - b[n].double()).abs().max())
+            differ[mod] = max(differ.get(mod, 0.0), diff)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            one_pass()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(' does not have')[0][:120]
+                      for w in caught
+                      if 'deterministic' in str(w.message)})
+    print(f'[{tag}] one step\'s backward twice: losses {loss_a!r} / '
+          f'{loss_b!r}, {len(a)} gradients, {len(differ)} modules differ: '
+          f'{json.dumps(differ)}; ops flagged by the deterministic mode: '
+          f'{flagged}', flush=True)
+    del trainer, model, a, b
+    torch.cuda.empty_cache()
+    if differ or loss_a != loss_b:
+        fail(f'{tag}: two backward passes of one step differ in '
+             f'{sorted(differ)}')
+    return {'loss': loss_a, 'modules_differing': differ,
+            'ops_flagged_by_deterministic_mode': flagged}
 
 
 def train_step_parity(cfg, batch, devices=('cpu', 'cuda')):
@@ -1056,20 +1248,22 @@ def eval_checkpoint(cfg, ckpt_dir, seed):
 
 
 def eval_scene(tmp, frames, batch_size, logger, make_cfg=None,
-               tag='phase 9'):
+               tag='phase 9', root=None):
     """Phase 9a (and 11e), the evaluation path at full width: a ``scene``
     KITTI tree of ``frames`` val frames (written once, under ``tmp``), its
     infos, a checkpoint of ``make_cfg``'s model (VirConv-T by default),
     then ``eval_one_ckpt`` on CUDA with every launch count set to 0 just
     before and read just after. Fails unless K1 and K2+K3 were launched,
     the native box library is loaded, each frame has its KITTI dict
-    (finite fields) and ``.txt`` file, and the metric has the R40 keys."""
+    (finite fields) and ``.txt`` file, and the metric has the R40 keys.
+    ``root``: a tree with its infos to evaluate in place of the scene
+    tree."""
     from virconv_tpu_torch.config import virconv_t_config
     from virconv_tpu_torch.ops import band_conv, native, roi_pool, sparse
     from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
     from virconv_tpu_torch.utils.mini_kitti import write_tree
     t = time.perf_counter()
-    root = tmp / 'scene'
+    root = root or tmp / 'scene'
     if not (root / 'kitti_infos_val.pkl').exists():
         write_tree(root, 'scene', frames=frames, seed=0)
     write_s = time.perf_counter() - t
@@ -1077,7 +1271,7 @@ def eval_scene(tmp, frames, batch_size, logger, make_cfg=None,
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     name = cfg.MODEL.BACKBONE_3D.NAME
     ckpt = eval_checkpoint(cfg, tmp / f'ckpt_full_{name}', seed=0)
-    out = tmp / f'eval_full_{name}'
+    out = tmp / f'eval_full_{name}_{root.name}'
     band_conv.launches = roi_pool.launches = 0
     sparse.branch_counts.clear()
     res = eval_one_ckpt(cfg, ckpt, logger, out, batch_size=batch_size,
@@ -1394,57 +1588,45 @@ L_CONVS = 20        # VirConv-L's sparse convs: 19 NRConv convs and conv_out
 SEMI_FRAMES, SEMI_N_TRAIN, SEMI_N_SEMI = 3, 2, 2   # phase 11f's tree
 
 
-def first_step_twice(cfg, batch):
-    """The first step of two fresh trainers of ``cfg`` from one seed on
-    ``batch``: the two losses (printed, not gated), whether they are the
-    same bits, and the first stage of the forward whose output differs
-    between the two runs (voxels, each backbone scale, BEV map,
-    proposals, the stage's sampled ROIs, predictions, loss) with its
-    largest difference."""
+def steps_twice(cfg, batch, n_steps, tag, model):
+    """Fault C4's gate: two fresh trainers of ``cfg`` (VirConv-T when
+    None) from one seed each take ``n_steps`` steps on ``batch``; after
+    every step each loss term and every parameter and BN statistic must be
+    the same bits in both. Returns each run's losses and ms per step."""
     import torch
     from virconv_tpu_torch.train.trainer import Trainer
     runs = []
     for _ in range(2):
-        trainer = Trainer(cfg=cfg, device='cuda', seed=0)
-        model, seen = trainer.model, {}
-        voxelize, forward = model.voxelize, model.forward
-
-        def vox(*a, **k):
-            st = voxelize(*a, **k)
-            seen.setdefault('voxels', st.feats.detach().clone())
-            return st
-
-        def fwd(*a, **k):
-            out = forward(*a, **k)
-            feats = out['backbone']['multi_scale_3d_features']
-            for name in ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4'):
-                seen[name] = feats[name].feats.detach().clone()
-            seen['encoded'] = out['backbone'][
-                'encoded_spconv_tensor'].feats.detach().clone()
-            seen['bev'] = out['bev_feats'].detach().clone()
-            seen['rois'] = out['rois'].detach().clone()
-            seen['sampled'] = torch.cat([t['targets']['sampled'].reshape(-1)
-                                         for t in out['stage_targets']])
-            seen['preds'] = out['batch_box_preds'].detach().clone()
-            seen['loss'] = out['loss'].detach().clone()
-            return out
-        model.voxelize, model.forward = vox, fwd
-        trainer.step(batch)
-        runs.append(seen)
-        del trainer, model
+        trainer, steps = Trainer(cfg=cfg, device='cuda', seed=0), []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, tb = trainer.step(batch)
+            torch.cuda.synchronize()
+            steps.append((1e3 * (time.perf_counter() - t),
+                          {'loss': float(loss),
+                           **{k: float(v) for k, v in tb.items()}},
+                          {n: v.detach().clone() for n, v in
+                           trainer.model.state_dict().items()}))
+        runs.append(steps)
+        del trainer
         torch.cuda.empty_cache()
-    a, b = runs
-    losses = [float(a['loss']), float(b['loss'])]
-    first = next((k for k in a if not torch.equal(a[k], b[k])), None)
-    diff = None if first is None else float(
-        (a[first].double() - b[first].double()).abs().max())
-    print(f'[phase 11] the first seeded step twice (not gated): losses '
-          f'{losses!r}, same bits {losses[0] == losses[1]}, relative '
-          f'difference {abs(losses[1] - losses[0]) / abs(losses[0]):.3g}; '
-          f'first stage that differs: {first} (max abs difference {diff})',
-          flush=True)
-    return {'losses': losses, 'same_bits': losses[0] == losses[1],
-            'first_differing_stage': first, 'max_abs_difference': diff}
+    report = {'losses': [[r[1]['loss'] for r in run] for run in runs],
+              'ms_per_step': [[r[0] for r in run] for run in runs],
+              'differing': []}
+    for i, (a, b) in enumerate(zip(*runs)):
+        terms = sorted(k for k in a[1] if a[1][k] != b[1][k])
+        params = sorted(n for n in a[2] if not torch.equal(a[2][n], b[2][n]))
+        report['differing'].append({'terms': terms, 'tensors': params})
+        print(f'[{tag}] {model}, two trainers from one seed, step {i + 1}: '
+              f'losses {a[1]["loss"]!r} / {b[1]["loss"]!r}; differing loss '
+              f'terms {terms}, differing parameters and statistics '
+              f'{len(params)} of {len(a[2])} {params[:6]}', flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    if any(d['terms'] or d['tensors'] for d in report['differing']):
+        fail(f'{model}: two seeded trainers differ (fault C4)')
+    return report
 
 
 def semi_train_cli(tmp, t_ckpt, batch_size):
@@ -1591,7 +1773,8 @@ def virconv_l_phase(tmp, logger):
             fail(f'a VirConv-L training step missed a kernel: {kinds}')
         del trainer
         torch.cuda.empty_cache()
-        train['first_step_twice'] = first_step_twice(cfg, batch)
+        train['steps_twice'] = steps_twice(cfg, batch, N_TRAIN_STEPS, tag,
+                                           'VirConv-L')
         del batch
         torch.cuda.empty_cache()
         tiny_batch = {k: v for k, v in
@@ -1607,6 +1790,195 @@ def virconv_l_phase(tmp, logger):
                    'tiny_cuda_vs_cpu': {'eval': tiny_eval,
                                         'train': tiny_train},
                    'eval': evaluation}
+
+
+VP_FRAMES = 4          # phase 12's scene tree
+CSPN_PER_FRAME = 12    # 6 iterations x 2 stages
+
+
+class CspnCapture:
+    """Records the inputs of every CSPN kernel call while it is entered
+    (the calls still launch)."""
+
+    def __init__(self):
+        from virconv_tpu_torch.ops import cspn
+        self.calls, self._cspn, self._orig = [], cspn, cspn._cspn_cuda
+
+    def __enter__(self):
+        def rec(*args):
+            self.calls.append(args)
+            return self._orig(*args)
+        self._cspn._cspn_cuda = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._cspn._cspn_cuda = self._orig
+        return False
+
+
+def check_cspn_case(name, args):
+    """One CSPN iteration of the full-width frame: the kernel against the
+    plain version on the same CUDA tensors (1e-4 x scale), both timed, and
+    the bound: the guides, depths and maps read once and the three depths
+    written once; 2 operations per tap and 4 for the blend per pixel and
+    kernel size, at the f32 peak."""
+    from virconv_tpu_torch.ops import cspn
+    guides, ds, h0, mask, dsparse, dilation, half_res = args
+    b, _, h, w = h0.shape
+    line = {'case': name, 'rows': b * h * w, 'stage': 's2' if half_res
+            else 's1', 'dilation': dilation}
+    got = cspn.cspn_iteration(guides, ds, h0, mask, dsparse, dilation,
+                              half_res)
+    want = cspn.cspn_iteration_plain(guides, ds, h0, mask, dsparse,
+                                     dilation, half_res)
+    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    tol = 1e-4 * max(1.0, max(float(x.abs().max()) for x in want))
+    line['max_abs_err_f32'] = err
+    line['bit_equal'] = all(bool((g == x).all()) for g, x in zip(got, want))
+    if not err <= tol:
+        fail(f'cspn {name}: max err {err} > {tol}')
+    line['ms'] = cuda_ms(lambda: cspn.cspn_iteration(
+        guides, ds, h0, mask, dsparse, dilation, half_res))
+    line['plain_ms'] = cuda_ms(lambda: cspn.cspn_iteration_plain(
+        guides, ds, h0, mask, dsparse, dilation, half_res), reps=3, warmup=1)
+    line['bytes'] = nbytes(*guides, *ds, h0, mask, dsparse) + 3 * nbytes(h0)
+    line['ops'] = float(b * h * w) * sum(2 * k * k + 4
+                                          for k in cspn.KERNEL_SIZES)
+    bound(line, F32_FLOPS)
+    return line
+
+
+def check_velodyne_depth(split, fid, n_points, n_lidar):
+    """One generated file: float16, 8 columns, the scan first (indicator
+    2, intensity x 10), then the virtual points (indicator 1, z < 1).
+    Returns the share of virtual points with a colour."""
+    pts = np.load(split / 'velodyne_depth' / f'{fid}.npy')
+    lidar = np.fromfile(split / 'velodyne' / f'{fid}.bin',
+                        np.float32).reshape(-1, 4)
+    ind = pts[:, 7].astype(np.float32) if pts.ndim == 2 else None
+    ok = (pts.dtype == np.float16 and pts.ndim == 2 and pts.shape[1] == 8
+          and len(pts) == n_points and len(lidar) == n_lidar
+          and n_points > n_lidar and (ind[:n_lidar] == 2).all()
+          and (ind[n_lidar:] == 1).all()
+          and np.array_equal(pts[:n_lidar, 3],
+                             (lidar[:, 3] * 10).astype(np.float16))
+          and (pts[n_lidar:, 2].astype(np.float32) <= 1.0).all()
+          and np.isfinite(pts.astype(np.float32)).all())
+    if not ok:
+        fail(f'velodyne_depth/{fid}.npy: {pts.dtype} {pts.shape}, '
+             f'{n_lidar} LiDAR rows, not the fused format')
+    return float((pts[n_lidar:, 4:7] > 0).any(1).mean())
+
+
+def virtual_points_phase(tmp, logger):
+    """Phase 12, PENet virtual points at full width (seeded weights): (a)
+    build PENetC2 on the card; (b) every CSPN kernel launch of one
+    352 x 1216 frame against the plain version, and the frame's depth
+    twice with the same bits; (c)
+    ``tools/generate_virtual_points_gpu.py``'s ``main`` over a
+    VP_FRAMES-frame scene tree with the CSPN count set to 0 just before
+    and read just after (CSPN_PER_FRAME per frame), each file checked;
+    (d) ``eval_one_ckpt`` of VirConv-T over the generated tree (K1 and
+    K2+K3 launched); (e) PENetC2 at 64 x 96 on CUDA against the CPU, the
+    depth within 1e-4 x scale. Returns (per-call lines, the numbers)."""
+    import torch
+    from virconv_tpu_torch.models.depth_completion import virtual_points as vp
+    from virconv_tpu_torch.models.depth_completion.penet import PENetC2
+    from virconv_tpu_torch.ops import cspn
+    from virconv_tpu_torch.utils.bench_inputs import FRAMES
+    from virconv_tpu_torch.utils.jax_weights import random_init_
+    from virconv_tpu_torch.utils.mini_kitti import write_tree
+    from virconv_tpu_torch.utils.png import read_png
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
+    import generate_virtual_points_gpu as cli
+    tag = 'phase 12'
+    t = time.perf_counter()
+    gen = vp.VirtualPointGenerator(device='cuda')
+    build_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in gen.model.parameters())
+    root = write_tree(tmp / 'vp_scene', 'scene', frames=VP_FRAMES, seed=0)
+    split = root / 'training'
+    print(f'[{tag}] PENetC2 on the card: {n_params} parameters, built and '
+          f'seeded in {build_s:.2f} s; a scene tree of {VP_FRAMES} frames',
+          flush=True)
+
+    prep = vp.prepare_frame(split, '000000')
+    with CspnCapture() as cap:
+        depth = gen.complete(*prep[1:5])
+    torch.cuda.synchronize()
+    if len(cap.calls) != CSPN_PER_FRAME or not np.isfinite(depth).all():
+        fail(f'one frame made {len(cap.calls)} CSPN launches')
+    images = sorted((split / 'image_2').glob('*.png'))
+    t = time.perf_counter()
+    for path in images:          # the library is built: prepare_frame ran
+        read_png(path)
+    png_s = (time.perf_counter() - t) / len(images)
+    repeat = gen.complete(*prep[1:5])
+    print(f'[{tag}] one frame\'s depth twice: the same bits '
+          f'{np.array_equal(depth, repeat)}', flush=True)
+    if not np.array_equal(depth, repeat):
+        fail('two forwards of one frame give different depths')
+    cases = [check_cspn_case(f'{i:02d}', a) for i, a in enumerate(cap.calls)]
+    for line in cases:
+        print(f'[{tag}] cspn {short(line)}', flush=True)
+    del cap, gen
+    torch.cuda.empty_cache()
+
+    cspn.launches = 0
+    res = cli.main(['--detpath', str(split)])
+    launches = cspn.launches
+    colour = [check_velodyne_depth(split, f, n, m) for f, n, m in
+              zip(res.frames, res.points, res.lidar_points)]
+    per_frame = res.per_frame()
+    stats = {'frames': len(res.frames), 'image_shape': list(prep[0].shape),
+             'crop': [vp.CROP_H, vp.CROP_W], 'parameters': n_params,
+             'cspn_launches': launches,
+             'cspn_launches_per_frame': launches / max(len(res.frames), 1),
+             'png_read_s_per_image': png_s,
+             'points_per_frame': res.points,
+             'lidar_points_per_frame': res.lidar_points,
+             'coloured_virtual_share': colour,
+             'seconds_per_frame': per_frame, 'seconds': res.seconds}
+    print(f'[{tag}] generate_virtual_points_gpu over {len(res.frames)} '
+          f'frames ({prep[0].shape[0]} x {prep[0].shape[1]} images): '
+          f'seconds per frame {json.dumps(per_frame)} (the PNG read alone '
+          f'{png_s:.4f} s per image), CSPN launches per frame '
+          f'{stats["cspn_launches_per_frame"]}, points per frame '
+          f'{res.points} (LiDAR {res.lidar_points}), coloured virtual '
+          f'share {[round(c, 3) for c in colour]}', flush=True)
+    if len(res.frames) != VP_FRAMES or launches != CSPN_PER_FRAME * VP_FRAMES:
+        fail(f'{launches} CSPN launches over {len(res.frames)} frames')
+
+    stats['eval'] = eval_scene(tmp, VP_FRAMES, FRAMES, logger, tag=tag,
+                               root=root)
+
+    rng = np.random.default_rng(0)
+    h, w = 64, 96
+    rgb = rng.uniform(0, 255, (1, 3, h, w)).astype(np.float32)
+    d = ((rng.uniform(size=(1, 1, h, w)) < 0.08)
+         * rng.uniform(2, 60, (1, 1, h, w))).astype(np.float32)
+    us, vs = np.meshgrid(np.arange(w), np.arange(h))
+    pos = np.stack([2 * us / (w - 1) - 1, 2 * vs / (h - 1) - 1])[None]
+    k = np.array([[[721.5, 0, w / 2], [0, 721.5, h / 2], [0, 0, 1]]],
+                 np.float32)
+    model = random_init_(PENetC2(), 0).eval()
+    outs = {}
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, deterministic=True, allow_tf32=False):
+        for dev in ('cpu', 'cuda'):
+            model = model.to(dev)
+            outs[dev] = model(*[torch.from_numpy(np.float32(x)).to(dev)
+                                for x in (rgb, d, pos, k)]).cpu()
+    scale = float(outs['cpu'].abs().max())
+    err = float((outs['cuda'] - outs['cpu']).abs().max())
+    stats['small_cuda_vs_cpu'] = {'max_abs_err': err, 'scale': scale}
+    print(f'[{tag}] PENetC2 at {h} x {w}, CUDA vs CPU: depth max err '
+          f'{err:.3g}, scale {scale:.4g} (tol 1e-4 x scale)', flush=True)
+    if not (np.isfinite(scale) and err <= 1e-4 * max(scale, 1.0)):
+        fail('PENetC2 at 64 x 96: CUDA and CPU disagree')
+    del model
+    torch.cuda.empty_cache()
+    return cases, stats
 
 
 def main():
@@ -1681,7 +2053,11 @@ def main():
         # ---- phase 6: the main training path --------------------------------
         t0 = phase_done(5, t0)
         train_counts, train_run = train_steps(trainer, batch, N_TRAIN_STEPS)
-        del trainer, batch
+        del trainer
+        torch.cuda.empty_cache()
+        # 6b: one step's backward twice, every gradient compared (fault C4)
+        train_run['backward_twice'] = backward_twice(None, batch)
+        del batch
 
         # ---- phase 7: tiny config training step, CUDA vs CPU ----------------
         t0 = phase_done(6, t0)
@@ -1723,11 +2099,21 @@ def main():
         t0 = phase_done(10, t0)
 
         # ---- phase 11: VirConv-L, and VirConv-S from phase 10's checkpoint --
+        # (C4's gate for VirConv-T first: two seeded trainers, phase 6's
+        # batch, the same bits after every step; VirConv-L's in 11c)
+        with torch.enable_grad():
+            t_steps_twice = steps_twice(None, train_batch(), N_TRAIN_STEPS,
+                                        'phase 11', 'VirConv-T')
         l_cases, virconv_l = virconv_l_phase(tmp, logger)
+        virconv_l['train']['steps_twice_virconv_t'] = t_steps_twice
         with torch.enable_grad():
             virconv_s = semi_train_cli(
                 tmp, latest_checkpoint(tmp / 'train_run' / 'ckpt'), FRAMES)
-    phase_done(11, t0)
+        t0 = phase_done(11, t0)
+
+        # ---- phase 12: PENet virtual points, then VirConv-T on them ---------
+        vp_cases, virtual_points = virtual_points_phase(tmp, logger)
+    phase_done(12, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -1741,11 +2127,27 @@ def main():
                                 'virconv_tpu/ops/pallas/onehot_conv.py:40'),
             # the band conv's gather patch: XLA's gather + matmul there
             'nmap_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
-                              'virconv_tpu/ops/sparse.py:238')}
+                              'virconv_tpu/ops/sparse.py:238'),
+            # not Pallas kernels: the pool gathers' custom_vjp and the
+            # XLA-fused CSPN loop there
+            'gather_rows': ('virconv_tpu_torch/csrc/gather_rows.cu',
+                            'virconv_tpu/models/roi_heads/voxel_pool.py:50'),
+            'cspn': ('virconv_tpu_torch/csrc/cspn.cu',
+                     'virconv_tpu/models/depth_completion/penet.py:272')}
     launches = {**counts, 'band_conv_dw': train_counts['band_conv_dw'],
-                **gather_counts}
+                **gather_counts, 'gather_rows': train_counts['gather_rows'],
+                'cspn': virtual_points['cspn_launches']}
     totals['band_conv_dw'] = step_totals['band_conv_dw']
     totals.update(gather_totals)
+    # gather_rows per training step (forward and backward calls), cspn per
+    # frame (its 12 iterations)
+    rows_lines = (train_cases['gather_rows_fwd']
+                  + train_cases['gather_rows_bwd'])
+    totals['gather_rows'] = {
+        **summed(rows_lines, 'step'),
+        'forward': step_totals['gather_rows_fwd'],
+        'backward': step_totals['gather_rows_bwd']}
+    totals['cspn'] = summed(vp_cases, 'frame')
     kernels = [{'name': name, 'route': 'cuda', 'source': s,
                 'replaces': rep, 'launches': launches[name], **totals[name]}
                for name, (s, rep) in meta.items()]
@@ -1804,11 +2206,16 @@ def main():
         l_serve['contexts_past_the_jax_patch_cap'],
         'train': {'launches': l_train['launches']['nmap_conv_fwd'],
                   **l_steps['nmap_conv_fwd_train']}}
+    by_name['gather_rows']['virconv_l'] = {
+        'launches': l_train['launches']['gather_rows'],
+        **summed(l_cases['gather_rows_fwd'] + l_cases['gather_rows_bwd'],
+                 'step')}
     print(json.dumps({'kernels': kernels, 'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,
                       'virconv_l': virconv_l, 'virconv_s': virconv_s,
-                      'cases': cases,
-                      'cases_virconv_l': l_cases}), flush=True)
+                      'virtual_points': virtual_points, 'cases': cases,
+                      'cases_virconv_l': l_cases,
+                      'cases_cspn': vp_cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

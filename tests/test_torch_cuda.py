@@ -857,3 +857,96 @@ def test_voxelize_is_repeatable_on_the_card():
     assert torch.equal(runs[0].coords.cpu(), cpu.coords)
     torch.testing.assert_close(runs[0].feats.cpu(), cpu.feats, atol=1e-6,
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize('case', ['hot_and_empty', 'wide_c100', 'empty_idx'])
+def test_gather_rows_kernels_match_plain_bit_for_bit(case):
+    """The masked row gather and its CSR backward against ``index_select``
+    times the mask and a sequential ``index_add_`` of the masked gradient
+    on the CPU: the same values (the kernel adds each row's valid
+    gradients in ascending position order and leaves out the invalid
+    ones' zeros), and two backward passes give the same bits."""
+    from virconv_tpu_torch.ops import gather_rows as tgr
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    n, c, m = {'hot_and_empty': (300, 32, 50000),
+               'wide_c100': (64, 100, 3000), 'empty_idx': (10, 8, 0)}[case]
+    idx = rng.integers(0, n, m)
+    idx[rng.uniform(size=m) < 0.4] = 5            # a hot row
+    idx[idx == 9] = 8                             # an empty row
+    valid = rng.uniform(size=m) >= 0.3
+    idx[~valid] = 0                               # the pool's empty slots
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32))
+    it, vt = torch.from_numpy(idx), torch.from_numpy(valid)
+    before = (tgr.launches, tgr.bwd_launches)
+    grads = []
+    for _ in range(2):
+        f = feats.to(dev).requires_grad_(True)
+        out = tgr.gather_rows(f, it.to(dev), vt.to(dev))
+        out.backward(g.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(out.detach().cpu(), feats[it] * vt[:, None])
+        grads.append(f.grad.cpu())
+    want = torch.zeros(n, c).index_add_(0, it, g * vt[:, None])
+    assert torch.equal(grads[0], want)
+    assert torch.equal(grads[0], grads[1])
+    assert tgr.bwd_launches == before[1] + 2
+    assert tgr.launches == before[0] + (2 if m else 0)
+
+
+def _cspn_inputs(rng, h, w, half_res, dev):
+    hg, wg = (h // 2, w // 2) if half_res else (h, w)
+    guides = [torch.from_numpy(rng.normal(0, 0.3, (2, k * k, hg, wg))
+                               .astype(np.float32)).to(dev)
+              for k in (3, 5, 7)]
+    ds = [torch.from_numpy(rng.uniform(1, 60, (2, 1, h, w))
+                           .astype(np.float32)).to(dev) for _ in range(3)]
+    h0 = torch.from_numpy(rng.uniform(1, 60, (2, 1, h, w))
+                          .astype(np.float32)).to(dev)
+    mask = torch.from_numpy((rng.uniform(0, 1, (2, 1, hg, wg))
+                             * (rng.uniform(size=(2, 1, hg, wg)) < 0.3))
+                            .astype(np.float32)).to(dev)
+    dsp = torch.from_numpy(rng.uniform(0, 60, (2, 1, hg, wg))
+                           .astype(np.float32)).to(dev)
+    return guides, ds, h0, mask, dsp
+
+
+@pytest.mark.parametrize('h,w,dilation,half_res', [
+    (5, 7, 1, False),        # odd sizes, borders everywhere
+    (33, 50, 1, False),
+    (3, 4, 2, False),        # taps past the whole image
+    (12, 18, 2, True),       # the half-resolution stage
+    (34, 66, 2, True)])
+def test_cspn_kernel_matches_plain(h, w, dilation, half_res):
+    """One CSPN iteration (k = 3, 5, 7) on the card against the plain
+    version on the same CUDA tensors and on the CPU: borders, dilation 2,
+    the half-resolution reads at (y >> 1, x >> 1), odd and even sizes.
+    The sums run in the plain version's order, round to nearest."""
+    from virconv_tpu_torch.ops import cspn as tcs
+    dev = _cuda()
+    args = _cspn_inputs(np.random.default_rng(h * w), h, w, half_res, dev)
+    before = tcs.launches
+    got = tcs.cspn_iteration(*args, dilation, half_res)
+    torch.cuda.synchronize()
+    assert tcs.launches == before + 1
+    plain = tcs.cspn_iteration_plain(*args, dilation, half_res)
+    cpu = tcs.cspn_iteration_plain(
+        *[[t.cpu() for t in a] if isinstance(a, list) else a.cpu()
+          for a in args], dilation, half_res)
+    for g, p, c in zip(got, plain, cpu):
+        scale = float(c.abs().max())
+        assert float((g - p).abs().max()) <= 1e-4 * scale
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale
+
+
+def test_cspn_kernel_rejects_bad_operands():
+    from virconv_tpu_torch.ops import cspn as tcs
+    dev = _cuda()
+    guides, ds, h0, mask, dsp = _cspn_inputs(np.random.default_rng(1), 8,
+                                             8, True, dev)
+    with pytest.raises(ValueError):          # full-resolution guides
+        tcs.cspn_iteration(guides, ds, h0, mask, dsp, 2, False)
+    with pytest.raises(ValueError):          # a double guide
+        tcs.cspn_iteration([guides[0].double()] + guides[1:], ds, h0, mask,
+                           dsp, 2, True)

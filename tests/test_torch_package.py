@@ -49,15 +49,21 @@ EVAL_MODULES = (
     'virconv_tpu_torch.datasets.augmentor.database_sampler',
     'virconv_tpu_torch.datasets.augmentor.data_augmentor',
     'virconv_tpu_torch.train.checkpoint',
-    'virconv_tpu_torch.train.eval_loop')
+    'virconv_tpu_torch.train.eval_loop',
+    'virconv_tpu_torch.ops.gather_rows', 'virconv_tpu_torch.ops.cspn',
+    'virconv_tpu_torch.utils.png',
+    'virconv_tpu_torch.models.depth_completion.penet',
+    'virconv_tpu_torch.models.depth_completion.penet_import',
+    'virconv_tpu_torch.models.depth_completion.depth2points',
+    'virconv_tpu_torch.models.depth_completion.virtual_points')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
              'cv2', 'yaml', 'orbax')
 
 
 def test_import_loads_no_jax_and_no_jax_package():
-    """Every module of the port, tools/test_gpu.py and tools/train_gpu.py
-    import without JAX, the JAX package, an image library, YAML or
-    orbax."""
+    """Every module of the port, tools/test_gpu.py, tools/train_gpu.py and
+    tools/generate_virtual_points_gpu.py import without JAX, the JAX
+    package, an image library, YAML or orbax."""
     code = (
         'import sys, runpy, virconv_tpu_torch, virconv_tpu_torch.serve, '
         'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
@@ -69,6 +75,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         + '\n'
         "runpy.run_path('tools/test_gpu.py', run_name='imported')\n"
         "runpy.run_path('tools/train_gpu.py', run_name='imported')\n"
+        "runpy.run_path('tools/generate_virtual_points_gpu.py', "
+        "run_name='imported')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         'print(bad)\n'
@@ -85,9 +93,10 @@ _IMPORT = re.compile(r'^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|'
 
 
 def test_sources_import_no_jax():
-    files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py',
-                                         ROOT / 'tools' / 'test_gpu.py',
-                                         ROOT / 'tools' / 'train_gpu.py']
+    files = sorted(PKG.rglob('*.py')) + [
+        ROOT / 'chip_smoke.py', ROOT / 'tools' / 'test_gpu.py',
+        ROOT / 'tools' / 'train_gpu.py',
+        ROOT / 'tools' / 'generate_virtual_points_gpu.py']
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in _IMPORT.finditer(f.read_text())]
@@ -113,6 +122,17 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
     with pytest.raises(RuntimeError, match='CUDA'):
         train_cli['main'](['--output_dir', str(tmp_path / 'out')])
     assert not (tmp_path / 'out').exists()
+    from virconv_tpu_torch.models.depth_completion.virtual_points import \
+        VirtualPointGenerator
+    with pytest.raises(RuntimeError, match='CUDA'):
+        VirtualPointGenerator()
+    vp_cli = runpy.run_path(str(ROOT / 'tools' /
+                                'generate_virtual_points_gpu.py'),
+                            run_name='imported')
+    (tmp_path / 'split' / 'velodyne').mkdir(parents=True)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        vp_cli['main'](['--detpath', str(tmp_path / 'split')])
+    assert not (tmp_path / 'split' / 'velodyne_depth').exists()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

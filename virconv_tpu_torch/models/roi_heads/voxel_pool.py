@@ -22,6 +22,7 @@ from torch import nn
 
 from ...ops import sparse as sp
 from ...ops import roi_pool as rp
+from ...ops.gather_rows import gather_rows
 from ..layers import MaskedBatchNorm
 
 CHUNK_BUDGET_EVAL = 64_000_000
@@ -317,8 +318,10 @@ class NeighborVoxelSAModule(nn.Module):
         relative positions (pos = rel @ W is linear in rel): mean =
         mean(rel) @ W and var = diag(W^T cov(rel) W), over the samples of
         valid queries, as the JAX package computes them. The rows are
-        gathered with ``index_select``, whose backward is an ``index_add_``
-        (atomic adds): the backward of ``feats[idx]`` (a sort-based
+        gathered with ``ops.gather_rows``, whose backward sums each voxel's
+        gradient rows in gather order without atomics (the same bits on
+        every run; ``index_select``'s ``index_add_`` adds with atomics in
+        any order). The backward of ``feats[idx]`` (a sort-based
         ``index_put_``) serializes the many queries of one voxel and took
         13 of the 16.7 s of a full-width step on an H100."""
         w_pos = getattr(self, f'mlp_pos{g}').kernel
@@ -334,8 +337,8 @@ class NeighborVoxelSAModule(nn.Module):
             mean_rel @ w_pos, var, cnt)
         pos = rel @ (w_pos * mult) + bias
         pos = torch.where(qm[..., None], pos, torch.zeros_like(pos))
-        rows = feats.index_select(0, idx.reshape(-1)).reshape(
-            *idx.shape, feats.shape[1])
-        x = torch.relu(rows * valid[..., None].to(feats.dtype) + pos)
+        rows = gather_rows(feats, idx, valid).reshape(*idx.shape,
+                                                      feats.shape[1])
+        x = torch.relu(rows + pos)
         x = torch.where(valid[..., None], x, torch.zeros_like(x))
         return x.amax(1)

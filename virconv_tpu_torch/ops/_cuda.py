@@ -23,7 +23,7 @@ CSRC = _PKG / 'csrc'
 BUILD = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false']
-SOURCES = ('band_conv', 'roi_pool', 'gather_conv')
+SOURCES = ('band_conv', 'roi_pool', 'gather_conv', 'gather_rows', 'cspn')
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 

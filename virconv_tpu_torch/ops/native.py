@@ -9,7 +9,8 @@ of the root ``csrc/Makefile``, so both libraries compute the same bits.
 
 Every entry point falls back to ``ops/boxes_np`` (with one warning on
 stderr) when no compiler is at hand. WBF clustering and the KITTI AP
-metric call these on the host.
+metric call these on the host. ``build('png')`` builds the PNG row
+unfilter of ``utils/png.py`` (``csrc/png.cpp``) the same way.
 """
 
 from __future__ import annotations
@@ -45,16 +46,18 @@ def _machine_tag():
     return platform.processor().encode()
 
 
-def _target():
-    src = CSRC / 'box_ops.cpp'
+def _target(name='box_ops'):
+    src = CSRC / f'{name}.cpp'
     h = hashlib.sha1(' '.join(CXX_FLAGS).encode() + b'\0' + _machine_tag()
                      + b'\0' + src.read_bytes())
-    return src, BUILD / f'libbox_ops_{h.hexdigest()[:12]}.so'
+    return src, BUILD / f'lib{name}_{h.hexdigest()[:12]}.so'
 
 
-def build():
-    """Compile the library if it is not built yet; returns its path."""
-    src, out = _target()
+def build(name='box_ops'):
+    """Compile the host library of ``csrc/<name>.cpp`` (the box ops by
+    default, ``png`` for the image reader) if it is not built yet; returns
+    its path."""
+    src, out = _target(name)
     if not out.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')

@@ -12,10 +12,13 @@ K6; the training step times; the evaluation's seconds per frame (phase
 and share of the loop spent waiting on the loader (phase 10a); VirConv-L's
 kernel sums, ms per request and per step, pool routes and evaluation, and
 VirConv-S's CLI steps (phase 11), the gather patch's sums and VirConv-L's
-contexts past the JAX package's patch cap on both routes; and phase 8's
-sums by layer shape (K,
-C -> C'). A row a log lacks (an
-older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
+contexts past the JAX package's patch cap on both routes; the pool
+gathers' (``gather_rows``) sums per training step beside ``index_add_``,
+phase 6b's gradient comparison and phase 11's two seeded trainers (fault
+C4); phase 12's CSPN kernel per frame, generation seconds per frame by
+stage, points per frame and the VirConv-T evaluation of the generated
+points; and phase 8's sums by layer shape (K, C -> C'). A row a log lacks
+(an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
 
@@ -53,12 +56,20 @@ def rows_of(data):
     cases, out = data['cases'], []
 
     def total(label, k, launches):
-        out.append((f'{label}: ms, launches, bound (by), plain ms',
+        lib = k.get('library_ms')
+        out.append((f'{label}: ms, launches, bound (by), plain ms'
+                    + (', library ms' if lib is not None else ''),
                     f'{k["ms"]:.3f} x{launches} {k["bound_ms"]:.4f} '
-                    f'({k["bound_by"]}) {k["plain_ms"]:.1f}'))
+                    f'({k["bound_by"]}) {k["plain_ms"]:.1f}'
+                    + (f' {lib:.3f}' if lib is not None else '')))
+    units = {'band_conv_dw': 'step', 'gather_rows': 'step', 'cspn': 'frame'}
     for k in data['kernels']:
-        unit = 'step' if k['name'] == 'band_conv_dw' else 'request'
+        unit = units.get(k['name'], 'request')
         total(f'{k["name"]} per {unit}', k, k['launches'])
+        for part in ('forward', 'backward'):        # gather_rows
+            if part in k:
+                total(f'{k["name"]} {part} per {unit}', k[part],
+                      k[part][f'launches_per_{unit}'])
         if 'train' in k:
             parts = [p for p in ('forward', 'input_grad') if p in k['train']]
             for part in parts:
@@ -123,12 +134,41 @@ def rows_of(data):
         out.append(('VirConv-L ms per step, peak GiB', ' '.join(
             f'{t:.1f}' for t in tr['ms_per_step'])
             + f' {tr["peak_memory_gib"]:.2f}'))
-        out.append(('VirConv-L first seeded step twice: losses',
-                    ' '.join(repr(x) for x in
-                             tr['first_step_twice']['losses'])))
+        if 'first_step_twice' in tr:         # before the C4 gate
+            out.append(('VirConv-L first seeded step twice: losses',
+                        ' '.join(repr(x) for x in
+                                 tr['first_step_twice']['losses'])))
+        for model, key in (('VirConv-T', 'steps_twice_virconv_t'),
+                           ('VirConv-L', 'steps_twice')):
+            if key in tr:
+                out.append((f'{model} two seeded trainers: losses (run 1)',
+                            ' '.join(f'{x:.6f}' for x in
+                                     tr[key]['losses'][0])))
+                out.append((f'{model} two seeded trainers: steps differing',
+                            str(sum(bool(d['terms'] or d['tensors'])
+                                    for d in tr[key]['differing']))))
         out.append(('VirConv-L eval: sec_per_example, loader s/frame',
                     f'{vl["eval"]["sec_per_example"]:.4f} '
                     f'{vl["eval"]["loader_sec_per_frame"]:.4f}'))
+    bt = data['train_step'].get('backward_twice')   # phase 6b
+    if bt is not None:
+        out.append(('backward twice: modules whose gradients differ',
+                    str(len(bt['modules_differing']))))
+    vp = data.get('virtual_points')          # phase 12 (absent before)
+    if vp is not None:
+        out.append(('virtual points: s/frame ' + ', '.join(
+            vp['seconds_per_frame']), ' '.join(
+            f'{v:.4f}' for v in vp['seconds_per_frame'].values())))
+        if 'png_read_s_per_image' in vp:
+            out.append(('virtual points: PNG read s per image',
+                        f'{vp["png_read_s_per_image"]:.4f}'))
+        out.append(('virtual points: CSPN launches per frame, points per '
+                    'frame', f'{vp["cspn_launches_per_frame"]:g} '
+                    + ' '.join(str(n) for n in vp['points_per_frame'])))
+        out.append(('virtual points: VirConv-T eval sec_per_example',
+                    f'{vp["eval"]["sec_per_example"]:.4f}'))
+        out.append(('PENetC2 64 x 96 CUDA vs CPU max err',
+                    f'{vp["small_cuda_vs_cpu"]["max_abs_err"]:.3g}'))
     vs = data.get('virconv_s')
     if vs is not None:
         out.append(('VirConv-S train_gpu ms per step', ' '.join(

@@ -50,6 +50,14 @@ class Trainer:
                 f'optimizer {name!r}: the port builds {sorted(OPTIMIZERS)}, '
                 'as the JAX package does')
         self.device = resolve_device(device)
+        if self.device.type == 'cuda':
+            # cuDNN may pick weight-gradient algorithms for the BEV and RPN
+            # convs that add with atomics in any order, so two runs of one
+            # step gave different gradients (as the pool gathers did,
+            # before ops.gather_rows): the deterministic algorithms give the
+            # same bits on every run, as the JAX package does. A global
+            # switch: it holds for every cuDNN call of the process.
+            torch.backends.cudnn.deterministic = True
         model = VoxelRCNN(self.cfg.MODEL, self.cfg.DATA_CONFIG,
                           num_class=len(self.cfg.CLASS_NAMES))
         if state_dict is None:

@@ -44,14 +44,17 @@ def _convert_kernel(path, k):
         return 'kernel', k
     if k.ndim == 2:
         return 'weight', k.T
-    if parent.startswith('deblock') and k.shape[0] > 1:
-        return "weight", k[::-1, ::-1].transpose(2, 3, 0, 1)
+    # a transposed conv by its kind: flax names an unnamed module after its
+    # class (PENet's ``ConvTranspose_0``); the BEV deblocks are named
+    if parent.startswith('ConvTranspose') or (
+            parent.startswith('deblock') and k.shape[0] > 1):
+        return 'weight', k[::-1, ::-1].transpose(2, 3, 0, 1)
     return 'weight', k.transpose(3, 2, 0, 1)
 
 
 def from_jax_variables(variables) -> dict:
     """Flax variables (or a gradient tree under 'params') -> a state_dict
-    of the port's VoxelRCNN."""
+    of the port's VoxelRCNN or PENetC2."""
     sd = {}
     for path, v in _walk(variables['params']):
         name = path[-1]

@@ -19,7 +19,10 @@ database (``gt_database_mm/``, ``kitti_dbinfos_train_mm.pkl``) with
 ``velodyne_depth`` holds the fused cloud as PENet writes it, float16:
 [x, y, z, intensity, r, g, b, indicator] with indicator 1 for virtual
 points and 2 for real LiDAR points, whose intensity is scaled by 10.
-Images are valid black PNGs written with ``zlib`` and ``struct``.
+Images are PNGs whose rows are written with all five PNG filters
+(``utils/png.encode_png``): seeded textured ones (``textured_image``) in
+``scene`` mode, so that virtual points made from them have colours,
+black ones in ``mini`` mode, as ``build_mini_kitti`` writes them.
 
 With ``n_semi`` the tree also has the semi split of VirConv-S: ``semi/``
 frames, ``ImageSets/semi.txt`` and ``kitti_infos_trainsemi.pkl``.
@@ -31,14 +34,12 @@ frames, ``ImageSets/semi.txt`` and ``kitti_infos_trainsemi.pkl``.
 from __future__ import annotations
 
 import pickle
-import struct
-import zlib
 from pathlib import Path
 
 import numpy as np
 
-from ..datasets.kitti.kitti_dataset_mm import PNG_SIGNATURE
 from .calibration import Calibration
+from .png import FILTERS, encode_png
 
 IMAGE_SHAPE = (375, 1242)
 SUBDIRS = ('velodyne', 'velodyne_depth', 'calib', 'label_2', 'planes',
@@ -56,17 +57,29 @@ MINI_CALIB = (
 PLANE = '# Plane\nWidth 4\nHeight 1\n0.0 -1.0 0.0 -1.73\n'
 
 
-def write_png(path, height, width):
-    """A black 8-bit RGB PNG of ``height`` x ``width``."""
-    def chunk(tag, data):
-        return (struct.pack('>I', len(data)) + tag + data
-                + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
-    rows = (b'\x00' + bytes(3 * width)) * height     # filter byte per row
-    Path(path).write_bytes(
-        PNG_SIGNATURE
-        + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 2, 0, 0,
-                                     0))
-        + chunk(b'IDAT', zlib.compress(rows, 9)) + chunk(b'IEND', b''))
+def write_png(path, height, width, image=None):
+    """An 8-bit RGB PNG of ``height`` x ``width``: ``image`` (H, W, 3)
+    uint8, black without one. Its rows cycle through the five PNG
+    filters."""
+    if image is None:
+        image = np.zeros((height, width, 3), np.uint8)
+    if image.shape != (height, width, 3):
+        raise ValueError(f'image {image.shape} for {height} x {width}')
+    Path(path).write_bytes(encode_png(image, FILTERS))
+
+
+def textured_image(seed, height=IMAGE_SHAPE[0], width=IMAGE_SHAPE[1]):
+    """A seeded (H, W, 3) uint8 image: smooth stripes of random phase and
+    period in each channel, plus noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    chans = []
+    for _ in range(3):
+        fy, fx, ph = rng.uniform(0.01, 0.1, 2).tolist() + [
+            rng.uniform(0, 2 * np.pi)]
+        chans.append(128 + 80 * np.sin(fy * y + fx * x + ph))
+    img = np.stack(chans, -1) + rng.normal(0, 12, (height, width, 3))
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
 def _calib_text(calib):
@@ -150,7 +163,9 @@ def _write_frames(split_dir, ids, mode, rng, scene_seed):
     for sub in SUBDIRS:
         (split_dir / sub).mkdir(parents=True, exist_ok=True)
     for k, fid in enumerate(ids):
-        write_png(split_dir / 'image_2' / f'{fid}.png', *IMAGE_SHAPE)
+        write_png(split_dir / 'image_2' / f'{fid}.png', *IMAGE_SHAPE,
+                  textured_image((scene_seed, k)) if mode == 'scene'
+                  else None)
         if mode == 'mini':
             (split_dir / 'calib' / f'{fid}.txt').write_text(MINI_CALIB)
             calib = Calibration(split_dir / 'calib' / f'{fid}.txt')
