@@ -8,17 +8,21 @@ Phases (each prints one line; any failure exits non-zero):
      native host box library (g++);
   2. hold every kernel call of one full-width request against its plain
      PyTorch version on the same inputs (captured from a warm-up forward:
-     every 3D submanifold, strided, 2D first-wins and conv_out layer, the
-     gather patch of each whose band windows do not all fit (the exact
-     conv from a neighbor map, ``nmap_conv``), every stride-8 and stride-4
-     pool the kernel runs): f32 and bf16 operands, identical ROI
-     selections, kernel and plain times, each call's bound, and each
-     kernel's sums over the request;
+     every 3D submanifold, strided, 2D first-wins and conv_out layer, with
+     the gather patch of each whose band windows do not all fit, which
+     runs in K1's call; every stride-8 and stride-4 pool the kernel runs):
+     f32 and bf16 operands, identical ROI selections, each patched call
+     bit for bit against the composition it replaced (K1, ``nmap_conv``,
+     the eager epilogue, an index put), kernel and plain times (the
+     patch's: the joined call's less the same call's without it, beside
+     the replaced composition's), each call's bound, and each kernel's
+     sums over the request;
   3. serve 3 requests of FRAMES=2 synthetic KITTI-scale frames through the
      full-width VirConv-T Detector (ROT_NUM=3, seeded random weights), with
      every launch count set to 0 just before and read just after: K1 and
      the gather patches launched as often as in the warm-up, no conv
-     context on the neighbor-map branch;
+     context on the neighbor-map branch; then one more request under
+     ``torch.profiler``, its kernel launches printed;
   4. the tiny test configuration on CUDA (kernels) and on the CPU (plain
      versions) with the same weights, TF32 off: final boxes and scores
      compared;
@@ -32,7 +36,9 @@ Phases (each prints one line; any failure exits non-zero):
      kernel and plain times with f32 operands, each call's bound at the
      f32 peak, and the sums per step (the gather's backward run twice
      for identical bits, its first two calls also against the CPU's
-     sequential ``index_add_`` bit for bit);
+     sequential ``index_add_`` bit for bit, its CSR against the stable
+     sort's; its CSR build, sums and hot-row tail timed apart and printed
+     per step);
   6. the main training path: 3 full-width steps with every launch count
      set to 0 just before and read just after: finite losses, no skipped
      step, K1, K4 and the gather's backward launched, no band training
@@ -46,15 +52,16 @@ Phases (each prints one line; any failure exits non-zero):
      CPU), TF32 off: loss and every gradient compared;
   8. the windowed gather convs K5 (``fused_gather_conv``, f32, tile 512)
      and K6 (``onehot_gather_conv``, tile 256, block 2048, bf16 and f32
-     operands) on the neighbor maps of all 24 submanifold convs of one
-     full-width request (captured from a warm-up forward), once each with
-     every launch count set to 0 just before and read just after, each
-     call in the mode ``kernel_mode`` picks (row and tile modes both
+     operands), and ``nmap_conv`` (the neighbor-map branch's exact conv),
+     on the neighbor maps of all 24 submanifold convs of one full-width
+     request (captured from a warm-up forward), once each with every
+     launch count set to 0 just before and read just after, each K5 and
+     K6 call in the mode ``kernel_mode`` picks (row and tile modes both
      launched); then per conv: kernel vs plain (identical misses), and on
      the rows of tiles with no misses whose K1 tile fits, K1's raw output
-     with the same operand type (f32: K5 and K6 bit for bit; bf16: within
-     1e-4, bit equality reported), kernel, plain and K1 times, the bound;
-     sums per request and misses per layer;
+     with the same operand type (f32: K5, K6 and ``nmap_conv`` bit for bit;
+     bf16: within 1e-4, bit equality reported), kernel, plain and K1
+     times, the bound; sums per request and misses per layer;
   9. the evaluation path: (a) a ``scene`` KITTI tree of EVAL_FRAMES=4
      KITTI-scale val frames, its infos and a seeded full-width VirConv-T
      checkpoint, evaluated by ``eval_one_ckpt`` on CUDA in batches of
@@ -121,16 +128,18 @@ Phases (each prints one line; any failure exits non-zero):
      over the generated tree, gated as 9a; (e) PENetC2 at 64 x 96 on CUDA
      against the CPU, the depth within 1e-4 x scale;
 then one JSON line of per-kernel numbers (the six kernels' ports, the
-gather patch's, ``gather_rows``' per training step and ``cspn``'s per
-frame; times and bounds per request, step or frame, summed over its
-calls; launches over the phase 3 requests, the phase 6 steps, the phase
-8 path and phase 12c, K1's and K2+K3's over the phase 9a run as
+gather patch's (``band_conv_patch``), ``nmap_conv``'s (phase 8),
+``gather_rows``' per training step and ``cspn``'s per frame; times and
+bounds per request, step or frame, summed over its calls; launches over
+the phase 3 requests, the phase 6 steps, the phase 8 path and phase 12c,
+K1's and K2+K3's over the phase 9a run as
 ``launches_eval``, and over phase 10a's steps and evaluation as
 ``launches_train_cli`` and ``launches_train_cli_eval``; VirConv-L's per
 request and per step under ``virconv_l``) with phase 9's numbers under
 ``eval``, phase 10's under ``train_cli``, phase 11's under ``virconv_l``
 and ``virconv_s`` and phase 12's under ``virtual_points``, the card's
-name and power limit, and the device JSON as the last line. Each phase
+name and power limit, and the device JSON as the last line; phase 3's
+launches per request under ``serve``. Each phase
 prints its seconds. It needs the repository around it: alone, or without
 a CUDA device, it exits non-zero and prints no result.
 """
@@ -188,59 +197,54 @@ def nbytes(*ts):
 
 class Capture:
     """Records the inputs of every kernel call of one warm-up forward (the
-    calls still launch the kernels)."""
+    calls still launch the kernels): K1's with their gather patches, and
+    the pools'."""
 
     def __init__(self):
-        from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool
-        self.band, self.pool, self.nmap = [], [], []
-        self._bc, self._rp, self._nc = band_conv, roi_pool, nmap_conv
-        self._orig = (band_conv._band_conv_cuda, roi_pool._roi_pool_cuda,
-                      nmap_conv._nmap_conv_cuda)
+        from virconv_tpu_torch.ops import band_conv, roi_pool
+        self.band, self.pool = [], []
+        self._bc, self._rp = band_conv, roi_pool
+        self._orig = (band_conv._band_conv_cuda, roi_pool._roi_pool_cuda)
 
     def __enter__(self):
-        orig_bc, orig_rp, orig_nc = self._orig
+        orig_bc, orig_rp = self._orig
 
-        def bc(feats, keys, plan, weights, scale, bias, relu, bf16):
-            self.band.append((feats, keys, plan, weights, scale, bias, relu))
+        def bc(feats, keys, plan, weights, scale, bias, relu, bf16,
+               patch=None):
+            self.band.append((feats, keys, plan, weights, scale, bias, relu,
+                              patch))
             return orig_bc(feats, keys, plan, weights, scale, bias, relu,
-                           bf16)
+                           bf16, patch)
 
         def rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr, bf16,
                sel_out=None):
             self.pool.append((plan, fg, w_eff, b_eff, specs, vs, stride, pcr))
             return orig_rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr,
                            bf16, sel_out)
-
-        def nc(feats, nmap, weights):
-            self.nmap.append((feats, nmap, weights))
-            return orig_nc(feats, nmap, weights)
         self._bc._band_conv_cuda, self._rp._roi_pool_cuda = bc, rp
-        self._nc._nmap_conv_cuda = nc
         return self
 
     def __exit__(self, *exc):
-        (self._bc._band_conv_cuda, self._rp._roi_pool_cuda,
-         self._nc._nmap_conv_cuda) = self._orig
+        self._bc._band_conv_cuda, self._rp._roi_pool_cuda = self._orig
         return False
 
 
 class TrainCapture:
-    """Records the inputs of every K1, K4 and neighbor-map conv call of one
-    training step (the calls still launch the kernels). K1 calls made while
-    the model's forward runs are the convs; those after it, in the
-    backward, are the input-gradient passes; the neighbor-map convs are
-    the gather patches of both."""
+    """Records the inputs of every K1 (with its gather patch) and K4 call of
+    one training step (the calls still launch the kernels). K1 calls made
+    while the model's forward runs are the convs; those after it, in the
+    backward, are the input-gradient passes."""
 
     def __init__(self, model):
-        from virconv_tpu_torch.ops import band_conv, nmap_conv
-        self.fwd, self.dgrad, self.dw, self.nmap = [], [], [], []
-        self._bc, self._nc, self._model = band_conv, nmap_conv, model
+        from virconv_tpu_torch.ops import band_conv
+        self.fwd, self.dgrad, self.dw = [], [], []
+        self._bc, self._model = band_conv, model
         self._orig = (band_conv._band_conv_cuda,
-                      band_conv._band_conv_dw_cuda, nmap_conv._nmap_conv_cuda)
+                      band_conv._band_conv_dw_cuda)
         self._in_forward = False
 
     def __enter__(self):
-        orig_k1, orig_k4, orig_nc = self._orig
+        orig_k1, orig_k4 = self._orig
         forward = self._model.forward
 
         def model_forward(*a, **k):
@@ -250,27 +254,23 @@ class TrainCapture:
             finally:
                 self._in_forward = False
 
-        def k1(feats, keys, plan, weights, scale, bias, relu, bf16):
+        def k1(feats, keys, plan, weights, scale, bias, relu, bf16,
+               patch=None):
             calls = self.fwd if self._in_forward else self.dgrad
-            calls.append((feats, keys, plan, weights, scale, bias, relu))
+            calls.append((feats, keys, plan, weights, scale, bias, relu,
+                          patch))
             return orig_k1(feats, keys, plan, weights, scale, bias, relu,
-                           bf16)
+                           bf16, patch)
 
         def k4(feats, keys, plan, g, valid_bits, bf16):
             self.dw.append((feats, keys, plan, g, valid_bits))
             return orig_k4(feats, keys, plan, g, valid_bits, bf16)
-
-        def nc(feats, nmap, weights):
-            self.nmap.append((feats, nmap, weights))
-            return orig_nc(feats, nmap, weights)
         self._model.forward = model_forward
         self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = k1, k4
-        self._nc._nmap_conv_cuda = nc
         return self
 
     def __exit__(self, *exc):
-        (self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda,
-         self._nc._nmap_conv_cuda) = self._orig
+        self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = self._orig
         del self._model.forward
         return False
 
@@ -295,23 +295,51 @@ def taps_hit(feats, keys, plan, valid_bits, row_valid=False):
                                              feats.shape[0]))
 
 
+def old_patch_composition(args, bf16):
+    """A band conv with its gather patch as it ran before the patch joined
+    K1's call: K1, then ``nmap_conv`` over the patch map, the eager
+    ``_epilogue`` and an index put."""
+    from virconv_tpu_torch.ops import band_conv as bc
+    from virconv_tpu_torch.ops import nmap_conv as nc
+    from virconv_tpu_torch.ops.sparse import _epilogue
+    feats, keys, plan, w, scale, bias, relu, (pidx, pnmap) = args
+    out = bc.band_conv(feats, keys, plan, w, scale, bias, relu, bf16)
+    out[pidx] = _epilogue(nc.nmap_conv(feats, pnmap, w), None, scale, bias,
+                          relu)
+    return out
+
+
 def check_band_case(name, args, bf16_timed=True, peak=BF16_FLOPS):
     """One main-path band-conv call: kernel vs plain (f32 and bf16
     operands), both timed with the path's operands (bf16 at serve, f32 in
-    training), and the call's bound at ``peak``."""
+    training), and the call's bound at ``peak``; K1's numbers are those of
+    the call without its gather patch. A call with a patch is also held
+    bit for bit against the composition the joined call replaces
+    (``old_patch_composition``), and its patch gets a line of its own
+    under ``patch`` (``patch_case``)."""
+    import torch
     from virconv_tpu_torch.ops import band_conv as bc
-    feats, keys, plan, w, scale, bias, relu = args
+    feats, keys, plan, w, scale, bias, relu, patch = args
     line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': plan.n_out,
-            'c_in': w.shape[1], 'c_out': w.shape[2], 'taps': w.shape[0]}
+            'c_in': w.shape[1], 'c_out': w.shape[2], 'taps': w.shape[0],
+            'patch_rows': 0 if patch is None else patch[0].shape[0]}
+    patch_err = 0.0
     for bf16 in (False, True):
-        got = bc.band_conv(feats, keys, plan, w, scale, bias, relu, bf16)
+        got = bc.band_conv(feats, keys, plan, w, scale, bias, relu, bf16,
+                           patch)
         want = bc.band_conv_plain(feats, keys, plan, w, scale, bias, relu,
-                                  bf16)
+                                  bf16, patch)
         err = float((got - want).abs().max())
         tol = 1e-4 * max(1.0, float(want.abs().max()))
         line[f'max_abs_err_{"bf16" if bf16 else "f32"}'] = err
         if not err <= tol:
             fail(f'band_conv {name} bf16={bf16}: max err {err} > {tol}')
+        if patch is not None and not bf16:
+            patch_err = float((got[patch[0]] - want[patch[0]]).abs().max())
+        if patch is not None and not torch.equal(
+                got, old_patch_composition(args, bf16)):
+            fail(f'band_conv {name} bf16={bf16}: the joined patch differs '
+                 'from K1 + nmap_conv + epilogue + index put')
     line['ms'] = cuda_ms(lambda: bc.band_conv(feats, keys, plan, w, scale,
                                               bias, relu, bf16_timed))
     line['plain_ms'] = cuda_ms(lambda: bc.band_conv_plain(
@@ -325,6 +353,49 @@ def check_band_case(name, args, bf16_timed=True, peak=BF16_FLOPS):
                             plan.blk, w) + plan.n_out * w.shape[2] * 4)
     line['ops'] = 2.0 * hits * w.shape[1] * w.shape[2]
     bound(line, peak)
+    if patch is not None:
+        line['patch'] = patch_case(name, args, bf16_timed, line['ms'],
+                                   patch_err)
+    return line
+
+
+def patch_case(name, args, bf16, k1_ms, err):
+    """The gather patch of one band-conv call: its time is the joined
+    call's less ``k1_ms`` (the same call without the patch, on the same
+    inputs); ``old_ms`` the same difference for the composition it
+    replaced (``old_patch_composition``), timed in this run; plain: the
+    plain patch (``nmap_conv_plain``, ``_epilogue``, an index put into
+    K1's output), ``err`` its rows' error against it with f32 operands.
+    Bound: the feature rows the map names, the map, index
+    and weights read once, the patch rows written once; 2*C*C' operations
+    per (row, tap) hit, at the f32 peak (f32 operands)."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv as bc
+    from virconv_tpu_torch.ops import nmap_conv as nc
+    from virconv_tpu_torch.ops.sparse import _epilogue
+    feats, keys, plan, w, scale, bias, relu, patch = args
+    pidx, pnmap = patch
+    out = bc.band_conv(feats, keys, plan, w, scale, bias, relu, bf16)
+
+    def plain():
+        out[pidx] = _epilogue(nc.nmap_conv_plain(feats, pnmap, w), None,
+                              scale, bias, relu)
+    line = {'case': name, 'rows': pidx.shape[0], 'rows_in': feats.shape[0],
+            'c_in': w.shape[1], 'c_out': w.shape[2], 'taps': w.shape[0],
+            'max_abs_err_f32': err}
+    line['fused_ms'] = cuda_ms(lambda: bc.band_conv(
+        feats, keys, plan, w, scale, bias, relu, bf16, patch))
+    line['ms'] = line['fused_ms'] - k1_ms
+    line['old_ms'] = cuda_ms(
+        lambda: old_patch_composition(args, bf16)) - k1_ms
+    line['plain_ms'] = cuda_ms(plain, reps=3, warmup=1)
+    hit = pnmap[pnmap >= 0]
+    line['taps_hit'] = int(hit.numel())
+    line['bytes'] = (int(torch.unique(hit).numel()) * feats.shape[1] * 4
+                     + nbytes(pnmap, pidx, w) + pidx.shape[0] * w.shape[2]
+                     * 4)
+    line['ops'] = 2.0 * line['taps_hit'] * w.shape[1] * w.shape[2]
+    bound(line, F32_FLOPS)
     return line
 
 
@@ -368,39 +439,6 @@ def check_dw_case(name, args):
     line['bytes'] = (nbytes(feats, keys, plan.base_keys, vb, plan.blk, g)
                      + k * c_in * c_out * 4)
     line['ops'] = 2.0 * hits * c_in * c_out
-    bound(line, F32_FLOPS)
-    return line
-
-
-def check_nmap_case(name, args):
-    """One exact neighbor-map conv call (a gather patch): kernel vs plain,
-    two kernel runs with identical bits, both timed, and the call's bound
-    at the f32 peak."""
-    import torch
-    from virconv_tpu_torch.ops import nmap_conv as nc
-    feats, nmap, w = args
-    line = {'case': name, 'rows_in': feats.shape[0], 'rows_out':
-            nmap.shape[0], 'c_in': w.shape[1], 'c_out': w.shape[2],
-            'taps': w.shape[0]}
-    got = nc.nmap_conv(feats, nmap, w)
-    if not torch.equal(got, nc.nmap_conv(feats, nmap, w)):
-        fail(f'nmap_conv {name}: two runs differ')
-    want = nc.nmap_conv_plain(feats, nmap, w)
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
-    line['max_abs_err_f32'] = err
-    if not err <= tol:
-        fail(f'nmap_conv {name}: max err {err} > {tol}')
-    line['ms'] = cuda_ms(lambda: nc.nmap_conv(feats, nmap, w))
-    line['plain_ms'] = cuda_ms(lambda: nc.nmap_conv_plain(feats, nmap, w),
-                               reps=3, warmup=1)
-    # bound: the feature rows the map names, the map and the weights read
-    # once, the output written once; 2*C*C' operations per (row, tap) hit
-    hit = nmap[nmap >= 0]
-    line['taps_hit'] = int(hit.numel())
-    line['bytes'] = (int(torch.unique(hit).numel()) * feats.shape[1] * 4
-                     + nbytes(nmap, w) + nmap.shape[0] * w.shape[2] * 4)
-    line['ops'] = 2.0 * line['taps_hit'] * w.shape[1] * w.shape[2]
     bound(line, F32_FLOPS)
     return line
 
@@ -490,10 +528,15 @@ def check_rows_case(name, args, on_cpu):
     equals ``index_select`` bit for bit. Backward: two kernel runs give the
     same bits, the kernel is within 1e-4 x scale of the plain version on
     the same CUDA tensors (``index_add_``, atomics) and, with ``on_cpu``,
-    equals it on the CPU bit for bit (a sequential ``index_add_``). Kernel,
-    plain and library times (the library call: ``index_select``, or the
-    ``index_add_`` of ``index_select``'s own backward), and the bound: the
-    inputs read and the output written once."""
+    equals it on the CPU bit for bit (a sequential ``index_add_``); its
+    CSR equals the plain ``csr_of``'s (a stable sort) on the valid
+    positions. Kernel, plain and library times (the library call:
+    ``index_select``, or the ``index_add_`` of ``index_select``'s own
+    backward), the backward's split (``csr_ms``: the CSR build; ``sum_ms``:
+    the sums; ``sum_warp_rows_ms``: the sums with the long rows' CTAs given
+    no row, so ``sum_ms`` less it is the hot-row tail; ``csr_sort_ms``: the
+    plain ``csr_of`` on the card, the CSR build the kernel had before), and
+    the bound: the inputs read and the output written once."""
     import torch
     from virconv_tpu_torch.ops import gather_rows as gr
     if len(args) == 3:
@@ -523,6 +566,17 @@ def check_rows_case(name, args, on_cpu):
             got, gr._gather_rows_bwd_cuda(g, idx, valid, n))
         if not line['bitwise_repeatable']:
             fail(f'gather_rows backward {name}: two runs differ')
+        scratch = gr._csr_cuda(idx, valid, n)
+        order, offsets = gr.csr_views(scratch, n)
+        p_order, p_offsets = gr.csr_of(idx, valid, n)
+        n_valid = int(p_offsets[-1])
+        line['csr_equal'] = (
+            torch.equal(offsets.long(), p_offsets)
+            and torch.equal(order[:n_valid].long(), p_order[:n_valid]))
+        if not line['csr_equal']:
+            fail(f'gather_rows backward {name}: the CSR differs from the '
+                 'stable sort\'s')
+        line['long_rows'] = int((offsets[1:] - offsets[:-1] > 256).sum())
         want = gr.gather_rows_bwd_plain(g, idx, valid, n)
         err = float((got - want).abs().max()) if got.numel() else 0.0
         tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel()
@@ -539,6 +593,13 @@ def check_rows_case(name, args, on_cpu):
                      'CPU index_add_')
         line['ms'] = cuda_ms(
             lambda: gr._gather_rows_bwd_cuda(g, idx, valid, n))
+        line['csr_ms'] = cuda_ms(lambda: gr._csr_cuda(idx, valid, n))
+        line['sum_ms'] = cuda_ms(lambda: gr._rows_sum_cuda(g, scratch, n))
+        no_long = scratch.clone()
+        no_long[3 * n + 1] = 0          # the long rows' count (Csr.n_long)
+        line['sum_warp_rows_ms'] = cuda_ms(
+            lambda: gr._rows_sum_cuda(g, no_long, n))
+        line['csr_sort_ms'] = cuda_ms(lambda: gr.csr_of(idx, valid, n))
         line['plain_ms'] = cuda_ms(
             lambda: gr.gather_rows_bwd_plain(g, idx, valid, n))
         line['library_ms'] = cuda_ms(
@@ -597,7 +658,7 @@ def sized_patch_contexts(det, frames, tag):
     """Phase 11a: the submanifold contexts of one request of ``det`` whose
     non-fitting rows exceed the JAX package's patch cap. Each of their
     convs is timed on the port's route (K1 with bf16 operands, then the
-    sized gather patch on ``nmap_conv``) and on the JAX package's branch
+    sized gather patch in the same call) and on the JAX package's branch
     for such a context (the full neighbor map, built once per context, and
     the plain gathered conv in f32), and the route with f32 operands is
     held against that branch (1e-4 x the output scale). Returns a line
@@ -727,16 +788,19 @@ def check_windowed(line, label, got, want, k1_out, fits, tile, exact):
     return miss
 
 
-def check_gather_case(lay, k5, k6, k6f):
-    """One submanifold conv through K5 (f32, tile 512) and K6 (tile 256,
-    block 2048; bf16 and f32 operands), given the main-path outputs ``k5``,
-    ``k6`` (K6 bf16) and ``k6f`` (K6 f32): each against its plain version
+def check_gather_case(lay, k5, k6, k6f, knm):
+    """One submanifold conv through K5 (f32, tile 512), K6 (tile 256,
+    block 2048; bf16 and f32 operands) and ``nmap_conv`` (the neighbor-map
+    branch's exact conv), given the path's outputs ``k5``, ``k6`` (K6
+    bf16), ``k6f`` (K6 f32) and ``knm``: each against its plain version
     and K1 with the same operand type (f32: bit for bit); times of the
     kernels, of their plain versions and of K1; each call's bound (K6 bf16
     at the bf16 peak, f32 calls at the f32 peak).
-    Returns (K5 line, K6 bf16 line, K6 f32 line)."""
+    Returns (K5 line, K6 bf16 line, K6 f32 line, nmap_conv line)."""
+    import torch
     from virconv_tpu_torch.ops import band_conv as bc
     from virconv_tpu_torch.ops import gather_conv as gc
+    from virconv_tpu_torch.ops import nmap_conv as nc
     from virconv_tpu_torch.ops import onehot_conv as oc
     src, nmap, w, plan, keys = (lay[k] for k in ('src', 'nmap', 'w', 'plan',
                                                  'keys'))
@@ -756,6 +820,11 @@ def check_gather_case(lay, k5, k6, k6f):
     l6f = dict(common)
     miss6f = check_windowed(l6f, 'f32', k6f, oc.onehot_gather_conv_plain(
         src, nmap, w, bf16=False), k1[False], fits, K6_TILE, exact=True)
+    lnm = dict(common)
+    none = torch.zeros((1,), dtype=torch.int32, device=src.device)
+    missnm = check_windowed(lnm, 'f32', (knm, none),
+                            (nc.nmap_conv_plain(src, nmap, w), none),
+                            k1[False], fits, n, exact=True)
     l5['ms'] = cuda_ms(lambda: gc.fused_gather_conv(src5, nmap5, w))
     l5['plain_ms'] = cuda_ms(lambda: gc.fused_gather_conv_plain(
         src5, nmap5, w), reps=3, warmup=1)
@@ -770,33 +839,40 @@ def check_gather_case(lay, k5, k6, k6f):
                                                       bf16=False))
     l6f['plain_ms'] = cuda_ms(lambda: oc.onehot_gather_conv_plain(
         src, nmap, w, bf16=False), reps=3, warmup=1)
+    lnm['ms'] = cuda_ms(lambda: nc.nmap_conv(src, nmap, w))
+    lnm['plain_ms'] = cuda_ms(lambda: nc.nmap_conv_plain(src, nmap, w),
+                              reps=3, warmup=1)
+    lnm['k1_ms'] = l5['k1_ms']
     # bound: features, map and weights read once, output and misses
     # written once; 2*C*C' operations per in-window (row, tap) hit, at the
     # f32 peak for f32 operands and the bf16 peak for K6's bf16 ones
     for line, f, m, miss, peak in ((l5, src5, nmap5, miss5, F32_FLOPS),
                                    (l6, src, nmap, miss6, BF16_FLOPS),
-                                   (l6f, src, nmap, miss6f, F32_FLOPS)):
+                                   (l6f, src, nmap, miss6f, F32_FLOPS),
+                                   (lnm, src, nmap, missnm, F32_FLOPS)):
         line['misses'] = int(miss.sum())
         line['taps_hit'] = valid - line['misses']
         line['bytes'] = (nbytes(f, m, w, miss)
                          + f.shape[0] * c_out * 4)
         line['ops'] = 2.0 * line['taps_hit'] * c_in * c_out
         bound(line, peak)
-    return l5, l6, l6f
+    return l5, l6, l6f, lnm
 
 
 def gather_conv_phase(det, frames):
-    """Phase 8: K5 and K6 over the neighbor maps of every submanifold conv
-    of one request (captured from a warm-up forward of ``det``). The path
-    (``fused_gather_conv`` once per conv with its defaults, and
-    ``onehot_gather_conv`` twice, with its bf16 default and with f32
-    operands) runs with every launch count set to 0 just before and read
-    just after; each call must have run in the mode ``kernel_mode`` picks.
-    Then every call is checked and timed. Returns (counts, per-call lines
-    by kernel)."""
+    """Phase 8: K5, K6 and ``nmap_conv`` over the neighbor maps of every
+    submanifold conv of one request (captured from a warm-up forward of
+    ``det``). The path (``fused_gather_conv`` once per conv with its
+    defaults, ``onehot_gather_conv`` twice, with its bf16 default and with
+    f32 operands, and ``nmap_conv``, the conv a context with unsorted keys
+    takes) runs with every launch count set to 0 just before and read just
+    after; each K5 and K6 call must have run in the mode ``kernel_mode``
+    picks. Then every call is checked and timed. Returns (counts, K5's and
+    K6's launches by mode, per-call lines by kernel)."""
     import collections
     import torch
     from virconv_tpu_torch.ops import gather_conv as gc
+    from virconv_tpu_torch.ops import nmap_conv as nc
     from virconv_tpu_torch.ops import onehot_conv as oc
     with SubmCapture() as cap:
         det.forward(frames)
@@ -808,17 +884,18 @@ def gather_conv_phase(det, frames):
           f'{taps.count(9)} with K=9)', flush=True)
     if (len(layers), taps.count(27), taps.count(9)) != (24, 16, 8):
         fail('expected 24 submanifold convs: 16 with K=27, 8 with K=9')
-    gc.launches = oc.launches = 0
+    gc.launches = oc.launches = nc.launches = 0
     gc.mode_launches.clear()
     oc.mode_launches.clear()
     outs = [(gc.fused_gather_conv(lay['src5'], lay['nmap5'], lay['w']),
              oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w']),
              oc.onehot_gather_conv(lay['src'], lay['nmap'], lay['w'],
-                                   bf16=False))
+                                   bf16=False),
+             nc.nmap_conv(lay['src'], lay['nmap'], lay['w']))
             for lay in layers]
     torch.cuda.synchronize()
     counts = {'gather_conv_fwd': gc.launches,
-              'onehot_conv_fwd': oc.launches}
+              'onehot_conv_fwd': oc.launches, 'nmap_conv_fwd': nc.launches}
     by_mode = {'gather_conv_fwd': dict(gc.mode_launches),
                'onehot_conv_fwd': dict(oc.mode_launches)}
     print(f'[phase 8] launches over the 24 convs {counts}, by mode '
@@ -831,17 +908,20 @@ def gather_conv_phase(det, frames):
     if by_mode != want or not {'row', 'tile'} <= set(modes):
         fail(f'launches by mode {by_mode}, expected {want} (row and tile '
              'modes both)')
+    if counts['nmap_conv_fwd'] != len(layers):
+        fail(f'{counts["nmap_conv_fwd"]} nmap_conv launches for '
+             f'{len(layers)} convs')
     cases = {'gather_conv_fwd': [], 'onehot_conv_fwd': [],
-             'onehot_conv_fwd_f32': []}
-    for lay, (k5, k6, k6f) in zip(layers, outs):
-        lines = check_gather_case(lay, k5, k6, k6f)
+             'onehot_conv_fwd_f32': [], 'nmap_conv_fwd': []}
+    for lay, (k5, k6, k6f, knm) in zip(layers, outs):
+        lines = check_gather_case(lay, k5, k6, k6f, knm)
         for (name, calls), line in zip(cases.items(), lines):
             calls.append(line)
             print(f'[phase 8] {name} {short(line)}', flush=True)
     equal = sum(c['k1_bit_equal_bf16'] for c in cases['onehot_conv_fwd'])
-    print(f'[phase 8] on zero-miss fitting rows K5 and K6 f32 equal K1 f32 '
-          f'bit for bit on all 24 convs; K6 bf16 equals K1 bf16 bit for bit '
-          f'on {equal} of 24', flush=True)
+    print(f'[phase 8] on zero-miss fitting rows K5, K6 f32 and nmap_conv '
+          f'equal K1 f32 bit for bit on all 24 convs; K6 bf16 equals K1 '
+          f'bf16 bit for bit on {equal} of 24', flush=True)
     return counts, by_mode, cases
 
 
@@ -874,6 +954,14 @@ def summed(lines, unit='request'):
             else None}
 
 
+def patch_totals(lines, unit='request'):
+    """``summed`` for the gather patches' lines, with the joined calls'
+    times and the times of the composition they replaced."""
+    return {**summed(lines, unit),
+            'fused_ms': sum(c['fused_ms'] for c in lines),
+            'old_ms': sum(c['old_ms'] for c in lines)}
+
+
 def short(line):
     keep = ('case', 'stage', 'dilation', 'rows_in', 'rows_out', 'rows',
             'c_in', 'c_out', 'taps', 'layout', 'mode', 'rois',
@@ -881,8 +969,10 @@ def short(line):
             'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16',
             'k1_err_f32', 'k1_err_bf16', 'k1_bit_equal_f32',
             'k1_bit_equal_bf16', 'bitwise_repeatable', 'bit_equal',
-            'equal_to_cpu_index_add', 'max_rows_per_source', 'ms',
-            'plain_ms', 'library_ms', 'k1_ms', 'bound_ms', 'bound_by')
+            'equal_to_cpu_index_add', 'max_rows_per_source', 'long_rows',
+            'csr_equal', 'patch_rows', 'ms', 'fused_ms', 'old_ms', 'csr_ms',
+            'sum_ms', 'sum_warp_rows_ms', 'csr_sort_ms', 'plain_ms',
+            'library_ms', 'k1_ms', 'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
 
 
@@ -920,26 +1010,26 @@ def tiny_train_batch(rng, frames=2):
 
 
 def request_kernel_calls(det, frames, tag='phase 2'):
-    """Phase 2 (and 11a): every K1, gather-patch (``nmap_conv``) and K2+K3
+    """Phase 2 (and 11a): every K1 call (with its gather patch) and K2+K3
     call of one request of ``det``, captured from a warm-up forward, held
-    against its plain version (``check_band_case``, ``check_nmap_case``,
-    ``check_pool_case``). Returns (per-call lines by kernel, the band
-    convs' tap counts, the pools' (stride, Q))."""
+    against its plain version (``check_band_case``, ``check_pool_case``).
+    Returns (per-call lines by kernel, the band convs' tap counts, the
+    pools' (stride, Q))."""
     import torch
     with Capture() as cap:
         det.forward(frames)
         torch.cuda.synchronize()
     taps = {a[3].shape[0] for a in cap.band}
     pools = {(a[6], a[0].q_per_roi) for a in cap.pool}
-    cases = {'band_conv_fwd': [], 'nmap_conv_fwd': [], 'roi_pool_fwd': []}
+    cases = {'band_conv_fwd': [], 'band_conv_patch': [], 'roi_pool_fwd': []}
     for i, a in enumerate(cap.band):
         line = check_band_case(f'{i:02d} {band_kind(a[0], a[2], a[3])}', a)
         cases['band_conv_fwd'].append(line)
         print(f'[{tag}] band_conv {short(line)}', flush=True)
-    for i, a in enumerate(cap.nmap):
-        line = check_nmap_case(f'{i:02d} patch_k{a[2].shape[0]}', a)
-        cases['nmap_conv_fwd'].append(line)
-        print(f'[{tag}] nmap_conv {short(line)}', flush=True)
+        if 'patch' in line:
+            cases['band_conv_patch'].append(line.pop('patch'))
+            print(f'[{tag}] band_conv patch '
+                  f'{short(cases["band_conv_patch"][-1])}', flush=True)
     for i, a in enumerate(cap.pool):
         line = check_pool_case(
             f'{i} stride{a[6]}_q{a[0].q_per_roi}', a)
@@ -955,11 +1045,16 @@ def serve_requests(det, frames, n_requests, model, per_request,
     after; finite detections and raw outputs, K1 and K2+K3 launched, K1
     and the gather patches launched ``per_request`` times per request
     (the warm-up's calls), no conv context on the neighbor-map branch.
-    Returns (launch counts, the run's numbers)."""
+    Then one more request under ``torch.profiler``: its kernel launches
+    (``profile_serve.summarize``). Returns (launch counts, the run's
+    numbers)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from virconv_tpu_torch.models.roi_heads import voxel_pool
     from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool, sparse
-    band_conv.launches = roi_pool.launches = nmap_conv.launches = 0
+    from virconv_tpu_torch.profile_serve import summarize
+    band_conv.launches = band_conv.patch_launches = roi_pool.launches = 0
+    nmap_conv.launches = 0
     sparse.branch_counts.clear()
     voxel_pool.branch_counts.clear()
     times, dets = [], []
@@ -976,9 +1071,21 @@ def serve_requests(det, frames, n_requests, model, per_request,
                 fail('non-finite detections')
     counts = {'band_conv_fwd': band_conv.launches,
               'roi_pool_fwd': roi_pool.launches,
+              'band_conv_patch': band_conv.patch_launches,
               'nmap_conv_fwd': nmap_conv.launches}
     conv_branches = dict(sparse.branch_counts)
     pool_branches = dict(voxel_pool.branch_counts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        det(frames)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            traced = summarize(json.load(f), traced_ms)
     raw = det.forward(frames)
     for k in ('batch_box_preds', 'batch_cls_preds'):
         if not bool(torch.isfinite(raw[k]).all()):
@@ -990,18 +1097,27 @@ def serve_requests(det, frames, n_requests, model, per_request,
           f'launches {counts}, conv branches {conv_branches}, pool '
           f'branches {pool_branches} (over all {n_requests} requests)',
           flush=True)
+    print(f'[{tag}] one more request under torch.profiler: '
+          f'{traced["kernel_launches"]} kernel launches per request, wall '
+          f'{traced_ms:.1f} ms, device busy {traced["device_busy_ms"]:.1f} '
+          f'ms', flush=True)
     for k in ('band_conv_fwd', 'roi_pool_fwd'):
         if counts[k] == 0:
             fail(f'{k} was never launched on the main path')
-    for k in ('band_conv_fwd', 'nmap_conv_fwd'):
+    for k in ('band_conv_fwd', 'band_conv_patch'):
         if counts[k] != per_request[k] * n_requests:
             fail(f'{counts[k]} {k} launches over {n_requests} requests, '
                  f'{per_request[k]} per request in the warm-up')
-    if conv_branches.get('nmap_slow', 0):
+    if conv_branches.get('nmap_slow', 0) or counts['nmap_conv_fwd']:
         fail(f'a conv context left the band kernel: {conv_branches}')
     return counts, {'ms_per_request': times, 'detections_per_frame': dets,
                     'conv_branches': conv_branches,
-                    'pool_branches': pool_branches}
+                    'pool_branches': pool_branches,
+                    'kernel_launches_per_request':
+                    traced['kernel_launches'],
+                    'traced_request': {k: traced[k] for k in (
+                        'request_wall_ms', 'device_busy_ms',
+                        'device_busy_share')}}
 
 
 def tiny_serve_parity(cfg, frames=None, tag='phase 4'):
@@ -1039,14 +1155,15 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
     with cap, RowsCapture() as rows:
         trainer.step(batch)
     torch.cuda.synchronize()
+    n_patched = sum(a[7] is not None for a in cap.fwd + cap.dgrad)
     print(f'[{tag}] one training step: {len(cap.fwd)} K1 forward, '
-          f'{len(cap.dgrad)} K1 input-gradient, {len(cap.dw)} K4, '
-          f'{len(cap.nmap)} gather-patch, {len(rows.fwd)} + '
+          f'{len(cap.dgrad)} K1 input-gradient ({n_patched} with a gather '
+          f'patch), {len(cap.dw)} K4, {len(rows.fwd)} + '
           f'{len(rows.bwd)} gather_rows calls', flush=True)
     if not (cap.fwd and cap.dgrad and cap.dw and rows.fwd and rows.bwd):
         fail('the training step missed a kernel use')
     cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
-             'band_conv_dw': [], 'nmap_conv_fwd_train': [],
+             'band_conv_dw': [], 'band_conv_patch_train': [],
              'gather_rows_fwd': [], 'gather_rows_bwd': []}
     with torch.no_grad():
         for key, calls in (('band_conv_fwd_train', cap.fwd),
@@ -1057,14 +1174,15 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
                     bf16_timed=False, peak=F32_FLOPS)
                 cases[key].append(line)
                 print(f'[{tag}] {key} {short(line)}', flush=True)
+                if 'patch' in line:
+                    cases['band_conv_patch_train'].append(line.pop('patch'))
+                    print(f'[{tag}] {key} patch '
+                          f'{short(cases["band_conv_patch_train"][-1])}',
+                          flush=True)
         for i, a in enumerate(cap.dw):
             line = check_dw_case(f'{i:02d} k{len(a[2].deltas)}', a)
             cases['band_conv_dw'].append(line)
             print(f'[{tag}] band_conv_dw {short(line)}', flush=True)
-        for i, a in enumerate(cap.nmap):
-            line = check_nmap_case(f'{i:02d} patch_k{a[2].shape[0]}', a)
-            cases['nmap_conv_fwd_train'].append(line)
-            print(f'[{tag}] nmap_conv {short(line)}', flush=True)
         # the pool gathers (ops/gather_rows): the first two backward calls
         # are also held against the CPU's index_add_, bit for bit
         for key, calls in (('gather_rows_fwd', rows.fwd),
@@ -1077,15 +1195,28 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
     return cases
 
 
+def rows_bwd_split(lines, tag='phase 5'):
+    """``gather_rows``' backward per step by part (``check_rows_case``):
+    the CSR build, the sums, the hot-row tail, and the CSR build of the
+    kernel before (``csr_of``); printed and returned."""
+    split = {k: sum(c[k] for c in lines) for k in (
+        'ms', 'csr_ms', 'sum_ms', 'sum_warp_rows_ms', 'csr_sort_ms')}
+    split['hot_row_tail_ms'] = split['sum_ms'] - split['sum_warp_rows_ms']
+    split['long_rows'] = sum(c['long_rows'] for c in lines)
+    print(f'[{tag}] gather_rows backward per step, {len(lines)} calls: '
+          f'{json.dumps(split)}', flush=True)
+    return split
+
+
 def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
     """Phase 6 (and 11c), the main training path: ``n_steps`` steps with
     every launch count set to 0 just before and read just after; no band
     training conv may take its neighbor-map branch. Each step's loss
     terms are printed."""
     import torch
-    from virconv_tpu_torch.ops import (band_conv, gather_rows, nmap_conv,
-                                       sparse)
-    band_conv.launches = band_conv.dw_launches = nmap_conv.launches = 0
+    from virconv_tpu_torch.ops import band_conv, gather_rows, sparse
+    band_conv.launches = band_conv.dw_launches = 0
+    band_conv.patch_launches = 0
     gather_rows.launches = gather_rows.bwd_launches = 0
     sparse.branch_counts.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -1107,7 +1238,7 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
             fail(f'{tb["nonfinite_skips"]} skipped steps')
     counts = {'band_conv_fwd': band_conv.launches,
               'band_conv_dw': band_conv.dw_launches,
-              'nmap_conv_fwd': nmap_conv.launches,
+              'band_conv_patch': band_conv.patch_launches,
               'gather_rows': gather_rows.launches + gather_rows.bwd_launches,
               'gather_rows_bwd': gather_rows.bwd_launches}
     branches = dict(sparse.branch_counts)
@@ -1732,7 +1863,7 @@ def virconv_l_phase(tmp, logger):
     n_k1 = len(cases['band_conv_fwd'])
     print(f'[{tag}] one VirConv-L request: {n_k1} of its {L_CONVS} sparse '
           f'convs on K1 (taps {sorted(taps)}), '
-          f'{len(cases["nmap_conv_fwd"])} gather patches, '
+          f'{len(cases["band_conv_patch"])} with a gather patch, '
           f'{len(cases["roi_pool_fwd"])} K2+K3 calls (stride, Q) '
           f'{sorted(pools)}', flush=True)
     if n_k1 != L_CONVS or {27, 9, 3} - taps:
@@ -1742,7 +1873,7 @@ def virconv_l_phase(tmp, logger):
         fail('no VirConv-L pool took the kernel')
     past_cap = sized_patch_contexts(det, frames, tag)
     per_request = {k: len(cases[k]) for k in ('band_conv_fwd',
-                                              'nmap_conv_fwd')}
+                                              'band_conv_patch')}
     counts, serve = serve_requests(det, frames, N_REQUESTS, 'VirConv-L',
                                    per_request, tag)
     serve['contexts_past_the_jax_patch_cap'] = past_cap
@@ -2027,9 +2158,9 @@ def main():
 
     # ---- phase 3: the main path --------------------------------------------
     t0 = phase_done(2, t0)
-    counts, _ = serve_requests(
+    counts, serve_run = serve_requests(
         det, frames, N_REQUESTS, 'VirConv-T',
-        {k: len(cases[k]) for k in ('band_conv_fwd', 'nmap_conv_fwd')})
+        {k: len(cases[k]) for k in ('band_conv_fwd', 'band_conv_patch')})
     del det
 
     # ---- phase 4: tiny config, CUDA kernels vs CPU plain -------------------
@@ -2049,6 +2180,8 @@ def main():
         step_totals = {k: summed(v, 'step') for k, v in train_cases.items()}
         print(f'[phase 5] per training step, summed over its calls: '
               f'{json.dumps(step_totals)}', flush=True)
+        step_totals['gather_rows_bwd']['split'] = rows_bwd_split(
+            train_cases['gather_rows_bwd'])
 
         # ---- phase 6: the main training path --------------------------------
         t0 = phase_done(5, t0)
@@ -2074,7 +2207,7 @@ def main():
         v['k1_ms'] = sum(c['k1_ms'] for c in gather_cases[k])
     misses = {a['case']: {'gather_conv_fwd': a['misses'],
                           'onehot_conv_fwd': b['misses']}
-              for a, b, _ in zip(*gather_cases.values())}
+              for a, b, *_ in zip(*gather_cases.values())}
     print(f'[phase 8] per request, summed over its 24 convs (k1_ms: K1 on '
           f'the same layers with the same operand type): '
           f'{json.dumps(gather_totals)}', flush=True)
@@ -2125,7 +2258,9 @@ def main():
                                 'virconv_tpu/ops/pallas/gather_conv.py:42'),
             'onehot_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
                                 'virconv_tpu/ops/pallas/onehot_conv.py:40'),
-            # the band conv's gather patch: XLA's gather + matmul there
+            # the band conv's gather patch, in K1's call, and the conv of
+            # the neighbor-map branch: XLA's gather + matmul there
+            'band_conv_patch': (src, 'virconv_tpu/ops/sparse.py:238'),
             'nmap_conv_fwd': ('virconv_tpu_torch/csrc/gather_conv.cu',
                               'virconv_tpu/ops/sparse.py:238'),
             # not Pallas kernels: the pool gathers' custom_vjp and the
@@ -2139,6 +2274,7 @@ def main():
                 'cspn': virtual_points['cspn_launches']}
     totals['band_conv_dw'] = step_totals['band_conv_dw']
     totals.update(gather_totals)
+    totals['band_conv_patch'] = patch_totals(cases['band_conv_patch'])
     # gather_rows per training step (forward and backward calls), cspn per
     # frame (its 12 iterations)
     rows_lines = (train_cases['gather_rows_fwd']
@@ -2166,9 +2302,9 @@ def main():
         'launches': train_counts['band_conv_fwd'], **k1_train,
         'forward': step_totals['band_conv_fwd_train'],
         'input_grad': step_totals['band_conv_fwd_train_dgrad']}
-    by_name['nmap_conv_fwd']['train'] = {
-        'launches': train_counts['nmap_conv_fwd'],
-        **step_totals['nmap_conv_fwd_train']}
+    by_name['band_conv_patch']['train'] = {
+        'launches': train_counts['band_conv_patch'],
+        **patch_totals(train_cases['band_conv_patch_train'], 'step')}
     for k in kernels[:2]:
         k['launches_eval'] = eval_run['launches'][k['name']]
     # phase 10: the training CLI's steps, and the evaluation after them
@@ -2181,7 +2317,7 @@ def main():
         k['launches_train_cli_eval'] = train_cli['launches_eval'][k['name']]
     # phase 11: VirConv-L's K1 and K2+K3 per request, K1 and K4 per step
     l_totals = {k: summed(v) for k, v in l_cases.items()
-                if k in ('band_conv_fwd', 'roi_pool_fwd', 'nmap_conv_fwd')}
+                if k in ('band_conv_fwd', 'roi_pool_fwd', 'band_conv_patch')}
     l_steps = {k: summed(v, 'step') for k, v in l_cases.items()
                if k not in l_totals}
     l_serve, l_train = virconv_l['serve'], virconv_l['train']
@@ -2199,18 +2335,21 @@ def main():
     by_name['band_conv_dw']['virconv_l'] = {
         'launches': l_train['launches']['band_conv_dw'],
         **l_steps['band_conv_dw']}
-    by_name['nmap_conv_fwd']['virconv_l'] = {
-        'launches': l_serve['launches']['nmap_conv_fwd'],
-        **l_totals['nmap_conv_fwd'],
+    by_name['band_conv_patch']['virconv_l'] = {
+        'launches': l_serve['launches']['band_conv_patch'],
+        **patch_totals(l_cases['band_conv_patch']),
         'contexts_past_the_jax_patch_cap':
         l_serve['contexts_past_the_jax_patch_cap'],
-        'train': {'launches': l_train['launches']['nmap_conv_fwd'],
-                  **l_steps['nmap_conv_fwd_train']}}
+        'train': {'launches': l_train['launches']['band_conv_patch'],
+                  **patch_totals(l_cases['band_conv_patch_train'], 'step')}}
+    by_name['gather_rows']['backward_split'] = step_totals[
+        'gather_rows_bwd']['split']
     by_name['gather_rows']['virconv_l'] = {
         'launches': l_train['launches']['gather_rows'],
         **summed(l_cases['gather_rows_fwd'] + l_cases['gather_rows_bwd'],
                  'step')}
-    print(json.dumps({'kernels': kernels, 'train_step': train_run,
+    print(json.dumps({'kernels': kernels, 'serve': serve_run,
+                      'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,
                       'virconv_l': virconv_l, 'virconv_s': virconv_s,
                       'virtual_points': virtual_points, 'cases': cases,

@@ -1,9 +1,11 @@
 """Port band-window conv (virconv_tpu_torch.ops.band_conv) vs the JAX Pallas
 kernel in interpret mode on the same plan, f32 operands, atol 1e-5: 3D
 submanifold and strided plans with non-fitting tiles (window misses), and
-the 2D first-wins layout with duplicate keys. Then the port's conv contexts
-(kernel + gather patch, and the full neighbor-map branch) vs the exact
-gathered conv."""
+the 2D first-wins layout with duplicate keys. Then the band conv with its
+gather patch (one ``band_conv`` call) vs the composition it replaces and
+vs the JAX band conv plus its patch, and the port's conv contexts (kernel
++ gather patch, and the full neighbor-map branch) vs the exact gathered
+conv."""
 import jax
 jax.config.update('jax_default_matmul_precision', 'highest')
 import jax.numpy as jnp
@@ -102,6 +104,57 @@ def test_2d_first_wins_plain_matches_jax_kernel():
     src = np.array(st.feats) * (first & np.asarray(st.mask))[:, None]
     w = _weights(rng, 9, 4, 4)
     _compare(src.astype(np.float32), jkeys, jplan, tkeys, tplan, w)
+
+
+def _patched_case(seed, c=8, co=12):
+    rng = np.random.default_rng(seed)
+    st = make_random_sparse(rng, 2, (6, 24, 20), 700, 768, c)
+    tst = to_torch_st(st)
+    plan, keys = tsp.subm_band_plan(tst, 3, tile=32, block=32)
+    patch = tsp._sized_patch(plan, lambda qk: tsp.lookup(keys, qk))
+    assert patch is not None and not bool(plan.fits.all())
+    w = _weights(rng, 27, c, co)
+    scale, bias = _affine(rng, co)
+    return st, tst, plan, keys, patch, w, scale, bias
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+def test_patched_band_conv_equals_the_old_composition(bf16):
+    """``band_conv(..., patch=...)`` gives the bits of K1 without it, then
+    ``nmap_conv`` over the patch map, the eager ``_epilogue`` and an index
+    put (the composition the joined call replaces), with affine and ReLU,
+    bf16 and f32 operands."""
+    from virconv_tpu_torch.ops import nmap_conv as tnc
+    _, tst, plan, keys, patch, w, scale, bias = _patched_case(9)
+    feats, w, scale, bias = (tst.feats, torch.from_numpy(w),
+                             torch.from_numpy(scale), torch.from_numpy(bias))
+    got = tbc.band_conv(feats, keys, plan, w, scale, bias, True, bf16, patch)
+    want = tbc.band_conv(feats, keys, plan, w, scale, bias, True, bf16)
+    pidx, pnmap = patch
+    want[pidx] = tsp._epilogue(tnc.nmap_conv(feats, pnmap, w), None, scale,
+                               bias, True)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, tbc.band_conv(feats, keys, plan, w, scale,
+                                              bias, True, bf16))
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+def test_patched_band_conv_matches_jax_band_conv_plus_patch(bf16):
+    """The joined call vs the JAX package's band conv (Pallas, interpret
+    mode) plus its f32 gather patch (``subm_conv_ctx(use_band=True)``) on
+    seeded inputs with non-fitting tiles: atol 1e-5 with f32 operands,
+    1e-4 x the output scale with bf16 ones (the same bf16 products, summed
+    in another order)."""
+    st, tst, plan, keys, patch, w, scale, bias = _patched_case(10)
+    jctx = jsp.subm_conv_ctx(st, 3, use_band=True, tile=32, block=32,
+                             bf16=bf16)
+    want = np.asarray(jctx.conv(st.feats, jnp.asarray(w), jnp.asarray(scale),
+                                jnp.asarray(bias), relu=True))
+    got = tbc.band_conv(tst.feats, keys, plan, torch.from_numpy(w),
+                        torch.from_numpy(scale), torch.from_numpy(bias),
+                        True, bf16, patch).numpy()
+    atol = 1e-4 * np.abs(want).max() if bf16 else ATOL
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0 if bf16 else 1e-5)
 
 
 @pytest.mark.parametrize('first_wins', [False, True])

@@ -118,6 +118,33 @@ def test_band_train_value_and_grads_match_jax(name):
                                atol=1e-3, rtol=5e-3)
 
 
+def test_band_train_equals_the_old_composition():
+    """The training conv's forward and input gradient, each one joined
+    ``band_conv`` call with the patch, give the bits of K1 without it plus
+    ``nmap_conv`` over the patch map and an index put (f32, no epilogue;
+    the input gradient with the tap-reversed, transposed weights)."""
+    from virconv_tpu_torch.ops import nmap_conv as tnc
+    st, w, tile, block = _case('patch_rows')
+    tst = to_torch_st(st)
+    plan, keys = tsp.subm_band_plan(tst, 3, tile, block)
+    pidx, pnmap = tsp._sized_patch(plan, lambda qk: tsp.lookup(keys, qk))
+    conv = tsp.subm_conv_ctx(tst, 3, tile=tile, block=block, train=True)
+    feats = tst.feats.clone().requires_grad_(True)
+    wt = torch.from_numpy(w)
+    cot = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (tst.feats.shape[0], w.shape[2])).astype(np.float32))
+    out = conv(feats, wt)
+    out.backward(cot)
+
+    def old(x, weights):
+        y = tbc.band_conv(x, keys, plan, weights, bf16=False)
+        y[pidx] = tnc.nmap_conv(x, pnmap, weights)
+        return y
+    assert torch.equal(out.detach(), old(tst.feats, wt))
+    w_t = wt.flip(0).transpose(1, 2).contiguous()
+    assert torch.equal(feats.grad, old(cot, w_t))
+
+
 def test_band_train_skips_input_gradient_of_raw_features():
     """The first conv of each stream reads raw voxel features: no input
     gradient is computed, so K1 runs once (forward) and K4 once."""

@@ -97,6 +97,70 @@ def test_band_conv_kernel_matches_plain(case):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize('case,c,c_out,epilogue', [
+    ('row', 8, 16, True), ('row_c8', 4, 8, False), ('tile_slab16', 16, 16,
+                                                    True),
+    ('tile_64', 64, 64, True), ('tile_two_slabs', 32, 72, True),
+    ('tile_cin5', 5, 24, False)])
+def test_band_conv_patch_equals_the_old_composition(case, c, c_out,
+                                                    epilogue):
+    """The gather patch joined to K1's call (row and tile modes; the fma
+    mode takes inputs wider than K1's MAX_CIN, which K1 refuses) gives the
+    bits of the composition it replaces: K1 without the patch, then
+    ``nmap_conv`` over the patch map, the eager ``_epilogue`` and an index
+    put, with bf16 and f32 operands; and it is within 1e-4 x the output
+    scale of the plain version on the CPU. One K1 and one patch launch
+    per call."""
+    dev = _cuda()
+    assert tgc.kernel_mode(c, c_out) == case.split('_')[0]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    st = random_sparse(rng, 2, (6, 24, 20), 700, 768, c)
+    plan, keys = tsp.subm_band_plan(st, 3, tile=32, block=32)
+    pidx, pnmap = tsp._sized_patch(plan, lambda qk: tsp.lookup(keys, qk))
+    assert not bool(plan.fits.all())
+    w = torch.from_numpy((rng.standard_normal((27, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 2, c_out).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(c_out).astype(np.float32))
+    epi = (scale, bias, True) if epilogue else (None, None, False)
+    cplan = _plan_to(plan, dev)
+    cepi = tuple(x.to(dev) if torch.is_tensor(x) else x for x in epi)
+    args = (st.feats.to(dev), keys.to(dev), cplan, w.to(dev))
+    patch = (pidx.to(dev), pnmap.to(dev))
+    for bf16 in (False, True):
+        n0, p0 = tbc.launches, tbc.patch_launches
+        got = tbc.band_conv(*args, *cepi, bf16, patch)
+        torch.cuda.synchronize()
+        assert (tbc.launches - n0, tbc.patch_launches - p0) == (1, 1)
+        old = tbc.band_conv(*args, *cepi, bf16)
+        old[patch[0]] = tsp._epilogue(tnc.nmap_conv(args[0], patch[1],
+                                                    args[3]),
+                                      None, *cepi)
+        assert torch.equal(got, old), case
+        assert torch.equal(got, tbc.band_conv(*args, *cepi, bf16, patch))
+        want = tbc.band_conv(st.feats, keys, plan, w, *epi, bf16,
+                             (pidx, pnmap))
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.numpy(), rtol=0,
+            atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+def test_band_conv_rejects_a_patch_that_disagrees():
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    st = random_sparse(rng, 1, (4, 8, 8), 60, 64, 4)
+    plan, keys = tsp.subm_band_plan(st, 3, tile=32, block=32)
+    args = (st.feats.to(dev), keys.to(dev), _plan_to(plan, dev),
+            torch.zeros(27, 4, 4, device=dev))
+    idx = torch.arange(3, device=dev)
+    for patch in ((idx, torch.zeros(3, 9, dtype=torch.int32, device=dev)),
+                  (idx.int(), torch.zeros(3, 27, dtype=torch.int32,
+                                          device=dev)),
+                  (idx, torch.zeros(3, 27, dtype=torch.int64, device=dev))):
+        with pytest.raises(ValueError):
+            tbc.band_conv(*args, patch=patch)
+
+
 @pytest.mark.parametrize('case', ['subm_patch_rows', 'wide64'])
 def test_band_conv_dw_kernel_matches_plain(case):
     """K4 vs its plain version (atol 1e-4 x the output scale: f32 sums in
@@ -857,6 +921,56 @@ def test_voxelize_is_repeatable_on_the_card():
     assert torch.equal(runs[0].coords.cpu(), cpu.coords)
     torch.testing.assert_close(runs[0].feats.cpu(), cpu.feats, atol=1e-6,
                                rtol=1e-6)
+
+
+def skewed_rows(case):
+    """(n, c, idx, valid, g) of a skewed gather: 'hot4k' a row of over
+    4 000 valid positions (past one shared-memory sort run), 'hot9k' one of
+    over 9 000 (three runs, two merges), 'long_rows' every row past a
+    warp's 256, 'all_invalid' no valid position, 'm0' no position; row 9
+    is never gathered and the invalid positions point at row 0, as the
+    pool's empty slots do."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n, c, m, hot = {'hot4k': (400, 32, 40000, 0.15),
+                    'hot9k': (300, 32, 36000, 0.4),
+                    'long_rows': (40, 16, 24000, 0.0),
+                    'all_invalid': (50, 32, 5000, 0.0),
+                    'm0': (20, 32, 0, 0.0)}[case]
+    idx = rng.integers(0, n, m)
+    idx[rng.uniform(size=m) < hot] = 5
+    idx[idx == 9] = 8
+    valid = rng.uniform(size=m) >= (1.0 if case == 'all_invalid' else 0.3)
+    idx[~valid] = 0
+    g = rng.standard_normal((m, c)).astype(np.float32)
+    return n, c, idx, valid, g
+
+
+@pytest.mark.parametrize('case', ['hot4k', 'hot9k', 'long_rows',
+                                  'all_invalid', 'm0'])
+def test_gather_rows_csr_and_backward_on_skewed_rows(case):
+    """The CSR the card builds (int32 counts, scan, scatter, sort within
+    rows) equals the plain stable sort's on its valid positions, and the
+    backward (warp rows and ring-streamed long rows) gives the bits of the
+    CPU's sequential ``index_add_``, the same on two runs."""
+    from virconv_tpu_torch.ops import gather_rows as tgr
+    dev = _cuda()
+    n, c, idx, valid, g = skewed_rows(case)
+    it, vt = torch.from_numpy(idx), torch.from_numpy(valid)
+    order, offsets = tgr.csr_of(it, vt, n)
+    scratch = tgr._csr_cuda(it.to(dev), vt.to(dev), n)
+    got_order, got_offsets = tgr.csr_views(scratch, n)
+    torch.cuda.synchronize()
+    n_valid = int(valid.sum())
+    assert torch.equal(got_offsets.cpu().long(), offsets)
+    assert torch.equal(got_order[:n_valid].cpu().long(), order[:n_valid])
+    want = torch.zeros(n, c).index_add_(0, it, torch.from_numpy(g)
+                                        * vt[:, None])
+    b0 = tgr.bwd_launches
+    got = [tgr._gather_rows_bwd_cuda(torch.from_numpy(g).to(dev),
+                                     it.to(dev), vt.to(dev), n).cpu()
+           for _ in range(2)]
+    assert tgr.bwd_launches == b0 + 2
+    assert torch.equal(got[0], want) and torch.equal(got[0], got[1])
 
 
 @pytest.mark.parametrize('case', ['hot_and_empty', 'wide_c100', 'empty_idx'])

@@ -18,6 +18,8 @@ import torch
 from virconv_tpu.models.roi_heads import voxel_pool as jvp
 from virconv_tpu_torch.ops import gather_rows as gr
 
+from test_torch_cuda import skewed_rows
+
 torch.set_num_threads(1)
 
 
@@ -82,6 +84,37 @@ def test_csr_lists_valid_positions_in_ascending_order():
         pos = order[offsets[r]:offsets[r + 1]].numpy()
         np.testing.assert_array_equal(pos, np.flatnonzero((idx == r)
                                                           & valid))
+
+
+@pytest.mark.parametrize('case', ['hot4k', 'hot9k', 'long_rows',
+                                  'all_invalid', 'm0'])
+def test_csr_on_skewed_rows(case):
+    """The plain CSR (the card's reference) on skewed gathers: a row of
+    over 4 000 or 9 000 positions, rows all past 256, empty rows, no valid
+    position, no position; each row's range holds its valid positions
+    ascending, the invalid ones lie past ``offsets[n]``, and the backward
+    equals the left-to-right sum over that range."""
+    n, c, idx, valid, g = skewed_rows(case)
+    order, offsets = gr.csr_of(torch.tensor(idx), torch.tensor(valid), n)
+    assert order.shape == (len(idx),) and offsets.shape == (n + 1,)
+    assert offsets[0] == 0 and offsets[-1] == valid.sum()
+    counts = np.diff(offsets.numpy())
+    assert counts[9] == 0
+    if case.startswith('hot'):
+        assert counts[5] > (9000 if case == 'hot9k' else 4000)
+    if case == 'long_rows':
+        assert (counts[counts > 0] > 256).all()
+    for r in range(n):
+        np.testing.assert_array_equal(
+            order[offsets[r]:offsets[r + 1]].numpy(),
+            np.flatnonzero((idx == r) & valid))
+    assert set(order[offsets[-1]:].tolist()) == set(np.flatnonzero(~valid))
+    dfeats = gr.gather_rows_bwd_plain(torch.tensor(g), torch.tensor(idx),
+                                      torch.tensor(valid), n)
+    acc = np.zeros(c, np.float32)
+    for i in order[offsets[5]:offsets[6]].numpy():
+        acc = acc + g[i]
+    np.testing.assert_array_equal(dfeats[5].numpy(), acc)
 
 
 def test_index_shape_and_no_grad():

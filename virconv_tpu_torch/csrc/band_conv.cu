@@ -44,6 +44,25 @@
 //    memory (through L1), gathers only the rows its taps hit and sums fmaf
 //    against every tap's weights resident in shared memory (bf16: both
 //    rounded), in tap then channel order.
+//
+// The gather patch runs in the same call. Rows of tiles whose window does
+// not fit (plan.fits) are not exact in K1; the caller passes them as a
+// patch, (pidx, pnmap): output rows and their (rows, K) neighbor map of
+// feature rows (-1: none). It replaces the JAX package's XLA gather +
+// matmul (virconv_tpu/ops/sparse.py::gathered_conv) on those rows. One
+// launch runs the exact conv of those rows with f32 operands on K1's
+// gathered-row bodies (common.cuh: tile_sums / row_sums in the mode of
+// K1's widths, the bodies ops/nmap_conv.py runs on a full neighbor map, so
+// the same bits), applies K1's epilogue (affine as __fmul_rn then
+// __fadd_rn, ReLU) and stores rows pidx of K1's output. f32 calls share
+// K1's prepped weights; bf16 calls get the patch's f32 copy from the same
+// prep launch. Bound: 2*C*C' operations per (patch row, tap) hit at the
+// f32 rate, a few hundred rows a call, but a few CTAs each walk every tap
+// in sequence: the chain of its ring's stages, not the work, is its cost.
+// So the patch launches first and K1 runs beside it (programmatic
+// dependent launch), leaving the patch's tiles to it (zeroing only their
+// invalid rows); K1's last CTA waits for the patch's grid, so the K1 grid
+// completes after it.
 
 // K4 replaces virconv_tpu/ops/pallas/band_conv.py::_dw_kernel:
 // dW[k] = gather_k(feats)^T @ (g * row_ok), summed over every tile. The TPU
@@ -98,6 +117,39 @@ __device__ __forceinline__ int band_source(const int* __restrict__ keys,
     if (keys[mid] < q) lo = mid + 1; else hi = mid;
   }
   return (lo < end && keys[lo] == q) ? (int)lo : -1;
+}
+
+// Programmatic dependent launch (sm_90): the gather patch's grid lets the
+// K1 grid launched after it on the stream start at once
+// (launch_dependents); K1, launched with programmatic stream
+// serialization, waits for the patch's grid to complete before it exits
+// (wait), so what follows on the stream sees both grids' rows.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// K1 beside a patch (fits set): only its grid's last CTA waits for the
+// patch's grid, so the K1 grid completes after it while every other CTA
+// exits and frees its slot as soon as its rows are done.
+__device__ __forceinline__ void wait_for_patch(const bool* fits) {
+  if (fits != nullptr && blockIdx.x == gridDim.x - 1 &&
+      blockIdx.y == gridDim.y - 1)
+    griddep_wait();
+}
+
+// K1's epilogue of one output value in column co (before the row-valid
+// factor): affine as a rounded multiply then a rounded add, ReLU.
+__device__ __forceinline__ float epilogue(float v, int co,
+                                          const float* __restrict__ scale,
+                                          const float* __restrict__ bias,
+                                          int affine, int relu) {
+  if (affine) v = __fadd_rn(__fmul_rn(v, scale[co]), bias[co]);
+  if (relu) v = fmaxf(v, 0.0f);
+  return v;
 }
 
 // Stages the window keys [blk_t[g] * block, +2 * block) of each group g
@@ -184,7 +236,8 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* __restrict__ geo, const float* __restrict__ scale,
     const float* __restrict__ bias, int affine, int relu, int tile,
-    int block, long n_rows, int n_out, int vec4, float* __restrict__ out) {
+    int block, long n_rows, int n_out, int vec4,
+    const bool* __restrict__ fits, float* __restrict__ out) {
   extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout)
   __shared__ int geo_s[2 * kMaxTaps];
   __shared__ int src_s[kMaxTaps * kRowThreads];
@@ -194,27 +247,32 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
   for (int i = tid; i < 2 * n_taps; i += kRowThreads) geo_s[i] = geo[i];
   __syncthreads();
   const long row = (long)blockIdx.x * kRowThreads + tid;
-  if (row >= n_rows) return;
   const long t = row / tile;
-  const int bits = valid_bits[row];
-  const int qk = base_keys[row];
-  // every tap's source first: independent searches, then the sums
-  for (int k = 0; k < n_taps; ++k)
-    src_s[k * kRowThreads + tid] = ((bits >> k) & 1) ? band_source(
-        keys, n_in, qk + geo_s[k],
-        (long)blk[t * n_groups + geo_s[n_taps + k]] * block, block) : -1;
-  float acc[kCout];
-  row_sums<kBf16, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
-  if (row >= n_out) return;
-  const float ok = ((bits >> kRowValidBit) & 1) ? 1.0f : 0.0f;
+  const int bits = row < n_rows ? valid_bits[row] : 0;
+  const bool ok = (bits >> kRowValidBit) & 1;
+  if (row >= n_rows) {
+  } else if (fits != nullptr && !fits[t]) {   // the patch's tile
+    if (row < n_out && !ok)
+      for (int j = 0; j < c_out; ++j) out[row * c_out + j] = 0.0f;
+  } else {
+    const int qk = base_keys[row];
+    // every tap's source first: independent searches, then the sums
+    for (int k = 0; k < n_taps; ++k)
+      src_s[k * kRowThreads + tid] = ((bits >> k) & 1) ? band_source(
+          keys, n_in, qk + geo_s[k],
+          (long)blk[t * n_groups + geo_s[n_taps + k]] * block, block) : -1;
+    float acc[kCout];
+    row_sums<kBf16, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
+    if (row < n_out) {
 #pragma unroll
-  for (int j = 0; j < kCout; ++j) {
-    if (j >= c_out) break;
-    float v = acc[j];
-    if (affine) v = __fadd_rn(__fmul_rn(v, scale[j]), bias[j]);
-    if (relu) v = fmaxf(v, 0.0f);
-    out[row * c_out + j] = v * ok;
+      for (int j = 0; j < kCout; ++j) {
+        if (j >= c_out) break;
+        out[row * c_out + j] = epilogue(acc[j], j, scale, bias, affine,
+                                        relu) * (ok ? 1.0f : 0.0f);
+      }
+    }
   }
+  wait_for_patch(fits);
 }
 
 // Tile mode. kNT: the most 8-channel column tiles of a slab this
@@ -228,7 +286,7 @@ __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
     const int* __restrict__ geo,  // deltas[K] then group_of[K]
     const float* __restrict__ scale, const float* __restrict__ bias,
     int affine, int relu, int tile, int block, int n_out, int vec4,
-    float* __restrict__ out) {
+    const bool* __restrict__ fits, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int geo_s[2 * kMaxTaps];
   __shared__ int tap_mask[kMaxTaps];   // bit f: fragment f has a hit
@@ -249,6 +307,18 @@ __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
   const int n_rows = min(kTileRows, tile - r0);
   const long row_base = (long)t * tile + r0;
   const int n0 = blockIdx.y * L.slab;
+
+  if (fits != nullptr && !fits[t]) {   // the patch's tile: its invalid rows
+    for (int i = tid; i < n_rows * L.slab; i += kTileThreads) {
+      const long row = row_base + i / L.slab;
+      const int co = n0 + i % L.slab;
+      if (row < n_out && co < c_out &&
+          !((valid_bits[row] >> kRowValidBit) & 1))
+        out[row * c_out + co] = 0.0f;
+    }
+    wait_for_patch(fits);
+    return;
+  }
 
   // 1) the tile's window keys of every group
   for (int i = tid; i < 2 * n_taps; i += kTileThreads) geo_s[i] = geo[i];
@@ -279,10 +349,88 @@ __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
   tile_store<kBf16, kNT>(acc, L, n0, [&](int rl, int co, float v) {
     const long row = row_base + rl;
     if (rl >= n_rows || row >= n_out || co >= c_out) return;
-    if (affine) v = __fadd_rn(__fmul_rn(v, scale[co]), bias[co]);
-    if (relu) v = fmaxf(v, 0.0f);
-    out[row * c_out + co] = v * row_ok[rl];
+    out[row * c_out + co] =
+        epilogue(v, co, scale, bias, affine, relu) * row_ok[rl];
   });
+  wait_for_patch(fits);
+}
+
+// The source of (patch row, tap k): its neighbor map entry when it is a
+// feature row, else -1.
+__device__ __forceinline__ int patch_source(const int* __restrict__ pnmap,
+                                            int row, int k, int n_taps,
+                                            int n_in) {
+  const int idx = pnmap[(long)row * n_taps + k];
+  return idx >= 0 && idx < n_in ? idx : -1;
+}
+
+// The gather patch, tile mode: a 64-row CTA and output slab of the patch
+// rows, f32 operands (tile_sums), K1's epilogue, stored to rows pidx.
+template <int kNT>
+__global__ void __launch_bounds__(kTileThreads) patch_tile_kernel(
+    const float* __restrict__ feats, const int* __restrict__ pnmap,
+    const long long* __restrict__ pidx, const void* __restrict__ wprep,
+    int n_patch, int n_in, int c_in, int c_out, int n_taps, int vec4,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    int affine, int relu, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int tap_mask[kMaxTaps];
+  __shared__ int tap_list[kMaxTaps];
+  __shared__ int n_active;
+  griddep_launch_dependents();   // K1 may start beside this grid
+  const Layout L = layout_of(c_in, c_out, n_taps, 0, 0, false);
+  int* src_s = reinterpret_cast<int*>(smem);   // [K][kTileRows]
+  const int row0 = blockIdx.x * kTileRows;
+  const int s0 = blockIdx.y * L.slab;
+  for (int i = threadIdx.x; i < kTileRows * n_taps; i += kTileThreads) {
+    const int r = i / n_taps, k = i - r * n_taps;
+    src_s[k * kTileRows + r] = row0 + r < n_patch
+        ? patch_source(pnmap, row0 + r, k, n_taps, n_in) : -1;
+  }
+  __syncthreads();
+  float acc[4 * kNT];
+  tile_sums<false, kNT>(acc, src_s, smem + L.area_off, L, feats, c_in, vec4,
+                        wprep, s0, n_taps, tap_mask, tap_list, n_active);
+  tile_store<false, kNT>(acc, L, s0, [&](int rl, int co, float v) {
+    const int row = row0 + rl;
+    if (row >= n_patch || co >= c_out) return;
+    out[pidx[row] * c_out + co] = epilogue(v, co, scale, bias, affine, relu);
+  });
+}
+
+// The gather patch, row mode (C <= 8, C' <= kCout): a thread per patch
+// row against every tap's weights resident in shared memory (row_sums).
+template <int kCout>
+__global__ void __launch_bounds__(kRowThreads) patch_row_kernel(
+    const float* __restrict__ feats, const int* __restrict__ pnmap,
+    const long long* __restrict__ pidx, const float* __restrict__ wprep,
+    int n_patch, int n_in, int c_in, int c_out, int n_taps, int vec4,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    int affine, int relu, float* __restrict__ out) {
+  extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout), then
+                                                // the sources [K][128]
+  int* src_s = reinterpret_cast<int*>(w_s + n_taps * c_in * kCout);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRowThreads;
+  griddep_launch_dependents();   // K1 may start beside this grid
+  for (int i = tid; i < n_taps * c_in * kCout; i += kRowThreads)
+    w_s[i] = wprep[i];
+  for (int i = tid; i < kRowThreads * n_taps; i += kRowThreads) {
+    const int r = i / n_taps, k = i - r * n_taps;
+    src_s[k * kRowThreads + r] = row0 + r < n_patch
+        ? patch_source(pnmap, row0 + r, k, n_taps, n_in) : -1;
+  }
+  __syncthreads();
+  const int row = row0 + tid;
+  if (row >= n_patch) return;
+  float acc[kCout];
+  row_sums<false, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
+  float* o = out + pidx[row] * c_out;
+#pragma unroll
+  for (int j = 0; j < kCout; ++j) {
+    if (j >= c_out) break;
+    o[j] = epilogue(acc[j], j, scale, bias, affine, relu);
+  }
 }
 
 constexpr int kDwMaxTile = 256;     // the source pass: >= 1 thread per row
@@ -561,10 +709,37 @@ long dw_src_bytes(int n_taps, int n_tiles, int tile) {
 }  // namespace
 
 extern "C" long band_conv_fwd_scratch_bytes(int c_in, int c_out, int n_taps,
-                                            int bf16) {
-  // bytes of the prepped weights band_conv_fwd takes as `wprep`
+                                            int bf16, int patch) {
+  // bytes of the prepped weights band_conv_fwd takes as `wprep`: K1's
+  // copy, then (bf16 with a patch) the patch's f32 copy
   const Layout l = layout_of(c_in, c_out, n_taps, 1, 1, bf16 != 0);
-  return prepped_weight_bytes(l, n_taps, bf16 != 0);
+  long bytes = prepped_weight_bytes(l, n_taps, bf16 != 0);
+  if (bf16 && patch)
+    bytes = (bytes + 255) / 256 * 256 + prepped_weight_bytes(
+        layout_of(c_in, c_out, n_taps, 0, 0, false), n_taps, false);
+  return bytes;
+}
+
+// Launches K1's kernel; after a patch launch (pdl), with programmatic
+// stream serialization, so it runs beside the patch's grid.
+template <typename... Params, typename... Args>
+int launch_k1(void (*kernel)(Params...), dim3 grid, int threads, long smem,
+              cudaStream_t stream, bool pdl, Args... args) {
+  if (!pdl) {
+    kernel<<<grid, threads, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 extern "C" int band_conv_fwd(
@@ -573,35 +748,80 @@ extern "C" int band_conv_fwd(
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* geo, const float* scale, const float* bias,
     int affine, int relu, int bf16, int tile, int block, int n_tiles,
-    int n_out, void* wprep, float* out, cudaStream_t stream) {
+    int n_out, const bool* fits, const long long* pidx, const int* pnmap,
+    int n_patch, void* wprep, float* out, cudaStream_t stream) {
   // base_keys / valid_bits / blk cover n_tiles * tile rows; out has the
-  // n_out unpadded rows; wprep holds band_conv_fwd_scratch_bytes bytes.
+  // n_out unpadded rows; wprep holds band_conv_fwd_scratch_bytes bytes
+  // (patch = n_patch > 0). The patch: pidx (n_patch,) every valid row of
+  // the tiles whose fits (n_tiles,) is false, pnmap (n_patch, n_taps) their
+  // neighbor map. K1 then computes only the other tiles' rows (and zeros
+  // the invalid rows of those tiles), in a grid beside the patch's.
   if (n_taps < 1 || n_taps > kMaxTaps || c_in < 1 || c_in > kMaxCin ||
       c_out < 1 || n_groups < 1 || n_groups > kMaxGroups || tile < 1 ||
-      block < 1 || block > kMaxBlock)
+      block < 1 || block > kMaxBlock || n_patch < 0 ||
+      (n_patch > 0 && (fits == nullptr || pidx == nullptr ||
+                       pnmap == nullptr)))
     return -1;
   if (n_tiles == 0) return 0;
-  const Layout l = layout_of(c_in, c_out, n_taps, n_groups, block, bf16 != 0);
-  if (l.smem > kSmemMax) return -1;
+  const bool b16 = bf16 != 0;
+  const bool patched = n_patch > 0;
+  const Layout l = layout_of(c_in, c_out, n_taps, n_groups, block, b16);
+  const Layout lp = layout_of(c_in, c_out, n_taps, 0, 0, false);  // patch
+  if (l.smem > kSmemMax || lp.smem > kSmemMax) return -1;
   const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
-  int err = prep_weights(weights, n_taps, c_in, c_out, l, bf16 != 0, wprep,
-                         stream);
+  // f32 calls: the patch reads K1's copy; bf16 calls: its own f32 copy
+  void* wpatch = wprep;
+  WeightCopy second{0, 0, 0, 0, nullptr};
+  if (b16 && patched) {
+    wpatch = static_cast<char*>(wprep) +
+             (prepped_weight_bytes(l, n_taps, true) + 255) / 256 * 256;
+    second = weight_copy(lp, false, wpatch);
+  }
+  int err = prep_weights(weights, n_taps, c_in, c_out, l, b16, wprep, stream,
+                         second);
+  if (err != 0) return err;
+  if (!patched) fits = nullptr;
+
+  // the gather patch, in the mode of the same widths, first
+  if (patched && lp.row_mode) {
+    const auto kernel = lp.slab == 8 ? patch_row_kernel<8>
+                                     : patch_row_kernel<kRowMaxCout>;
+    static long smem_set[2] = {0, 0};
+    const long smem = lp.smem + (long)n_taps * kRowThreads * sizeof(int);
+    err = allow_smem(kernel, smem, &smem_set[lp.slab != 8]);
+    if (err != 0) return err;
+    kernel<<<(unsigned)((n_patch + kRowThreads - 1) / kRowThreads),
+             kRowThreads, smem, stream>>>(
+        feats, pnmap, pidx, static_cast<const float*>(wpatch), n_patch,
+        n_in, c_in, c_out, n_taps, vec4, scale, bias, affine, relu, out);
+  } else if (patched) {
+    const auto kernel = lp.slab > 16 ? patch_tile_kernel<8>
+                                     : patch_tile_kernel<2>;
+    static long smem_set[2] = {0, 0};
+    err = allow_smem(kernel, lp.smem, &smem_set[lp.slab > 16]);
+    if (err != 0) return err;
+    const dim3 grid((unsigned)((n_patch + kTileRows - 1) / kTileRows),
+                    (unsigned)lp.n_slabs);
+    kernel<<<grid, kTileThreads, lp.smem, stream>>>(
+        feats, pnmap, pidx, wpatch, n_patch, n_in, c_in, c_out, n_taps,
+        vec4, scale, bias, affine, relu, out);
+  }
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
 
   if (l.row_mode) {
     const dim3 grid((unsigned)(((long)n_tiles * tile + kRowThreads - 1) /
                                kRowThreads));
     const auto row_kernel =
-        l.slab == 8 ? (bf16 ? band_conv_row_kernel<true, 8>
-                            : band_conv_row_kernel<false, 8>)
-                    : (bf16 ? band_conv_row_kernel<true, kRowMaxCout>
-                            : band_conv_row_kernel<false, kRowMaxCout>);
-    row_kernel<<<grid, kRowThreads, l.smem, stream>>>(
-        feats, keys, base_keys, valid_bits, blk,
-        static_cast<const float*>(wprep), n_in, c_in, c_out, n_taps,
-        n_groups, geo, scale, bias, affine, relu, tile, block,
-        (long)n_tiles * tile, n_out, vec4, out);
-    return (int)cudaGetLastError();
+        l.slab == 8 ? (b16 ? band_conv_row_kernel<true, 8>
+                           : band_conv_row_kernel<false, 8>)
+                    : (b16 ? band_conv_row_kernel<true, kRowMaxCout>
+                           : band_conv_row_kernel<false, kRowMaxCout>);
+    return launch_k1(row_kernel, grid, kRowThreads, l.smem, stream, patched,
+                     feats, keys, base_keys, valid_bits, blk,
+                     static_cast<const float*>(wprep), n_in, c_in, c_out,
+                     n_taps, n_groups, geo, scale, bias, affine, relu, tile,
+                     block, (long)n_tiles * tile, n_out, vec4, fits, out);
   }
   // tile mode: one instantiation per operand type and slab (<= 16, <= 64)
   using Kernel = decltype(&band_conv_kernel<true, 2>);
@@ -609,16 +829,16 @@ extern "C" int band_conv_fwd(
       band_conv_kernel<false, 2>, band_conv_kernel<false, 8>,
       band_conv_kernel<true, 2>, band_conv_kernel<true, 8>};
   static long smem_set[4] = {0, 0, 0, 0};  // largest size granted
-  const int v = 2 * (bf16 != 0) + (l.slab > 16);
+  const int v = 2 * b16 + (l.slab > 16);
   err = allow_smem(kernels[v], l.smem, &smem_set[v]);
   if (err != 0) return err;
   const int cpt = (tile + kTileRows - 1) / kTileRows;
   const dim3 grid((unsigned)((long)n_tiles * cpt), (unsigned)l.n_slabs);
-  kernels[v]<<<grid, kTileThreads, l.smem, stream>>>(
-      feats, keys, base_keys, valid_bits, blk, wprep, n_in, c_in, c_out,
-      n_taps, n_groups, geo, scale, bias, affine, relu, tile, block, n_out,
-      vec4, out);
-  return (int)cudaGetLastError();
+  return launch_k1(kernels[v], grid, kTileThreads, l.smem, stream, patched,
+                   feats, keys, base_keys, valid_bits, blk,
+                   static_cast<const void*>(wprep), n_in, c_in, c_out,
+                   n_taps, n_groups, geo, scale, bias, affine, relu, tile,
+                   block, n_out, vec4, fits, out);
 }
 
 extern "C" long band_conv_dw_scratch_bytes(int n_taps, int c_in, int c_out,

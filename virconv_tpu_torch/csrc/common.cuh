@@ -152,45 +152,65 @@ inline long prepped_weight_bytes(const Layout& l, int n_taps, bool bf16) {
   return (long)n_taps * l.ck * l.n_pad * (transposed ? 2 : 4);
 }
 
-// The weights of one call rearranged once, zero-padded: for the tile
-// mode's bf16 copies (K, n_pad, ck) = W[k]^T rounded to bf16; else
-// (K, ck, n_pad) f32 (row mode: ck = C, n_pad = 8 or 16), rounded to
-// bf16 values when `round`.
-__global__ void weight_prep_kernel(const float* __restrict__ w, int n_taps,
-                                   int c_in, int c_out, int ck, int n_pad,
-                                   int transposed, int round,
-                                   void* __restrict__ wprep) {
-  const long total = (long)n_taps * ck * n_pad;
+// One rearranged copy of a call's weights (weight_prep_kernel's output):
+// for the tile mode's bf16 copies (K, n_pad, ck) = W[k]^T rounded to
+// bf16 (transposed); else (K, ck, n_pad) f32 (row mode: ck = C, n_pad = 8
+// or 16), rounded to bf16 values when `round`; zero-padded.
+struct WeightCopy {
+  int ck, n_pad, transposed, round;
+  void* out;   // null: no copy
+};
+
+inline WeightCopy weight_copy(const Layout& l, bool bf16, void* out) {
+  return WeightCopy{l.ck, l.n_pad, bf16 && !l.row_mode, bf16, out};
+}
+
+__device__ __forceinline__ void write_weight_copy(
+    const float* __restrict__ w, int n_taps, int c_in, int c_out,
+    const WeightCopy& d) {
+  const long total = d.out ? (long)n_taps * d.ck * d.n_pad : 0;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long)gridDim.x * blockDim.x) {
     int k, c, n;
-    if (transposed) {
-      c = (int)(i % ck);
-      n = (int)((i / ck) % n_pad);
+    if (d.transposed) {
+      c = (int)(i % d.ck);
+      n = (int)((i / d.ck) % d.n_pad);
     } else {
-      n = (int)(i % n_pad);
-      c = (int)((i / n_pad) % ck);
+      n = (int)(i % d.n_pad);
+      c = (int)((i / d.n_pad) % d.ck);
     }
-    k = (int)(i / ((long)ck * n_pad));
+    k = (int)(i / ((long)d.ck * d.n_pad));
     const float v = (c < c_in && n < c_out)
         ? w[((long)k * c_in + c) * c_out + n] : 0.0f;
-    if (transposed)
-      static_cast<__nv_bfloat16*>(wprep)[i] = __float2bfloat16_rn(v);
+    if (d.transposed)
+      static_cast<__nv_bfloat16*>(d.out)[i] = __float2bfloat16_rn(v);
     else
-      static_cast<float*>(wprep)[i] = maybe_bf16(v, round);
+      static_cast<float*>(d.out)[i] = maybe_bf16(v, d.round);
   }
 }
 
-// Launches weight_prep_kernel for layout l; returns the launch error.
+// The weights of one call rearranged once into copy a, and into copy b
+// when its `out` is set (the band conv's gather patch at bf16: its f32
+// operands need their own copy).
+__global__ void weight_prep_kernel(const float* __restrict__ w, int n_taps,
+                                   int c_in, int c_out, WeightCopy a,
+                                   WeightCopy b) {
+  write_weight_copy(w, n_taps, c_in, c_out, a);
+  write_weight_copy(w, n_taps, c_in, c_out, b);
+}
+
+// Launches weight_prep_kernel for layout l (and, when b.out is set, the
+// second copy b); returns the launch error.
 inline int prep_weights(const float* w, int n_taps, int c_in, int c_out,
                         const Layout& l, bool bf16, void* wprep,
-                        cudaStream_t stream) {
-  const long total = (long)n_taps * l.ck * l.n_pad;
+                        cudaStream_t stream,
+                        WeightCopy b = WeightCopy{0, 0, 0, 0, nullptr}) {
+  const long total = (long)n_taps * l.ck * l.n_pad +
+                     (b.out ? (long)n_taps * b.ck * b.n_pad : 0);
   const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
                                                       : 1024);
   weight_prep_kernel<<<blocks, 256, 0, stream>>>(
-      w, n_taps, c_in, c_out, l.ck, l.n_pad, bf16 && !l.row_mode, bf16,
-      wprep);
+      w, n_taps, c_in, c_out, weight_copy(l, bf16, wprep), b);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@ every replica's streams. The port's copy of
 ``virconv_tpu/datasets/processor/point_feature_encoder.py``.
 
 ``absolute_coordinates_encoding_mm`` keeps all 8 multimodal features;
-``absolute_coordinates_encoding`` keeps [x, y, z] and the used features.
+``absolute_coordinates_encoding`` keeps [x, y, z] and the used features,
+each from its column ``src_feature_list.index(f)`` (OpenPCDet's rule; the
+JAX package's copy reads column 3 + that index).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ class PointFeatureEncoder:
                     data_dict[key] = pts.astype(np.float32)
                 elif self.encoding_type == 'absolute_coordinates_encoding':
                     cols = [0, 1, 2] + [
-                        3 + self.src_feature_list.index(f)
+                        self.src_feature_list.index(f)
                         for f in self.used_feature_list
                         if f not in ('x', 'y', 'z')]
                     data_dict[key] = pts[:, cols].astype(np.float32)

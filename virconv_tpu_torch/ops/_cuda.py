@@ -27,6 +27,38 @@ SOURCES = ('band_conv', 'roi_pool', 'gather_conv', 'gather_rows', 'cspn')
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_LL, _F = ctypes.c_longlong, ctypes.c_float
+# Every C entry point of each library, (restype, argtypes), set once when
+# the library is loaded. Pointers and the stream are c_void_p: ctypes would
+# pass a Python int as a 32-bit int and cut it.
+SIGNATURES = {
+    'band_conv': {
+        'band_conv_fwd_scratch_bytes': (_L, [_I] * 5),
+        'band_conv_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P] * 3 + [_I] * 7
+                          + [_P] * 3 + [_I] + [_P] * 3),
+        'band_conv_dw_scratch_bytes': (_L, [_I] * 6),
+        'band_conv_dw': (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 6
+                         + [_P] * 3)},
+    'roi_pool': {
+        'roi_pool_fwd': (_I, [_P] * 9 + [_I] * 7 + [_F] * 6
+                         + [_P, _P, _I, _P])},
+    'gather_conv': {
+        'gather_conv_scratch_bytes': (_L, [_I] * 4),
+        'gather_conv_fwd': (_I, [_P] * 3 + [_I] * 6 + [_P] * 4),
+        'nmap_conv_fwd': (_I, [_P] * 3 + [_I] * 6 + [_P] * 4),
+        'onehot_window_blocks': (_I, [_P] + [_I] * 4 + [_P] * 3),
+        'onehot_conv_scratch_bytes': (_L, [_I] * 5),
+        'onehot_conv_fwd': (_I, [_P] * 4 + [_I] * 8 + [_P] * 4)},
+    'gather_rows': {
+        'gather_rows_fwd': (_I, [_P] * 3 + [_LL, _I, _P, _P]),
+        'gather_rows_csr_scratch_bytes': (_LL, [_LL, _LL]),
+        'gather_rows_csr': (_I, [_P, _P, _LL, _LL, _P, _P]),
+        'gather_rows_sum': (_I, [_P, _P, _LL, _LL, _I, _P, _P])},
+    'cspn': {
+        'cspn_iteration': (_I, [_P] * 9 + [_I] * 5 + [_P] * 4)},
+}
+
 _libs = {}
 _locks = {name: threading.Lock() for name in SOURCES}
 
@@ -58,8 +90,9 @@ def _target(name):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use. Calls
-    for different sources may run in parallel threads, one nvcc each."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use, its
+    entry points' signatures set (``SIGNATURES``). Calls for different
+    sources may run in parallel threads, one nvcc each."""
     with _locks[name]:
         lib = _libs.get(name)
         if lib is None:
@@ -74,7 +107,11 @@ def load(name: str) -> ctypes.CDLL:
                     raise RuntimeError(f'nvcc failed for {out.name}:\n'
                                        f'{proc.stdout}{proc.stderr}')
                 os.replace(tmp, out)
-            lib = _libs[name] = ctypes.CDLL(str(out))
+            lib = ctypes.CDLL(str(out))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
         return lib
 
 

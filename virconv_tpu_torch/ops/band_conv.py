@@ -19,6 +19,11 @@ source (callers zero the other rows of a run, as the JAX package does).
 times row-valid bit. ``bf16`` rounds feats and W to bf16 before the f32
 multiply-add, as the TPU kernel's bf16 operands do.
 
+``patch = (pidx, pnmap)`` (``ops/sparse._sized_patch``: every valid row of
+the non-fitting tiles and their neighbor map) replaces rows ``pidx`` with the
+exact conv over ``pnmap`` in f32 operands (``nmap_conv``) through the same
+affine and ReLU; on the card it runs inside the band conv's call.
+
 The weight gradient (``band_conv_dw``, replacing ``_dw_kernel``) uses the
 same sources: ``dW[k] = sum over rows r with a tap-k source s of
 feats[s]^T (g[r] * row_valid[r])``, with an optional ``valid_bits``
@@ -33,11 +38,12 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .sparse import INVALID_KEY, ROW_VALID_BIT
+from .sparse import INVALID_KEY, ROW_VALID_BIT, _epilogue
 
-# kernel launches (CUDA tensors only) of K1 and K4, reset and read by
-# chip_smoke.py
+# kernel launches (CUDA tensors only) of K1, of the gather patch that K1's
+# call runs beside it, and of K4, reset and read by chip_smoke.py
 launches = 0
+patch_launches = 0
 dw_launches = 0
 
 
@@ -131,8 +137,10 @@ def _tap_sources(keys, plan: BandPlan, valid_bits, n_in):
 
 
 def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
-                    bias=None, relu=False, bf16=True):
-    """Plain PyTorch version of the kernel contract (module docstring)."""
+                    bias=None, relu=False, bf16=True, patch=None):
+    """Plain PyTorch version of the kernel contract (module docstring),
+    the patch applied after it as ``nmap_conv_plain``, ``_epilogue`` and
+    an index put."""
     f = feats.float()
     w = weights.float()
     if bf16:
@@ -148,7 +156,13 @@ def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
     if relu:
         out = torch.relu(out)
     out = out * row_ok.reshape(-1, 1)
-    return out[:plan.n_out]
+    out = out[:plan.n_out]
+    if patch is not None:
+        from .nmap_conv import nmap_conv_plain
+        pidx, pnmap = patch
+        out[pidx] = _epilogue(nmap_conv_plain(feats, pnmap, weights), None,
+                              scale, bias, relu)
+    return out
 
 
 def band_conv_dw_plain(feats, keys, plan: BandPlan, g, valid_bits=None,
@@ -171,14 +185,16 @@ def band_conv_dw_plain(feats, keys, plan: BandPlan, g, valid_bits=None,
 
 
 def band_conv(feats, keys, plan: BandPlan, weights, scale=None, bias=None,
-              relu: bool = False, bf16: bool = True):
-    """One sparse conv through the band window: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Returns (N_out, C') f32."""
+              relu: bool = False, bf16: bool = True, patch=None):
+    """One sparse conv through the band window, with the gather ``patch``
+    ``(pidx, pnmap)`` of its non-fitting rows when given: the CUDA kernels
+    for CUDA tensors, the plain version for CPU tensors. Returns
+    (N_out, C') f32."""
     if not feats.is_cuda:
         return band_conv_plain(feats, keys, plan, weights, scale, bias,
-                               relu, bf16)
+                               relu, bf16, patch)
     return _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu,
-                           bf16)
+                           bf16, patch)
 
 
 def band_conv_dw(feats, keys, plan: BandPlan, g, valid_bits=None,
@@ -227,15 +243,20 @@ def _geometry(plan, dev):
     return g
 
 
-def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
+def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16,
+                    patch=None):
     """Launch ``band_conv_fwd`` (csrc/band_conv.cu): a prep kernel lays the
-    weights out (bf16: rounded), then in tile mode one CTA per 64 rows of a
+    weights out (bf16: rounded; with a patch at bf16, an f32 copy too),
+    then in tile mode one CTA per 64 rows of a
     plan tile and output-channel slab searches its sources in the tile's
     window keys staged in shared memory, gathers the hit rows tap by tap
     with cp.async into a ring of stages, and sums on the tensor cores
     (bf16, mma.sync) or in f32 on CUDA cores; in row mode (C <= 8, C' <= 16)
     a thread per row sums the rows its taps hit against weights resident
-    in shared memory.
+    in shared memory. With a patch, a launch before K1's gives its rows
+    the exact conv with f32 operands on the same bodies, K1's epilogue
+    fused into their store to ``out[pidx]``, and K1 runs beside it
+    (programmatic dependent launch) on the tiles that fit.
 
     Replaces virconv_tpu/ops/pallas/band_conv.py::_kernel. Bound: at the
     main path's widths (C, C' <= 64) the work is 2*C*C' operations per
@@ -243,7 +264,7 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
     peak (serving), operations at the f32 peak (training). The row gather
     is a lower-bound binary search of the tile's 2-block window: no one-hot
     matmul, no neighbor map."""
-    global launches
+    global launches, patch_launches
     from . import _cuda
     dev = feats.device
     n_in, c_in = feats.shape
@@ -268,33 +289,41 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16):
         bias = bias.float().contiguous()
         _cuda.check_cuda_tensor(scale, 'scale', torch.float32, 1, dev)
         _cuda.check_cuda_tensor(bias, 'bias', torch.float32, 1, dev)
+    n_patch, pidx, pnmap = 0, None, None
+    if patch is not None:
+        pidx, pnmap = patch
+        _cuda.check_cuda_tensor(pidx, 'pidx', torch.int64, 1, dev)
+        _cuda.check_cuda_tensor(pnmap, 'pnmap', torch.int32, 2, dev)
+        _cuda.check_cuda_tensor(plan.fits, 'fits', torch.bool, 1, dev)
+        n_patch = pidx.shape[0]
+        if tuple(pnmap.shape) != (n_patch, k) or n_patch > plan.n_out:
+            raise ValueError(f'band_conv: patch of {n_patch} rows, map '
+                             f'{tuple(pnmap.shape)}, for {plan.n_out} rows '
+                             f'and {k} taps')
     n_tiles = plan.base_keys.shape[0]
-    geo = _geometry(plan, dev)
     out = torch.empty((plan.n_out, c_out), dtype=torch.float32, device=dev)
     lib = _cuda.load('band_conv')
-    size = lib.band_conv_fwd_scratch_bytes
-    size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 4
-    wprep = torch.empty((size(c_in, c_out, k, int(bf16)),),
-                        dtype=torch.uint8, device=dev)
-    fn = lib.band_conv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 3)
+    wprep = torch.empty((lib.band_conv_fwd_scratch_bytes(
+        c_in, c_out, k, int(bf16), int(n_patch > 0)),), dtype=torch.uint8,
+        device=dev)
     null = ctypes.c_void_p(0)
-    err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
-             _cuda.ptr(plan.valid_bits), _cuda.ptr(plan.blk),
-             _cuda.ptr(weights),
-             n_in, c_in, c_out, k, n_groups,
-             _cuda.ptr(geo), _cuda.ptr(scale) if affine else null,
-             _cuda.ptr(bias) if affine else null,
-             int(affine), int(relu), int(bf16), plan.tile, plan.block,
-             n_tiles, plan.n_out, _cuda.ptr(wprep), _cuda.ptr(out),
-             _cuda.stream_ptr(dev))
+    err = lib.band_conv_fwd(
+        _cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
+        _cuda.ptr(plan.valid_bits), _cuda.ptr(plan.blk), _cuda.ptr(weights),
+        n_in, c_in, c_out, k, n_groups,
+        _cuda.ptr(_geometry(plan, dev)),
+        _cuda.ptr(scale) if affine else null,
+        _cuda.ptr(bias) if affine else null,
+        int(affine), int(relu), int(bf16), plan.tile, plan.block, n_tiles,
+        plan.n_out, _cuda.ptr(plan.fits) if n_patch else null,
+        _cuda.ptr(pidx) if n_patch else null,
+        _cuda.ptr(pnmap) if n_patch else null, n_patch, _cuda.ptr(wprep),
+        _cuda.ptr(out), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'band_conv_fwd launch failed: CUDA error {err}')
     launches += 1
+    if n_patch and n_tiles:
+        patch_launches += 1
     return out
 
 
@@ -337,23 +366,16 @@ def _band_conv_dw_cuda(feats, keys, plan, g, valid_bits, bf16):
     n_tiles = plan.base_keys.shape[0]
     per_chunk = dw_tiles_per_chunk(n_tiles, plan.tile, k, c_out)
     lib = _cuda.load('band_conv')
-    size = lib.band_conv_dw_scratch_bytes
-    size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 6
-    scratch = torch.empty((size(k, c_in, c_out, n_tiles, plan.tile,
-                                per_chunk),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((lib.band_conv_dw_scratch_bytes(
+        k, c_in, c_out, n_tiles, plan.tile, per_chunk),), dtype=torch.uint8,
+        device=dev)
     out = torch.empty((k, c_in, c_out), dtype=torch.float32, device=dev)
-    fn = lib.band_conv_dw
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 3)
-    err = fn(_cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
-             _cuda.ptr(vb), _cuda.ptr(plan.blk), _cuda.ptr(g),
-             n_in, c_in, c_out, k, n_groups,
-             _cuda.ptr(_geometry(plan, dev)), int(bf16), plan.tile,
-             plan.block, n_tiles, plan.n_out, per_chunk,
-             _cuda.ptr(scratch), _cuda.ptr(out), _cuda.stream_ptr(dev))
+    err = lib.band_conv_dw(
+        _cuda.ptr(feats), _cuda.ptr(keys), _cuda.ptr(plan.base_keys),
+        _cuda.ptr(vb), _cuda.ptr(plan.blk), _cuda.ptr(g),
+        n_in, c_in, c_out, k, n_groups, _cuda.ptr(_geometry(plan, dev)),
+        int(bf16), plan.tile, plan.block, n_tiles, plan.n_out, per_chunk,
+        _cuda.ptr(scratch), _cuda.ptr(out), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'band_conv_dw launch failed: CUDA error {err}')
     dw_launches += 1

@@ -19,7 +19,6 @@ kernel reads at (y >> 1, x >> 1)).
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -119,13 +118,10 @@ def _cspn_cuda(guides, ds, h0, mask, dsparse, dilation, half_res):
         _cuda.check_cuda_tensor(t, name, torch.float32, 4, dev)
     b, _, h, w = h0.shape
     outs = [torch.empty_like(h0) for _ in KERNEL_SIZES]
-    fn = _cuda.load('cspn').cspn_iteration
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 4)
-    err = fn(*map(_cuda.ptr, guides), *map(_cuda.ptr, ds), _cuda.ptr(h0),
-             _cuda.ptr(mask), _cuda.ptr(dsparse), b, h, w, dilation,
-             int(half_res), *map(_cuda.ptr, outs), _cuda.stream_ptr(dev))
+    err = _cuda.load('cspn').cspn_iteration(
+        *map(_cuda.ptr, guides), *map(_cuda.ptr, ds), _cuda.ptr(h0),
+        _cuda.ptr(mask), _cuda.ptr(dsparse), b, h, w, dilation,
+        int(half_res), *map(_cuda.ptr, outs), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'cspn_iteration launch failed: CUDA error {err}')
     if b:

@@ -16,7 +16,6 @@ and ``tile*(K-1)`` even (the TPU kernel's window DMA needs all three).
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 
@@ -123,18 +122,12 @@ def _fused_gather_conv_cuda(feats, nmap, weights, tile):
     out = torch.empty((n, c_out), dtype=torch.float32, device=dev)
     misses = torch.zeros((n // tile,), dtype=torch.int32, device=dev)
     lib = _cuda.load('gather_conv')
-    size = lib.gather_conv_scratch_bytes
-    size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 4
-    wprep = torch.empty((size(c_in, c_out, k, MODES[mode]),),
-                        dtype=torch.uint8, device=dev)
-    fn = lib.gather_conv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 4)
-    err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights), n, c_in,
-             c_out, k, tile, MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
-             _cuda.ptr(misses), _cuda.stream_ptr(dev))
+    wprep = torch.empty((lib.gather_conv_scratch_bytes(
+        c_in, c_out, k, MODES[mode]),), dtype=torch.uint8, device=dev)
+    err = lib.gather_conv_fwd(
+        _cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights), n, c_in,
+        c_out, k, tile, MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
+        _cuda.ptr(misses), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'gather_conv_fwd launch failed: CUDA error {err}')
     launches += 1

@@ -3,7 +3,9 @@ wrapper and its plain PyTorch version.
 
 The band conv (K1) leaves the rows of tiles whose window does not fit to
 an exact gather patch, and a context whose keys are unsorted to the full
-neighbor map; both are this conv. The JAX package computes them with XLA's
+neighbor map; both are this conv. The patch runs inside K1's call
+(``ops/band_conv.py``, the same bodies and bits); this wrapper serves the
+neighbor-map branch. The JAX package computes them with XLA's
 gather + matmul (``virconv_tpu/ops/sparse.py::gathered_conv``, no Pallas
 kernel). Contract: feats (N_in, C) f32, nmap (N_out, K) int32 rows of feats
 (-1 = missing), weights (K, C, C'); returns (N_out, C') f32 = sum over taps
@@ -11,8 +13,6 @@ of the gathered rows times W[k], with no output mask and no epilogue.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -70,18 +70,12 @@ def _nmap_conv_cuda(feats, nmap, weights):
     out = torch.empty((n_out, c_out), dtype=torch.float32, device=dev)
     misses = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = _cuda.load('gather_conv')
-    size = lib.gather_conv_scratch_bytes
-    size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 4
-    wprep = torch.empty((size(c_in, c_out, k, MODES[mode]),),
-                        dtype=torch.uint8, device=dev)
-    fn = lib.nmap_conv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 4)
-    err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights), n_out,
-             n_in, c_in, c_out, k, MODES[mode], _cuda.ptr(wprep),
-             _cuda.ptr(out), _cuda.ptr(misses), _cuda.stream_ptr(dev))
+    wprep = torch.empty((lib.gather_conv_scratch_bytes(
+        c_in, c_out, k, MODES[mode]),), dtype=torch.uint8, device=dev)
+    err = lib.nmap_conv_fwd(
+        _cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights), n_out, n_in,
+        c_in, c_out, k, MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
+        _cuda.ptr(misses), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'nmap_conv_fwd launch failed: CUDA error {err}')
     if n_out:

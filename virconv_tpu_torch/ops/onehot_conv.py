@@ -20,7 +20,6 @@ misses (N/tile,) int32).
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 
@@ -136,27 +135,19 @@ def _onehot_gather_conv_cuda(feats, nmap, weights, tile, block, bf16):
     misses = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     out = torch.empty((n0, c_out), dtype=torch.float32, device=dev)
     lib = _cuda.load('gather_conv')
-    table = lib.onehot_window_blocks
-    table.restype = ctypes.c_int
-    table.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p] * 3)
-    err = table(_cuda.ptr(nmap), n0, k, tile, block, _cuda.ptr(blk),
-                _cuda.ptr(misses), _cuda.stream_ptr(dev))
+    err = lib.onehot_window_blocks(_cuda.ptr(nmap), n0, k, tile, block,
+                                   _cuda.ptr(blk), _cuda.ptr(misses),
+                                   _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'onehot_window_blocks failed: CUDA error {err}')
-    size = lib.onehot_conv_scratch_bytes
-    size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 5
-    wprep = torch.empty((size(c_in, c_out, k, int(bf16), MODES[mode]),),
-                        dtype=torch.uint8, device=dev)
-    fn = lib.onehot_conv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p] * 4)
-    err = fn(_cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights),
-             _cuda.ptr(blk), n0, c_in, c_out, k, tile, block, int(bf16),
-             MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out),
-             _cuda.ptr(misses), _cuda.stream_ptr(dev))
+    wprep = torch.empty((lib.onehot_conv_scratch_bytes(
+        c_in, c_out, k, int(bf16), MODES[mode]),), dtype=torch.uint8,
+        device=dev)
+    err = lib.onehot_conv_fwd(
+        _cuda.ptr(feats), _cuda.ptr(nmap), _cuda.ptr(weights),
+        _cuda.ptr(blk), n0, c_in, c_out, k, tile, block, int(bf16),
+        MODES[mode], _cuda.ptr(wprep), _cuda.ptr(out), _cuda.ptr(misses),
+        _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'onehot_conv_fwd launch failed: CUDA error {err}')
     launches += 1

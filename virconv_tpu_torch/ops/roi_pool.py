@@ -333,22 +333,14 @@ def _roi_pool_cuda(plan, feats_groups, w_eff, b_eff, specs, voxel_size,
     mins = [float(_f32(float(v))) for v in point_cloud_range[:3]]
     out = torch.empty((plan.n_roi, plan.q_per_roi, g_n * mid),
                       dtype=torch.float32, device=dev)
-    lib = _cuda.load('roi_pool')
-    fn = lib.roi_pool_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 6
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
-    err = fn(_cuda.ptr(plan.cand_pack), _cuda.ptr(plan.meta),
-             _cuda.ptr(plan.q_pack), _cuda.ptr(rows),
-             _cuda.ptr(plan.blk_start), _cuda.ptr(feats), _cuda.ptr(wb),
-             _cuda.ptr(spec_i), _cuda.ptr(rad2),
-             plan.n_roi, plan.q_per_roi, plan.cblk, g_n, mid,
-             feats.shape[1], int(bf16), *vs, *mins, _cuda.ptr(out),
-             ctypes.c_void_p(0) if sel_out is None else _cuda.ptr(sel_out),
-             0 if sel_out is None else sel_out.shape[-1],
-             _cuda.stream_ptr(dev))
+    err = _cuda.load('roi_pool').roi_pool_fwd(
+        _cuda.ptr(plan.cand_pack), _cuda.ptr(plan.meta),
+        _cuda.ptr(plan.q_pack), _cuda.ptr(rows), _cuda.ptr(plan.blk_start),
+        _cuda.ptr(feats), _cuda.ptr(wb), _cuda.ptr(spec_i), _cuda.ptr(rad2),
+        plan.n_roi, plan.q_per_roi, plan.cblk, g_n, mid, feats.shape[1],
+        int(bf16), *vs, *mins, _cuda.ptr(out),
+        ctypes.c_void_p(0) if sel_out is None else _cuda.ptr(sel_out),
+        0 if sel_out is None else sel_out.shape[-1], _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'roi_pool_fwd launch failed: CUDA error {err}')
     launches += 1

@@ -547,21 +547,6 @@ def _sized_patch(plan, lookup_fn, first_index=None):
     return (idx, pnmap) if cap else None
 
 
-def _band_patched(feats, weights, keys, plan, patch, bf16, scale=None,
-                  bias=None, relu=False):
-    """Band kernel output with the rows of non-fitting tiles replaced by
-    the exact conv over the patch ``(idx, nmap)`` (``nmap_conv``)."""
-    from .band_conv import band_conv
-    from .nmap_conv import nmap_conv
-    out = band_conv(feats, keys, plan, weights, scale=scale, bias=bias,
-                    relu=relu, bf16=bf16)
-    if patch is not None:
-        pidx, pnmap = patch
-        out[pidx] = _epilogue(nmap_conv(feats, pnmap, weights), None, scale,
-                              bias, relu)
-    return out
-
-
 def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
               first_index=None):
     """The conv function of one (key set, geometry) context, shared by the
@@ -570,22 +555,23 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
     fused and invalid output rows zero.
 
     It runs the band-window kernel plus an exact gather patch for the rows
-    of tiles whose window does not fit. If the keys are unsorted every conv
-    of the context takes the exact conv over the full neighbor map
-    instead."""
+    of tiles whose window does not fit, in one ``band_conv`` call. If the
+    keys are unsorted every conv of the context takes the exact conv over
+    the full neighbor map instead."""
     fast_ok = bool(plan.keys_sorted)
     patch = _sized_patch(plan, lambda qk: lookup(keys, qk),
                          first_index) if fast_ok else None
     slow_map = [None]
 
     def conv(feats, weights, scale=None, bias=None, relu=False):
+        from .band_conv import band_conv
         from .nmap_conv import nmap_conv
         src = feats if src_sel is None else torch.where(
             src_sel, feats, torch.zeros_like(feats))
         if fast_ok:
             branch_counts['band'] += 1
-            return _band_patched(src, weights, keys, plan, patch, bf16,
-                                 scale, bias, relu)
+            return band_conv(src, keys, plan, weights, scale, bias, relu,
+                             bf16, patch)
         branch_counts['nmap_slow'] += 1
         if slow_map[0] is None:
             slow_map[0] = slow_nmap()
@@ -605,20 +591,21 @@ class _BandTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, weights, keys, plan, bits_dw, patch):
+        from .band_conv import band_conv
         ctx.save_for_backward(feats, weights)
         ctx.rest = keys, plan, bits_dw, patch
-        return _band_patched(feats, weights, keys, plan, patch, bf16=False)
+        return band_conv(feats, keys, plan, weights, bf16=False, patch=patch)
 
     @staticmethod
     def backward(ctx, g):
-        from .band_conv import band_conv_dw
+        from .band_conv import band_conv, band_conv_dw
         feats, weights = ctx.saved_tensors
         keys, plan, bits_dw, patch = ctx.rest
         g = g.contiguous()
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.flip(0).transpose(1, 2).contiguous()
-            dfeats = _band_patched(g, wt, keys, plan, patch, bf16=False)
+            dfeats = band_conv(g, keys, plan, wt, bf16=False, patch=patch)
         if ctx.needs_input_grad[1]:
             dw = band_conv_dw(feats, keys, plan, g, valid_bits=bits_dw,
                               bf16=False)

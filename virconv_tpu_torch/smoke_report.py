@@ -11,9 +11,11 @@ K6; the training step times; the evaluation's seconds per frame (phase
 9); the training CLI's ms per step, peak memory, loader seconds per frame
 and share of the loop spent waiting on the loader (phase 10a); VirConv-L's
 kernel sums, ms per request and per step, pool routes and evaluation, and
-VirConv-S's CLI steps (phase 11), the gather patch's sums and VirConv-L's
-contexts past the JAX package's patch cap on both routes; the pool
-gathers' (``gather_rows``) sums per training step beside ``index_add_``,
+VirConv-S's CLI steps (phase 11), the gather patch's sums (and those of
+the composition it replaced) and VirConv-L's contexts past the JAX
+package's patch cap on both routes; the kernel launches of one request;
+the pool gathers' (``gather_rows``) sums per training step beside
+``index_add_`` and its backward's parts,
 phase 6b's gradient comparison and phase 11's two seeded trainers (fault
 C4); phase 12's CSPN kernel per frame, generation seconds per frame by
 stage, points per frame and the VirConv-T evaluation of the generated
@@ -84,6 +86,20 @@ def rows_of(data):
         if 'launches_by_mode' in k:
             out.append((f'{k["name"]} launches by mode',
                         json.dumps(k['launches_by_mode'], sort_keys=True)))
+        for where, pk in (('', k), (' train', k.get('train', {})),
+                          (' VirConv-L', k.get('virconv_l', {})),
+                          (' VirConv-L train',
+                           k.get('virconv_l', {}).get('train', {}))):
+            if 'old_ms' in pk:               # the joined gather patch
+                out.append((f'{k["name"]}{where}: ms, before joining K1 ms',
+                            f'{pk["ms"]:.3f} {pk["old_ms"]:.3f}'))
+        split = k.get('backward_split')      # gather_rows' backward
+        if split is not None:
+            out.append(('gather_rows backward per step: CSR, sums, hot-row '
+                        'tail, the previous CSR (torch.sort) ms',
+                        ' '.join(f'{split[p]:.3f}' for p in (
+                            'csr_ms', 'sum_ms', 'hot_row_tail_ms',
+                            'csr_sort_ms'))))
         lk = k.get('virconv_l')              # phase 11 (absent before)
         if lk is not None:
             total(f'VirConv-L {k["name"]} per {unit}', lk, lk['launches'])
@@ -106,6 +122,9 @@ def rows_of(data):
                 out.append((f'{name} {which} ({_shape(c)}): ms, bound, plain',
                             f'{c["ms"]:.4f} {c["bound_ms"]:.4f} '
                             f'{c["plain_ms"]:.2f}'))
+    if 'serve' in data:                      # phase 3's traced request
+        out.append(('kernel launches per request',
+                    str(data['serve']['kernel_launches_per_request'])))
     out.append(('training ms per step', ' '.join(
         f'{t:.1f}' for t in data['train_step']['ms_per_step'])))
     ev = data.get('eval')                    # phase 9 (absent in older logs)
