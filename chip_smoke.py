@@ -184,6 +184,41 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20):
+    """The device time of one ``fn()``: ``reps`` calls captured in a CUDA
+    graph and the graph replayed between CUDA events, so the host's work
+    in the wrapper (checks, allocation, the ctypes call) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def bits_equal(got, want):
+    """The same float32 bits (int32 views: -0 is not +0, a NaN equals
+    itself)."""
+    import torch
+    return got.shape == want.shape and torch.equal(
+        got.contiguous().view(torch.int32), want.contiguous().view(
+            torch.int32))
+
+
 def phase_done(n, t0):
     """Prints phase ``n``'s seconds since ``t0``; returns the time now."""
     now = time.time()
@@ -525,8 +560,10 @@ class RowsCapture:
 
 def check_rows_case(name, args, on_cpu):
     """One ``gather_rows`` call of the training step. Forward: the kernel
-    equals ``index_select`` bit for bit. Backward: two kernel runs give the
-    same bits, the kernel is within 1e-4 x scale of the plain version on
+    equals ``index_select`` times the mask bit for bit (int32 views), its
+    device time apart (``device_ms``, ``graph_ms``). Backward: two kernel
+    runs give the same bits, the kernel is within 1e-4 x scale of the
+    plain version on
     the same CUDA tensors (``index_add_``, atomics) and, with ``on_cpu``,
     equals it on the CPU bit for bit (a sequential ``index_add_``); its
     CSR equals the plain ``csr_of``'s (a stable sort) on the valid
@@ -544,11 +581,15 @@ def check_rows_case(name, args, on_cpu):
         line = {'case': name, 'rows': idx.shape[0], 'rows_in':
                 feats.shape[0], 'c_in': feats.shape[1]}
         got = gr._gather_rows_cuda(feats, idx, valid)
-        if not torch.equal(got, gr.gather_rows_plain(feats, idx, valid)):
+        line['bit_equal'] = bits_equal(
+            got, gr.gather_rows_plain(feats, idx, valid))
+        if not line['bit_equal']:
             fail(f'gather_rows {name}: the forward differs from '
-                 'index_select')
+                 'index_select x mask in its bits')
         line['max_abs_err_f32'] = 0.0
         line['ms'] = cuda_ms(lambda: gr._gather_rows_cuda(feats, idx, valid))
+        line['device_ms'] = graph_ms(
+            lambda: gr._gather_rows_cuda(feats, idx, valid), reps=10)
         line['plain_ms'] = cuda_ms(
             lambda: gr.gather_rows_plain(feats, idx, valid))
         line['library_ms'] = cuda_ms(lambda: feats.index_select(0, idx))
@@ -941,7 +982,9 @@ def summed(lines, unit='request'):
     training step); the bound is that of all the calls' work together."""
     t_bytes = sum(c['t_bytes_ms'] for c in lines)
     t_ops = sum(c['t_ops_ms'] for c in lines)
-    return {f'launches_per_{unit}': len(lines),
+    device = ({'device_ms': sum(c['device_ms'] for c in lines)}
+              if lines and all('device_ms' in c for c in lines) else {})
+    return {f'launches_per_{unit}': len(lines), **device,
             'max_abs_err': max((v for c in lines for k, v in c.items()
                                 if k.startswith('max_abs_err')),
                                default=None),
@@ -962,6 +1005,21 @@ def patch_totals(lines, unit='request'):
             'old_ms': sum(c['old_ms'] for c in lines)}
 
 
+def per_launch(lines, key, tag, label):
+    """Prints one kernel's time per launch (CUDA events around the wrapper,
+    and the device time alone) beside its bound, the range over the calls
+    of each value of ``key``."""
+    groups = {}
+    for c in lines:
+        groups.setdefault(c[key], []).append(c)
+    for k, cs in groups.items():
+        span = {f: f'{min(c[f] for c in cs):.4f}-{max(c[f] for c in cs):.4f}'
+                for f in ('ms', 'device_ms', 'bound_ms')}
+        print(f'[{tag}] {label} {key} {k}: {len(cs)} launches, ms per '
+              f'launch {span["ms"]} (device {span["device_ms"]}), bound '
+              f'{span["bound_ms"]}', flush=True)
+
+
 def short(line):
     keep = ('case', 'stage', 'dilation', 'rows_in', 'rows_out', 'rows',
             'c_in', 'c_out', 'taps', 'layout', 'mode', 'rois',
@@ -970,7 +1028,8 @@ def short(line):
             'k1_err_f32', 'k1_err_bf16', 'k1_bit_equal_f32',
             'k1_bit_equal_bf16', 'bitwise_repeatable', 'bit_equal',
             'equal_to_cpu_index_add', 'max_rows_per_source', 'long_rows',
-            'csr_equal', 'patch_rows', 'ms', 'fused_ms', 'old_ms', 'csr_ms',
+            'csr_equal', 'patch_rows', 'ms', 'device_ms', 'fused_ms',
+            'old_ms', 'csr_ms',
             'sum_ms', 'sum_warp_rows_ms', 'csr_sort_ms', 'plain_ms',
             'library_ms', 'k1_ms', 'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
@@ -1949,10 +2008,11 @@ class CspnCapture:
 
 def check_cspn_case(name, args):
     """One CSPN iteration of the full-width frame: the kernel against the
-    plain version on the same CUDA tensors (1e-4 x scale), both timed, and
-    the bound: the guides, depths and maps read once and the three depths
-    written once; 2 operations per tap and 4 for the blend per pixel and
-    kernel size, at the f32 peak."""
+    plain version on the same CUDA tensors, bit for bit (int32 views), both
+    timed (the kernel's device time apart, ``device_ms``), and the bound:
+    the guides, depths and maps read once and the three depths written
+    once; 2 operations per tap and 4 for the blend per pixel and kernel
+    size, at the f32 peak."""
     from virconv_tpu_torch.ops import cspn
     guides, ds, h0, mask, dsparse, dilation, half_res = args
     b, _, h, w = h0.shape
@@ -1962,17 +2022,21 @@ def check_cspn_case(name, args):
                               half_res)
     want = cspn.cspn_iteration_plain(guides, ds, h0, mask, dsparse,
                                      dilation, half_res)
-    err = max(float((g - x).abs().max()) for g, x in zip(got, want))
-    tol = 1e-4 * max(1.0, max(float(x.abs().max()) for x in want))
-    line['max_abs_err_f32'] = err
-    line['bit_equal'] = all(bool((g == x).all()) for g, x in zip(got, want))
-    if not err <= tol:
-        fail(f'cspn {name}: max err {err} > {tol}')
+    line['max_abs_err_f32'] = max(float((g - x).abs().max())
+                                  for g, x in zip(got, want))
+    line['bit_equal'] = all(bits_equal(g, x) for g, x in zip(got, want))
+    if not line['bit_equal']:
+        fail(f'cspn {name}: the kernel differs from the plain version in '
+             f'its bits (max err {line["max_abs_err_f32"]})')
     line['ms'] = cuda_ms(lambda: cspn.cspn_iteration(
+        guides, ds, h0, mask, dsparse, dilation, half_res))
+    line['device_ms'] = graph_ms(lambda: cspn.cspn_iteration(
         guides, ds, h0, mask, dsparse, dilation, half_res))
     line['plain_ms'] = cuda_ms(lambda: cspn.cspn_iteration_plain(
         guides, ds, h0, mask, dsparse, dilation, half_res), reps=3, warmup=1)
-    line['bytes'] = nbytes(*guides, *ds, h0, mask, dsparse) + 3 * nbytes(h0)
+    # each input once: the first iteration passes one tensor as all depths
+    ins = {t.data_ptr(): t for t in (*guides, *ds, h0, mask, dsparse)}
+    line['bytes'] = nbytes(*ins.values()) + 3 * nbytes(h0)
     line['ops'] = float(b * h * w) * sum(2 * k * k + 4
                                           for k in cspn.KERNEL_SIZES)
     bound(line, F32_FLOPS)
@@ -2052,6 +2116,10 @@ def virtual_points_phase(tmp, logger):
     cases = [check_cspn_case(f'{i:02d}', a) for i, a in enumerate(cap.calls)]
     for line in cases:
         print(f'[{tag}] cspn {short(line)}', flush=True)
+    per_launch(cases, 'stage', tag, 'cspn')
+    print(f'[{tag}] cspn per frame: ms {sum(c["ms"] for c in cases):.4f} '
+          f'(device {sum(c["device_ms"] for c in cases):.4f}), bound '
+          f'{sum(c["bound_ms"] for c in cases):.4f}', flush=True)
     del cap, gen
     torch.cuda.empty_cache()
 
@@ -2182,6 +2250,8 @@ def main():
               f'{json.dumps(step_totals)}', flush=True)
         step_totals['gather_rows_bwd']['split'] = rows_bwd_split(
             train_cases['gather_rows_bwd'])
+        per_launch(train_cases['gather_rows_fwd'], 'rows', 'phase 5',
+                   'gather_rows forward')
 
         # ---- phase 6: the main training path --------------------------------
         t0 = phase_done(5, t0)
@@ -2347,7 +2417,9 @@ def main():
     by_name['gather_rows']['virconv_l'] = {
         'launches': l_train['launches']['gather_rows'],
         **summed(l_cases['gather_rows_fwd'] + l_cases['gather_rows_bwd'],
-                 'step')}
+                 'step'),
+        'forward': l_steps['gather_rows_fwd'],
+        'backward': l_steps['gather_rows_bwd']}
     print(json.dumps({'kernels': kernels, 'serve': serve_run,
                       'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,

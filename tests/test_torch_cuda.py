@@ -1009,34 +1009,89 @@ def test_gather_rows_kernels_match_plain_bit_for_bit(case):
     assert tgr.launches == before[0] + (2 if m else 0)
 
 
-def _cspn_inputs(rng, h, w, half_res, dev):
+@pytest.mark.parametrize('c,m,unaligned', [
+    (1, 5000, False), (3, 5000, False), (4, 5000, False),
+    (32, 50000, False), (100, 3000, False), (32, 0, False),
+    (32, 5000, True)])
+def test_gather_rows_forward_bits(c, m, unaligned):
+    """The forward gather against ``index_select`` times the mask, bit for
+    bit (int32 views): the 16-byte vector path (C % 4 == 0, aligned), the
+    scalar path (C of 1, 3, 100, and a ``feats`` view whose base is not
+    16-byte aligned), no position; negative and non-finite features on the
+    invalid positions' row 0 give -0 and NaN, as the multiply does (the
+    card's NaN bits, which the CPU's differ from: NaN there too)."""
+    from virconv_tpu_torch.ops import gather_rows as tgr
+    dev = _cuda()
+    rng = np.random.default_rng(c + m)
+    n = 300
+    base = torch.from_numpy(rng.standard_normal((n * c + 1,))
+                            .astype(np.float32))
+    feats = (base[1:] if unaligned else base[:-1]).view(n, c)
+    feats[0] = -feats[0].abs()
+    feats[0, 0] = float('-inf')
+    feats[1, -1] = float('nan')
+    idx = rng.integers(0, n, m)
+    valid = rng.uniform(size=m) >= 0.3
+    idx[~valid] = 0
+    it, vt = torch.from_numpy(idx), torch.from_numpy(valid)
+    fd = (base.to(dev)[1:] if unaligned else base.to(dev)[:-1]).view(n, c)
+    assert (fd.data_ptr() % 16 != 0) == unaligned
+    before = tgr.launches
+    got = tgr._gather_rows_cuda(fd, it.to(dev), vt.to(dev))
+    torch.cuda.synchronize()
+    assert tgr.launches == before + (1 if m else 0)
+    assert got.shape == (m, c)
+    assert torch.equal(_bits(got), _bits(tgr.gather_rows_plain(
+        fd, it.to(dev), vt.to(dev))))
+    cpu = feats.index_select(0, it) * vt[:, None].float()
+    nan = cpu.isnan()
+    assert torch.equal(got.cpu().isnan(), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(cpu)[~nan])
+
+
+def _cspn_inputs(rng, h, w, half_res, dev, batch=2):
     hg, wg = (h // 2, w // 2) if half_res else (h, w)
-    guides = [torch.from_numpy(rng.normal(0, 0.3, (2, k * k, hg, wg))
+    guides = [torch.from_numpy(rng.normal(0, 0.3, (batch, k * k, hg, wg))
                                .astype(np.float32)).to(dev)
               for k in (3, 5, 7)]
-    ds = [torch.from_numpy(rng.uniform(1, 60, (2, 1, h, w))
+    ds = [torch.from_numpy(rng.uniform(1, 60, (batch, 1, h, w))
                            .astype(np.float32)).to(dev) for _ in range(3)]
-    h0 = torch.from_numpy(rng.uniform(1, 60, (2, 1, h, w))
+    h0 = torch.from_numpy(rng.uniform(1, 60, (batch, 1, h, w))
                           .astype(np.float32)).to(dev)
-    mask = torch.from_numpy((rng.uniform(0, 1, (2, 1, hg, wg))
-                             * (rng.uniform(size=(2, 1, hg, wg)) < 0.3))
+    mask = torch.from_numpy((rng.uniform(0, 1, (batch, 1, hg, wg))
+                             * (rng.uniform(size=(batch, 1, hg, wg)) < 0.3))
                             .astype(np.float32)).to(dev)
-    dsp = torch.from_numpy(rng.uniform(0, 60, (2, 1, hg, wg))
+    dsp = torch.from_numpy(rng.uniform(0, 60, (batch, 1, hg, wg))
                            .astype(np.float32)).to(dev)
     return guides, ds, h0, mask, dsp
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().view(torch.int32)
 
 
 @pytest.mark.parametrize('h,w,dilation,half_res', [
     (5, 7, 1, False),        # odd sizes, borders everywhere
     (33, 50, 1, False),
-    (3, 4, 2, False),        # taps past the whole image
+    (10, 70, 1, False),      # a width that is no multiple of the tile's 64
+    (4, 6, 1, False),        # smaller than the k = 7 halo
+    (352, 1216, 1, False),   # s1 at full width: interior and edge tiles
     (12, 18, 2, True),       # the half-resolution stage
-    (34, 66, 2, True)])
+    (34, 66, 2, True),
+    (8, 70, 2, True),        # half-resolution width 35
+    (8, 8, 2, True),         # smaller than the k = 7 halo
+    (352, 1216, 2, True),    # s2 at full width
+    (3, 4, 2, False),        # the thread-per-pixel kernel's cases: taps
+    (9, 13, 3, False),       # past the whole image, dilation 3, half
+    (10, 12, 1, True)])      # resolution at dilation 1
 def test_cspn_kernel_matches_plain(h, w, dilation, half_res):
-    """One CSPN iteration (k = 3, 5, 7) on the card against the plain
-    version on the same CUDA tensors and on the CPU: borders, dilation 2,
-    the half-resolution reads at (y >> 1, x >> 1), odd and even sizes.
-    The sums run in the plain version's order, round to nearest."""
+    """One CSPN iteration (k = 3, 5, 7, batch 2) on the card against the
+    plain version on the same CUDA tensors and on the CPU, bit for bit
+    (int32 views): borders, tiles cut by the image's edge, images smaller
+    than the halo, the half-resolution reads at (y >> 1, x >> 1), the
+    full-width frame, and the general kernel's dilations.
+    The sums run in the plain version's order, round to nearest; one
+    launch per call."""
     from virconv_tpu_torch.ops import cspn as tcs
     dev = _cuda()
     args = _cspn_inputs(np.random.default_rng(h * w), h, w, half_res, dev)
@@ -1049,9 +1104,23 @@ def test_cspn_kernel_matches_plain(h, w, dilation, half_res):
         *[[t.cpu() for t in a] if isinstance(a, list) else a.cpu()
           for a in args], dilation, half_res)
     for g, p, c in zip(got, plain, cpu):
-        scale = float(c.abs().max())
-        assert float((g - p).abs().max()) <= 1e-4 * scale
-        assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale
+        assert torch.equal(_bits(g), _bits(p))
+        assert torch.equal(_bits(g), _bits(c))
+
+
+def test_cspn_kernel_takes_one_tensor_as_all_depths():
+    """The first iteration of each stage passes one tensor as the three
+    previous depths and as h0 (models/depth_completion/penet.py): the
+    same bits as three copies."""
+    from virconv_tpu_torch.ops import cspn as tcs
+    dev = _cuda()
+    guides, ds, h0, mask, dsp = _cspn_inputs(np.random.default_rng(3), 64,
+                                             200, True, dev)
+    got = tcs.cspn_iteration(guides, (h0,) * 3, h0, mask, dsp, 2, True)
+    want = tcs.cspn_iteration(guides, [h0.clone() for _ in range(3)], h0,
+                              mask, dsp, 2, True)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
 
 
 def test_cspn_kernel_rejects_bad_operands():

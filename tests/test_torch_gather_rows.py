@@ -2,7 +2,10 @@
 the ROI pool's training gathers use (``models/roi_heads/voxel_pool.py``),
 with a hot source row (gathered many times), an empty one, rows gathered
 once and invalid positions (all pointing at row 0, as the pool's empty
-slots do). Its forward equals ``index_select`` times the mask; its
+slots do). Its forward equals ``index_select`` times the mask, and the
+JAX pool's ``gather_rows`` bit for bit at the widths of the card's vector
+and scalar paths (negative and non-finite features on the invalid
+positions' row, no position at all); its
 backward equals a sequential ``index_add_`` of the masked gradient bit for
 bit (the CPU's order, which the CUDA kernel keeps), and JAX's gradients of
 ``jnp.take`` and of the JAX pool's ``gather_rows``
@@ -115,6 +118,36 @@ def test_csr_on_skewed_rows(case):
     for i in order[offsets[5]:offsets[6]].numpy():
         acc = acc + g[i]
     np.testing.assert_array_equal(dfeats[5].numpy(), acc)
+
+
+@pytest.mark.parametrize('c,m', [(1, 300), (3, 300), (4, 300), (32, 300),
+                                 (100, 300), (32, 0)])
+def test_forward_bits_equal_jax_gather_rows(c, m):
+    """The forward against the JAX pool's ``gather_rows`` bit for bit
+    (int32 views, so the sign of zero counts): the C cases of the card's
+    vector path (C % 4 == 0) and of its scalar path, negative and
+    non-finite features at the invalid positions' row 0 (a multiply, not
+    a select: -0 and NaN where JAX gives them), and no position."""
+    rng = np.random.default_rng(c + m)
+    n = 50
+    feats = rng.normal(0, 1, (n, c)).astype(np.float32)
+    feats[0] = -np.abs(feats[0])
+    feats[0, 0] = -np.inf
+    feats[1, -1] = np.nan
+    idx = rng.integers(0, n, m)
+    valid = rng.uniform(size=m) >= 0.3
+    idx[~valid] = 0
+    idx[:2] = 1                         # a valid NaN row
+    valid[:2] = True
+    got = gr.gather_rows(torch.tensor(feats), torch.tensor(idx),
+                         torch.tensor(valid))
+    want = np.asarray(jvp.gather_rows(jnp.asarray(feats), jnp.asarray(idx),
+                                      jnp.asarray(valid)))
+    assert got.shape == (m, c) and want.shape == (m, c)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    if m:                               # -0 past the -inf column
+        assert np.signbit(want[~valid][:, 1:]).all()
 
 
 def test_index_shape_and_no_grad():

@@ -181,6 +181,44 @@ def test_cspn_iteration_plain_is_three_steps_and_the_blend():
         check(out, want, 0.0)
 
 
+@pytest.mark.parametrize('batch,h,w,half_res', [
+    (2, 10, 70, False),     # s1, a width that is no multiple of 64
+    (2, 8, 70, True),       # s2, half-resolution width 35
+    (1, 4, 6, False),       # s1, smaller than the k = 7 halo
+    (1, 8, 8, True)])       # s2, the same
+def test_cspn_iteration_plain_equals_jax_loop_bodies(batch, h, w, half_res):
+    """One iteration of ``cspn_iteration_plain`` against the JAX loop
+    bodies (``cspn_step``, then the blend with the mask and the sparse
+    depth; at s2 dilation 2 on nearest-upsampled half-resolution maps)
+    bit for bit, at the edge shapes of the card's tiles: batch 2, widths
+    that are no multiple of the tile, images smaller than the halo."""
+    rng = np.random.default_rng(h * w + half_res)
+    hg, wg = (h // 2, w // 2) if half_res else (h, w)
+    dil = 2 if half_res else 1
+    guides = [rng.normal(0, 0.3, (batch, hg, wg, k * k)).astype(np.float32)
+              for k in (3, 5, 7)]
+    ds = [rng.uniform(1, 60, (batch, h, w, 1)).astype(np.float32)
+          for _ in range(3)]
+    h0 = rng.uniform(1, 60, (batch, h, w, 1)).astype(np.float32)
+    mask = (rng.uniform(0, 1, (batch, hg, wg, 1))
+            * (rng.uniform(size=(batch, hg, wg, 1)) < 0.3)).astype(np.float32)
+    dsp = rng.uniform(0, 60, (batch, hg, wg, 1)).astype(np.float32)
+
+    def up(x):             # the JAX model's nn_up (penet.py:316)
+        x = jnp.asarray(x)
+        return jnp.repeat(jnp.repeat(x, 2, 1), 2, 2) if half_res else x
+    got = cspn.cspn_iteration_plain(
+        [nchw(g) for g in guides], [nchw(d) for d in ds], nchw(h0),
+        nchw(mask), nchw(dsp), dil, half_res)
+    for k, g, d, out in zip((3, 5, 7), guides, ds, got):
+        step = jp.cspn_step(up(g), jnp.asarray(d), jnp.asarray(h0), k, dil)
+        want = np.moveaxis(np.asarray(up(mask) * up(dsp)
+                                      + (1 - up(mask)) * step), -1, 1)
+        assert out.shape == want.shape
+        np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
 def penet_inputs(seed=0):
     rng = np.random.default_rng(seed)
     rgb = rng.uniform(0, 255, (1, H, W, 3)).astype(np.float32)

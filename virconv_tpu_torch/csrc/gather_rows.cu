@@ -8,8 +8,18 @@
 // kernel adds with atomics in whatever order they land, so two runs of one
 // training step gave gradients that differed in their last bits.
 //
-// gather_rows_fwd: out[i, :] = feats[idx[i], :] * valid[i], one thread per
-// element, neighbouring threads on neighbouring channels (coalesced).
+// gather_rows_fwd: out[i, :] = feats[idx[i], :] * valid[i] (the multiply
+// kept on invalid rows, so -0 and non-finite features give index_select x
+// mask's bits). Bound: bytes, most of them the (m, c) output, which a
+// large pool gather writes at 425 MB beside a 4-7 MB table. A warp per 32
+// output rows: lane l reads row l's idx and valid once, and the warp moves
+// the rows' 32 * c floats as 16-byte vectors when c % 4 == 0 and the bases
+// are 16-byte aligned (else as floats), vector e of the 32 rows by lane
+// e % 32, its source row shuffled from the lane that read it (no division
+// per element); kFwdUnroll loads in flight before their stores. The table
+// is read through the read-only path, the output stored evict-first
+// (st.global.cs), so the stream of output lines does not push the table
+// out of L2.
 //
 // The backward adds, for each source row r, the gradient rows of its valid
 // gather positions in ascending position order, from 0, with no atomics:
@@ -56,16 +66,63 @@ constexpr int kPosWindow = 4096;  // a long row's positions staged at once
 constexpr int kChans = 32;        // channels per pass of a long row
 constexpr int kScanThreads = 1024;
 constexpr int kScanPer = 8;       // rows a scan thread takes per tile
+constexpr int kFwdUnroll = 8;     // a forward lane's loads in flight
 
+__device__ __forceinline__ float scaled(float x, float s) {
+  return __fmul_rn(x, s);
+}
+
+__device__ __forceinline__ float4 scaled(float4 x, float s) {
+  return make_float4(__fmul_rn(x.x, s), __fmul_rn(x.y, s), __fmul_rn(x.z, s),
+                     __fmul_rn(x.w, s));
+}
+
+// Vec: float4 or float; v: Vecs per row (c / 4 or c).
+template <typename Vec>
 __global__ void __launch_bounds__(kThreads) gather_rows_fwd_kernel(
-    const float* __restrict__ feats, const long long* __restrict__ idx,
-    const bool* __restrict__ valid, long long total, int c,
-    float* __restrict__ out) {
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (i >= total) return;
-  const long long r = i / c;
-  const int ch = (int)(i - r * c);
-  out[i] = __fmul_rn(feats[idx[r] * c + ch], valid[r] ? 1.0f : 0.0f);
+    const Vec* __restrict__ feats, const long long* __restrict__ idx,
+    const bool* __restrict__ valid, long long m, int v,
+    Vec* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long r0 = (blockIdx.x * (long long)kThreads + threadIdx.x -
+                        lane);
+  if (r0 >= m) return;                 // the whole warp
+  const int rows = (int)min(32LL, m - r0);
+  long long my_idx = 0;
+  float my_keep = 0.0f;
+  if (lane < rows) {
+    my_idx = idx[r0 + lane];
+    my_keep = valid[r0 + lane] ? 1.0f : 0.0f;
+  }
+  // vector e = lane + 32 * i of the warp's 32 * v: row e / v, column e % v
+  const int step_r = 32 / v, step_c = 32 % v;
+  int r = lane / v, col = lane - r * v;
+  for (int i0 = 0; i0 < v; i0 += kFwdUnroll) {
+    Vec x[kFwdUnroll];
+    long long dst[kFwdUnroll];
+    float keep[kFwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      dst[u] = -1;
+      if (i0 + u < v) {                // uniform across the warp
+        const long long src = __shfl_sync(0xffffffffu, my_idx, r & 31);
+        keep[u] = __shfl_sync(0xffffffffu, my_keep, r & 31);
+        if (r < rows) {
+          x[u] = __ldg(feats + src * v + col);
+          dst[u] = (r0 + r) * v + col;
+        }
+        r += step_r;
+        col += step_c;
+        if (col >= v) {
+          col -= v;
+          ++r;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u)
+      if (dst[u] >= 0) __stcs(out + dst[u], scaled(x[u], keep[u]));
+  }
 }
 
 // The CSR's scratch, all int32: counts[n] (then the scatter's cursors),
@@ -403,11 +460,15 @@ extern "C" int gather_rows_fwd(const float* feats, const long long* idx,
   // feats (n, c) f32, idx (m,) int64 in [0, n), valid (m,) bool; out
   // (m, c).
   if (m < 0 || c < 1) return -1;
-  const long long total = m * c;
-  if (total == 0) return 0;
-  gather_rows_fwd_kernel<<<(unsigned)((total + kThreads - 1) / kThreads),
-                           kThreads, 0, stream>>>(feats, idx, valid, total,
-                                                  c, out);
+  if (m == 0) return 0;
+  const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
+  if (c % 4 == 0 && (uintptr_t)feats % 16 == 0 && (uintptr_t)out % 16 == 0)
+    gather_rows_fwd_kernel<<<blocks, kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(feats), idx, valid, m, c / 4,
+        reinterpret_cast<float4*>(out));
+  else
+    gather_rows_fwd_kernel<<<blocks, kThreads, 0, stream>>>(
+        feats, idx, valid, m, c, out);
   return (int)cudaGetLastError();
 }
 

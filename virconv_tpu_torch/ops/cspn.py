@@ -105,10 +105,11 @@ def cspn_iteration(guides, ds, h0, mask, dsparse, dilation, half_res):
 
 
 def _cspn_cuda(guides, ds, h0, mask, dsparse, dilation, half_res):
-    """Launch ``cspn_iteration`` (csrc/cspn.cu): a thread per pixel for
-    the three kernel sizes. The outputs are new tensors, so the caller's
-    loop alternates between two sets of buffers of the caching
-    allocator."""
+    """Launch ``cspn_iteration`` (csrc/cspn.cu), the three kernel sizes in
+    one launch: a CTA per output tile with the previous depths and their
+    halo staged in shared memory (a thread per pixel for dilations PENet
+    does not use). The outputs are new tensors, so the caller's loop
+    alternates between two sets of buffers of the caching allocator."""
     global launches
     from . import _cuda
     dev = h0.device

@@ -15,7 +15,9 @@ VirConv-S's CLI steps (phase 11), the gather patch's sums (and those of
 the composition it replaced) and VirConv-L's contexts past the JAX
 package's patch cap on both routes; the kernel launches of one request;
 the pool gathers' (``gather_rows``) sums per training step beside
-``index_add_`` and its backward's parts,
+``index_add_`` and its backward's parts, its forward calls' and the CSPN
+launches' times per launch (and device times alone, where the log has
+them) beside their bounds,
 phase 6b's gradient comparison and phase 11's two seeded trainers (fault
 C4); phase 12's CSPN kernel per frame, generation seconds per frame by
 stage, points per frame and the VirConv-T evaluation of the generated
@@ -64,6 +66,21 @@ def rows_of(data):
                     f'{k["ms"]:.3f} x{launches} {k["bound_ms"]:.4f} '
                     f'({k["bound_by"]}) {k["plain_ms"]:.1f}'
                     + (f' {lib:.3f}' if lib is not None else '')))
+        if 'device_ms' in k:                 # cspn, gather_rows forward
+            out.append((f'{label}: device ms', f'{k["device_ms"]:.4f}'))
+
+    def launch_range(label, calls, key):
+        """ms per launch (and device ms) and bound, by ``key``."""
+        groups = {}
+        for c in calls:
+            groups.setdefault(c[key], []).append(c)
+        for g, cs in groups.items():
+            def span(f):
+                v = [c[f] for c in cs if f in c]
+                return f'{min(v):.4f}-{max(v):.4f}' if v else '-'
+            out.append((f'{label} {key} {g}: ms per launch, device ms, '
+                        'bound', f'{span("ms")} {span("device_ms")} '
+                        f'{span("bound_ms")} x{len(cs)}'))
     units = {'band_conv_dw': 'step', 'gather_rows': 'step', 'cspn': 'frame'}
     for k in data['kernels']:
         unit = units.get(k['name'], 'request')
@@ -103,6 +120,19 @@ def rows_of(data):
         lk = k.get('virconv_l')              # phase 11 (absent before)
         if lk is not None:
             total(f'VirConv-L {k["name"]} per {unit}', lk, lk['launches'])
+            lcases = data.get('cases_virconv_l', {})
+            for part, key in (('forward', 'gather_rows_fwd'),
+                              ('backward', 'gather_rows_bwd')):
+                if k['name'] == 'gather_rows' and lcases.get(key):
+                    # from the calls' lines: older logs lack the split
+                    calls = lcases[key]
+                    out.append((f'VirConv-L gather_rows {part} per step: '
+                                'ms, launches, device ms',
+                                f'{sum(c["ms"] for c in calls):.3f} '
+                                f'x{len(calls)} ' + (
+                                    f'{sum(c["device_ms"] for c in calls):.4f}'
+                                    if all('device_ms' in c for c in calls)
+                                    else '-')))
             for part in ('forward', 'input_grad'):
                 if part in lk.get('train', {}):
                     total(f'VirConv-L {k["name"]} train {part} per step',
@@ -122,6 +152,9 @@ def rows_of(data):
                 out.append((f'{name} {which} ({_shape(c)}): ms, bound, plain',
                             f'{c["ms"]:.4f} {c["bound_ms"]:.4f} '
                             f'{c["plain_ms"]:.2f}'))
+    launch_range('gather_rows forward', cases.get('gather_rows_fwd', []),
+                 'rows')
+    launch_range('cspn', data.get('cases_cspn', []), 'stage')
     if 'serve' in data:                      # phase 3's traced request
         out.append(('kernel launches per request',
                     str(data['serve']['kernel_launches_per_request'])))
