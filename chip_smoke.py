@@ -145,6 +145,7 @@ a CUDA device, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -238,22 +239,27 @@ class Capture:
     def __init__(self):
         from virconv_tpu_torch.ops import band_conv, roi_pool
         self.band, self.pool = [], []
+        # per call: K1's (operands bf16, output dtype), the pool's operands
+        self.band_modes, self.pool_bf16 = [], []
         self._bc, self._rp = band_conv, roi_pool
         self._orig = (band_conv._band_conv_cuda, roi_pool._roi_pool_cuda)
 
     def __enter__(self):
+        import torch
         orig_bc, orig_rp = self._orig
 
         def bc(feats, keys, plan, weights, scale, bias, relu, bf16,
-               patch=None):
+               patch=None, out_dtype=torch.float32):
             self.band.append((feats, keys, plan, weights, scale, bias, relu,
                               patch))
+            self.band_modes.append((bf16, out_dtype))
             return orig_bc(feats, keys, plan, weights, scale, bias, relu,
-                           bf16, patch)
+                           bf16, patch, out_dtype)
 
         def rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr, bf16,
                sel_out=None):
             self.pool.append((plan, fg, w_eff, b_eff, specs, vs, stride, pcr))
+            self.pool_bf16.append(bf16)
             return orig_rp(plan, fg, w_eff, b_eff, specs, vs, stride, pcr,
                            bf16, sel_out)
         self._bc._band_conv_cuda, self._rp._roi_pool_cuda = bc, rp
@@ -273,12 +279,14 @@ class TrainCapture:
     def __init__(self, model):
         from virconv_tpu_torch.ops import band_conv
         self.fwd, self.dgrad, self.dw = [], [], []
+        self.bf16 = []      # each K1 and K4 call's operand flag
         self._bc, self._model = band_conv, model
         self._orig = (band_conv._band_conv_cuda,
                       band_conv._band_conv_dw_cuda)
         self._in_forward = False
 
     def __enter__(self):
+        import torch
         orig_k1, orig_k4 = self._orig
         forward = self._model.forward
 
@@ -290,15 +298,17 @@ class TrainCapture:
                 self._in_forward = False
 
         def k1(feats, keys, plan, weights, scale, bias, relu, bf16,
-               patch=None):
+               patch=None, out_dtype=torch.float32):
             calls = self.fwd if self._in_forward else self.dgrad
             calls.append((feats, keys, plan, weights, scale, bias, relu,
                           patch))
+            self.bf16.append(bf16)
             return orig_k1(feats, keys, plan, weights, scale, bias, relu,
-                           bf16, patch)
+                           bf16, patch, out_dtype)
 
         def k4(feats, keys, plan, g, valid_bits, bf16):
             self.dw.append((feats, keys, plan, g, valid_bits))
+            self.bf16.append(bf16)
             return orig_k4(feats, keys, plan, g, valid_bits, bf16)
         self._model.forward = model_forward
         self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = k1, k4
@@ -434,11 +444,11 @@ def patch_case(name, args, bf16, k1_ms, err):
     return line
 
 
-def check_dw_case(name, args):
+def check_dw_case(name, args, bf16_timed=False, peak=F32_FLOPS):
     """One K4 call of the training step: kernel vs plain (f32 and bf16
-    operands), two kernel runs with identical bits, both timed with f32
-    operands (the training path's), and the call's bound at the f32
-    peak."""
+    operands), two kernel runs with identical bits, both timed with the
+    path's operands (f32; bf16 under ``VIRCONV_BAND_TRAIN_BF16``), and the
+    call's bound at ``peak``."""
     import torch
     from virconv_tpu_torch.ops import band_conv as bc
     feats, keys, plan, g, vb = args
@@ -463,9 +473,9 @@ def check_dw_case(name, args):
             fail(f'band_conv_dw {name} bf16={bf16}: max err {err} > {tol}')
     line['bitwise_repeatable'] = True
     line['ms'] = cuda_ms(lambda: bc.band_conv_dw(feats, keys, plan, g, vb,
-                                                 False))
+                                                 bf16_timed))
     line['plain_ms'] = cuda_ms(lambda: bc.band_conv_dw_plain(
-        feats, keys, plan, g, vb, False), reps=3, warmup=1)
+        feats, keys, plan, g, vb, bf16_timed), reps=3, warmup=1)
     # bound: inputs read once + dW written once, and 2*C*C' operations per
     # valid (row, tap) that has a source in this run's data
     vb = plan.valid_bits if vb is None else vb
@@ -474,13 +484,14 @@ def check_dw_case(name, args):
     line['bytes'] = (nbytes(feats, keys, plan.base_keys, vb, plan.blk, g)
                      + k * c_in * c_out * 4)
     line['ops'] = 2.0 * hits * c_in * c_out
-    bound(line, F32_FLOPS)
+    bound(line, peak)
     return line
 
 
-def check_pool_case(name, args):
+def check_pool_case(name, args, bf16_timed=True):
     """One main-path ROI-pool call: identical selections, kernel vs plain
-    (f32 and bf16 features), both timed with bf16, and the call's bound."""
+    (f32 and bf16 features), both timed with the path's operands (bf16;
+    f32 under ``VIRCONV_POOL_BF16=0``), and the call's bound."""
     import torch
     from virconv_tpu_torch.ops import roi_pool as rp
     plan, fg, w_eff, b_eff, specs, vs, stride, pcr = args
@@ -508,9 +519,9 @@ def check_pool_case(name, args):
         if not err <= tol:
             fail(f'roi_pool {name} bf16={bf16}: max err {err} > {tol}')
     line['ms'] = cuda_ms(lambda: rp.roi_pool_apply(
-        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, True))
+        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, bf16_timed))
     line['plain_ms'] = cuda_ms(lambda: rp.roi_pool_plain(
-        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, True), reps=3,
+        plan, fg, w_eff, b_eff, specs, vs, stride, pcr, bf16_timed), reps=3,
         warmup=1)
     # bound: plan arrays + the candidate feature rows + output once; ~20
     # operations per (query, candidate, group) distance/window test and ~6
@@ -2180,6 +2191,309 @@ def virtual_points_phase(tmp, logger):
     return cases, stats
 
 
+# ---- phase 13: the JAX package's precision switches ------------------------
+
+class Switches:
+    """Sets the JAX package's ``VIRCONV_*`` environment switches for the
+    ``with`` block and restores them after; the port reads them as its
+    conv contexts and pools are built, so one process can flip them."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative, at most
+
+
+def check_bf16_feats_case(name, args):
+    """One K1 call of a request under ``VIRCONV_BF16_FEATS`` (bf16 operands
+    and bf16 output rows; bf16 input rows past each stream's first layer):
+    the kernel's rows within one bf16 ulp of the plain version's f32 rows
+    on the same inputs (2^-7 |ref| + 1e-4 x the output scale), the share
+    bit-equal to the plain version's bf16 rows; kernel and plain times of
+    the call without its gather patch (as phase 2), and the bound at bf16
+    rows (each input read once, the bf16 output written once)."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv as bc
+    feats, keys, plan, w, scale, bias, relu, patch = args
+    out = torch.bfloat16
+    line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': plan.n_out,
+            'c_in': w.shape[1], 'c_out': w.shape[2], 'taps': w.shape[0],
+            'feats_dtype': str(feats.dtype).replace('torch.', ''),
+            'patch_rows': 0 if patch is None else patch[0].shape[0]}
+    got = bc.band_conv(feats, keys, plan, w, scale, bias, relu, True, patch,
+                       out)
+    want = bc.band_conv_plain(feats, keys, plan, w, scale, bias, relu, True,
+                              patch)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    excess = float(((got.float() - want).abs() - BF16_ULP * want.abs())
+                   .max())
+    if got.dtype != out or not excess <= tol:
+        fail(f'band_conv bf16 features {name}: {got.dtype}, beyond one bf16 '
+             f'ulp by {excess} > {tol}')
+    line['max_abs_err_bf16'] = float((got.float()
+                                      - want.to(out).float()).abs().max())
+    line['bit_equal_share'] = float((got == want.to(out)).float().mean())
+    line['ms'] = cuda_ms(lambda: bc.band_conv(feats, keys, plan, w, scale,
+                                              bias, relu, True, None, out))
+    line['plain_ms'] = cuda_ms(lambda: bc.band_conv_plain(
+        feats, keys, plan, w, scale, bias, relu, True, None, out), reps=3,
+        warmup=1)
+    hits = taps_hit(feats, keys, plan, plan.valid_bits)
+    line['taps_hit'] = hits
+    line['bytes'] = (nbytes(feats, keys, plan.base_keys, plan.valid_bits,
+                            plan.blk, w) + plan.n_out * w.shape[2] * 2)
+    line['ops'] = 2.0 * hits * w.shape[1] * w.shape[2]
+    bound(line, BF16_FLOPS)
+    return line
+
+
+def matched_roi_diffs(raw, ref, tol=0.1):
+    """The ROI head's outputs of two forwards of one batch (``raw`` against
+    ``ref``), compared ROI by ROI: each valid ROI of ``ref`` is matched to
+    the nearest unused valid ROI of ``raw`` in the same frame whose seven
+    box numbers all lie within ``tol`` (the proposals' order after NMS
+    may differ, so a diff by position compares other boxes). Returns the
+    matched and total counts, the largest ROI difference over matched
+    pairs, and the largest box (heading wrapped to [-pi, pi)) and logit
+    differences of their predictions; the unmatched ROIs' predictions
+    are compared nowhere."""
+    import torch
+    rois, rois_ref = (x['rois'][..., :7].float() for x in (raw, ref))
+    ok, ok_ref = raw['roi_valid'], ref['roi_valid']
+    n_match = n_ref = 0
+    roi_d = box_d = cls_d = 0.0
+    for b in range(rois.shape[0]):
+        cand = ok[b].nonzero()[:, 0]
+        want = ok_ref[b].nonzero()[:, 0]
+        n_ref += len(want)
+        if not len(cand) or not len(want):
+            continue
+        d = (rois_ref[b, want][:, None] - rois[b, cand][None]).abs()
+        d[..., 6] = torch.remainder(d[..., 6] + math.pi, 2 * math.pi) - math.pi
+        d = d.abs().amax(-1)                               # (want, cand)
+        used = set()
+        for i in d.amin(1).argsort().tolist():
+            for j in d[i].argsort().tolist():
+                if d[i, j] > tol:
+                    break
+                if j not in used:
+                    used.add(j)
+                    r, q = int(want[i]), int(cand[j])
+                    n_match += 1
+                    roi_d = max(roi_d, float(d[i, j]))
+                    bd = (raw['batch_box_preds'][b, q].float()
+                          - ref['batch_box_preds'][b, r].float())
+                    bd[6] = torch.remainder(bd[6] + math.pi, 2 * math.pi) \
+                        - math.pi
+                    box_d = max(box_d, float(bd.abs().max()))
+                    cls_d = max(cls_d, float(
+                        (raw['batch_cls_preds'][b, q].float()
+                         - ref['batch_cls_preds'][b, r].float()).abs().max()))
+                    break
+    return {'rois_matched': n_match, 'rois_ref': n_ref,
+            'matched_roi_max_abs_diff': roi_d,
+            'matched_box_preds_max_abs_diff': box_d,
+            'matched_cls_preds_max_abs_diff': cls_d}
+
+
+def bf16_feats_requests(det, frames, model, tag='phase 13a'):
+    """Phase 13a for one detector: under ``VIRCONV_BF16_FEATS=1`` every K1
+    call of one request (captured from a warm-up forward; all bf16 out,
+    bf16 operands) against its plain version (``check_bf16_feats_case``),
+    then N_REQUESTS requests gated as phase 3 (the warm-up's K1 and patch
+    launches per request, no context on the neighbor-map branch); the raw
+    outputs and detections against the same detector's f32-feature
+    request, ROI by ROI (``matched_roi_diffs``), reported and not gated.
+    Returns (per-call lines, launch
+    counts, the run's numbers)."""
+    import torch
+    with Switches(VIRCONV_BF16_FEATS='1'):
+        with Capture() as cap:
+            det.forward(frames)
+            torch.cuda.synchronize()
+        if set(cap.band_modes) != {(True, torch.bfloat16)}:
+            fail(f'{model} K1 under VIRCONV_BF16_FEATS: (operands bf16, '
+                 f'output dtype) {sorted(set(map(str, cap.band_modes)))}')
+        n_bf16_in = sum(a[0].dtype == torch.bfloat16 for a in cap.band)
+        if not n_bf16_in:
+            fail(f'no {model} K1 call read bf16 rows')
+        lines = []
+        for i, a in enumerate(cap.band):
+            lines.append(check_bf16_feats_case(
+                f'{i:02d} {band_kind(a[0], a[2], a[3])}', a))
+            print(f'[{tag}] {model} band_conv bf16 features '
+                  f'{short(lines[-1])}', flush=True)
+        per_request = {'band_conv_fwd': len(cap.band),
+                       'band_conv_patch': sum(a[7] is not None
+                                              for a in cap.band)}
+        del cap
+        counts, run = serve_requests(det, frames, N_REQUESTS,
+                                     f'{model} (bf16 features)', per_request,
+                                     tag)
+        raw = det.forward(frames)
+        dets = [len(r['scores']) for r in det(frames)]
+    raw32 = det.forward(frames)
+    dets32 = [len(r['scores']) for r in det(frames)]
+    run['k1_calls_reading_bf16_rows'] = n_bf16_in
+    run['vs_f32_features'] = {
+        'detections_per_frame': dets, 'detections_per_frame_f32': dets32,
+        **matched_roi_diffs(raw, raw32)}
+    print(f'[{tag}] {model}: {len(lines)} K1 calls, {n_bf16_in} reading '
+          f'bf16 rows; per request {json.dumps(summed(lines))}; against '
+          f'f32 features (not gated) {json.dumps(run["vs_f32_features"])}',
+          flush=True)
+    return lines, counts, run
+
+
+def band_train_bf16_step(batch, tag='phase 13b'):
+    """Phase 13b: under ``VIRCONV_BAND_TRAIN_BF16=1`` every K1 forward, K1
+    input-gradient and K4 call of one full-width VirConv-T training step
+    (all with bf16 operands) against its plain version, as phase 5,
+    timed with bf16 operands and bounded at the bf16 peak; then 2 steps
+    gated as phase 6. Returns (per-call lines by kernel, launch counts,
+    the run's numbers)."""
+    import torch
+    from virconv_tpu_torch.train.trainer import Trainer
+    with Switches(VIRCONV_BAND_TRAIN_BF16='1'), torch.enable_grad():
+        trainer = Trainer(device='cuda', seed=0)
+        cap = TrainCapture(trainer.model)
+        with cap:
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        if not (cap.fwd and cap.dgrad and cap.dw) or not all(cap.bf16):
+            fail(f'a K1 or K4 call of the bf16 training step took f32 '
+                 f'operands: {cap.bf16}')
+        cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
+                 'band_conv_dw': []}
+        with torch.no_grad():
+            for key, calls in (('band_conv_fwd_train', cap.fwd),
+                               ('band_conv_fwd_train_dgrad', cap.dgrad)):
+                for i, a in enumerate(calls):
+                    line = check_band_case(
+                        f'{i:02d} {band_kind(a[0], a[2], a[3])}', a,
+                        bf16_timed=True, peak=BF16_FLOPS)
+                    line.pop('patch', None)
+                    cases[key].append(line)
+                    print(f'[{tag}] {key} {short(line)}', flush=True)
+            for i, a in enumerate(cap.dw):
+                line = check_dw_case(f'{i:02d} k{len(a[2].deltas)}', a,
+                                     bf16_timed=True, peak=BF16_FLOPS)
+                cases['band_conv_dw'].append(line)
+                print(f'[{tag}] band_conv_dw {short(line)}', flush=True)
+        del cap
+        counts, run = train_steps(trainer, batch, 2, tag,
+                                  'VirConv-T (bf16 band convs)')
+        del trainer
+    torch.cuda.empty_cache()
+    return cases, counts, run
+
+
+def pool_f32_request(det, frames, tag='phase 13c'):
+    """Phase 13c: under ``VIRCONV_POOL_BF16=0`` one VirConv-T request with
+    bf16 convs: every K2+K3 call takes f32 feature operands and is held
+    against its plain version as phase 2 (identical selections, 1e-4 x
+    scale), timed at f32. Returns the per-call lines."""
+    import torch
+    from virconv_tpu_torch.ops import roi_pool
+    with Switches(VIRCONV_POOL_BF16='0'):
+        roi_pool.launches = 0
+        with Capture() as cap:
+            det.forward(frames)
+            torch.cuda.synchronize()
+        launched = roi_pool.launches
+    if not cap.pool or any(cap.pool_bf16) or launched != len(cap.pool):
+        fail(f'VIRCONV_POOL_BF16=0: pool operands bf16 {cap.pool_bf16}, '
+             f'{launched} launches')
+    if not all(bf16 for bf16, _ in cap.band_modes):
+        fail('VIRCONV_POOL_BF16=0 changed the convs\' operands')
+    lines = []
+    for i, a in enumerate(cap.pool):
+        lines.append(check_pool_case(f'{i} stride{a[6]}_q{a[0].q_per_roi}',
+                                     a, bf16_timed=False))
+        print(f'[{tag}] roi_pool f32 operands {short(lines[-1])}',
+              flush=True)
+    return lines, launched
+
+
+def od_loss_step(batch, tag='phase 13d'):
+    """Phase 13d: one full-width VirConv-T training step with the RPN's
+    ODIoU term (``DENSE_HEAD.OD_LOSS: True``): a finite, positive
+    ``rpn_loss_od``, finite loss terms, no skipped step."""
+    import torch
+    from virconv_tpu_torch.config import virconv_t_config
+    from virconv_tpu_torch.train.trainer import Trainer
+    cfg = virconv_t_config()
+    cfg.MODEL.DENSE_HEAD.OD_LOSS = True
+    with torch.enable_grad():
+        trainer = Trainer(cfg=cfg, device='cuda', seed=0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, tb = trainer.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    terms = {k: float(v) for k, v in tb.items()}
+    print(f'[{tag}] VirConv-T training step with OD_LOSS: {ms:.1f} ms, loss '
+          f'{float(loss)!r}, terms {json.dumps(terms)}', flush=True)
+    if 'rpn_loss_od' not in terms or not terms['rpn_loss_od'] > 0:
+        fail(f'no positive rpn_loss_od in {terms}')
+    if not np.isfinite(float(loss)) or not all(
+            np.isfinite(v) for v in terms.values()):
+        fail('non-finite loss with OD_LOSS')
+    if terms['nonfinite_skips'] != 0:
+        fail('the OD_LOSS step was skipped')
+    del trainer
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'loss': float(loss), 'terms': terms}
+
+
+def precision_phase(frames):
+    """Phase 13: the JAX package's precision switches at full width, each
+    set just around its part: (a) ``VIRCONV_BF16_FEATS=1`` for VirConv-T
+    and VirConv-L requests; (b) ``VIRCONV_BAND_TRAIN_BF16=1`` for a
+    VirConv-T training step; (c) ``VIRCONV_POOL_BF16=0`` for a VirConv-T
+    request with bf16 convs; (d) a VirConv-T step with ``OD_LOSS``.
+    Returns (per-call lines by part, launch counts by part, the numbers)."""
+    import torch
+    from virconv_tpu_torch.config import virconv_l_config
+    from virconv_tpu_torch.serve import Detector
+    from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames_l,
+                                                      train_batch)
+    det = Detector(device='cuda', seed=0)
+    t_lines, t_counts, t_run = bf16_feats_requests(det, frames, 'VirConv-T')
+    pool_lines, pool_launches = pool_f32_request(det, frames)
+    del det
+    det_l = Detector(cfg=virconv_l_config(), device='cuda', seed=0)
+    l_lines, l_counts, l_run = bf16_feats_requests(
+        det_l, synth_frames_l(FRAMES), 'VirConv-L')
+    del det_l
+    torch.cuda.empty_cache()
+    batch = train_batch()
+    train_cases, train_counts, train_run = band_train_bf16_step(batch)
+    od = od_loss_step(batch)
+    cases = {'bf16_feats': t_lines, 'bf16_feats_virconv_l': l_lines,
+             'pool_f32': pool_lines, **{f'{k}_bf16': v
+                                        for k, v in train_cases.items()}}
+    counts = {'bf16_feats': t_counts, 'bf16_feats_virconv_l': l_counts,
+              'pool_f32': pool_launches, 'train_bf16': train_counts}
+    return cases, counts, {'bf16_feats': t_run,
+                           'bf16_feats_virconv_l': l_run,
+                           'train_bf16': train_run, 'od_loss': od}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2316,7 +2630,12 @@ def main():
 
         # ---- phase 12: PENet virtual points, then VirConv-T on them ---------
         vp_cases, virtual_points = virtual_points_phase(tmp, logger)
-    phase_done(12, t0)
+    t0 = phase_done(12, t0)
+
+    # ---- phase 13: the JAX package's precision switches ---------------------
+    # (TF32 still off, as set for phase 4)
+    p_cases, p_counts, precision = precision_phase(frames)
+    phase_done(13, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -2420,13 +2739,33 @@ def main():
                  'step'),
         'forward': l_steps['gather_rows_fwd'],
         'backward': l_steps['gather_rows_bwd']}
+    # phase 13: K1 with bf16 features (T and L per request), K1 and K4 with
+    # bf16 operands per training step, K2+K3 with f32 operands per request
+    kernels[0]['bf16_feats'] = {
+        'launches': p_counts['bf16_feats']['band_conv_fwd'],
+        **summed(p_cases['bf16_feats']),
+        'bit_equal_share': min(c['bit_equal_share']
+                               for c in p_cases['bf16_feats']),
+        'virconv_l': {
+            'launches': p_counts['bf16_feats_virconv_l']['band_conv_fwd'],
+            **summed(p_cases['bf16_feats_virconv_l'])}}
+    kernels[0]['train_bf16'] = {
+        'launches': p_counts['train_bf16']['band_conv_fwd'],
+        **summed(p_cases['band_conv_fwd_train_bf16']
+                 + p_cases['band_conv_fwd_train_dgrad_bf16'], 'step')}
+    by_name['band_conv_dw']['train_bf16'] = {
+        'launches': p_counts['train_bf16']['band_conv_dw'],
+        **summed(p_cases['band_conv_dw_bf16'], 'step')}
+    by_name['roi_pool_fwd']['pool_f32'] = {'launches': p_counts['pool_f32'],
+                              **summed(p_cases['pool_f32'])}
     print(json.dumps({'kernels': kernels, 'serve': serve_run,
                       'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,
                       'virconv_l': virconv_l, 'virconv_s': virconv_s,
                       'virtual_points': virtual_points, 'cases': cases,
                       'cases_virconv_l': l_cases,
-                      'cases_cspn': vp_cases}), flush=True)
+                      'cases_cspn': vp_cases, 'precision': precision,
+                      'cases_precision': p_cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -73,3 +73,31 @@ def test_anchor_mask_and_anchors_match_jax(bev_shape):
     args = (pcr, (1408, 1600), 8, [[3.9, 1.6, 1.56]], [0, 1.57], [-1.78])
     np.testing.assert_array_equal(tah.generate_anchors(*args)[0],
                                   jah.generate_anchors(*args)[0])
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_points_in_boxes_matches_jax(seed):
+    """``points_in_boxes`` exactly (int32): points inside one box, inside
+    several overlapping boxes (the first wins), on no box, and boxes
+    given twice."""
+    rng = np.random.default_rng(seed)
+    boxes = _random_boxes(rng, 24)
+    boxes[20:] = boxes[:4]                             # repeated boxes
+    inside = boxes[rng.integers(0, 24, 300), :3] + rng.uniform(
+        -0.6, 0.6, (300, 3)).astype(np.float32)
+    far = rng.uniform(-30, 30, (100, 3)).astype(np.float32)
+    far[:, 2] += 20.0                                  # above every box
+    pts = np.concatenate([inside, far, rng.uniform(
+        -8, 8, (200, 3)).astype(np.float32)])
+    want = _np(jbox.points_in_boxes(jnp.asarray(pts), jnp.asarray(boxes)))
+    got = tbox.points_in_boxes(torch.from_numpy(pts),
+                               torch.from_numpy(boxes))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the cases are there: points in no box, and points in two or more
+    # boxes (repeated or overlapping), which take the first
+    multi = np.zeros(len(pts), int)
+    for j in range(len(boxes)):
+        multi += _np(jbox.points_in_boxes(jnp.asarray(pts),
+                                          jnp.asarray(boxes[j:j + 1]))) == 0
+    assert (want == -1).any() and (multi >= 2).any()

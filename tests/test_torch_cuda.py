@@ -145,6 +145,69 @@ def test_band_conv_patch_equals_the_old_composition(case, c, c_out,
             atol=1e-4 * max(1.0, float(want.abs().max())))
 
 
+@pytest.mark.parametrize('case,c,c_out', [
+    ('row', 8, 16), ('row_c4', 4, 8), ('tile_slab16', 16, 16),
+    ('tile_64', 64, 64), ('tile_two_slabs', 32, 72), ('tile_cin5', 5, 24)])
+def test_band_conv_bf16_features(case, c, c_out):
+    """K1's bf16-feature mode (row and tile modes, with and without the
+    gather patch, bf16 and f32 operands): bf16 rows give the bits of their
+    f32 widening (the kernel widens them exactly), and bf16 output rows are
+    the f32 output rounded to nearest even, bit for bit; against the plain
+    version on the CPU within 1e-4 x the output scale before the bf16
+    store and one bf16 ulp after it. One K1 launch per call, one patch
+    launch when patched."""
+    dev = _cuda()
+    assert tgc.kernel_mode(c, c_out) == case.split('_')[0]
+    rng = np.random.default_rng(sum(map(ord, case)) + 1)
+    st = random_sparse(rng, 2, (6, 24, 20), 700, 768, c)
+    plan, keys = tsp.subm_band_plan(st, 3, tile=32, block=32)
+    pidx, pnmap = tsp._sized_patch(plan, lambda qk: tsp.lookup(keys, qk))
+    assert not bool(plan.fits.all())
+    w = torch.from_numpy((rng.standard_normal((27, c, c_out)) * 0.3)
+                         .astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 2, c_out).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(c_out).astype(np.float32))
+    rows = st.feats.to(torch.bfloat16)
+    cplan = _plan_to(plan, dev)
+    cargs = (keys.to(dev), cplan, w.to(dev), scale.to(dev), bias.to(dev),
+             True)
+    bf16_ulp = 2.0 ** -7
+    for bf16 in (False, True):
+        for patch in (None, (pidx, pnmap)):
+            cpatch = None if patch is None else tuple(x.to(dev)
+                                                      for x in patch)
+            want = tbc.band_conv(rows, keys, plan, w, scale, bias, True,
+                                 bf16, patch)
+            scale_out = max(1.0, float(want.abs().max()))
+            n0, p0 = tbc.launches, tbc.patch_launches
+            f32_out = tbc.band_conv(rows.to(dev), *cargs, bf16, cpatch)
+            b16_out = tbc.band_conv(rows.to(dev), *cargs, bf16, cpatch,
+                                    out_dtype=torch.bfloat16)
+            widened = tbc.band_conv(rows.float().to(dev), *cargs, bf16,
+                                    cpatch)
+            from_f32 = tbc.band_conv(st.feats.to(dev), *cargs, bf16, cpatch,
+                                     out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            assert tbc.launches - n0 == 4
+            assert tbc.patch_launches - p0 == (0 if patch is None else 4)
+            assert f32_out.dtype == torch.float32
+            assert b16_out.dtype == from_f32.dtype == torch.bfloat16
+            assert torch.equal(f32_out, widened), (case, bf16)
+            assert torch.equal(b16_out, f32_out.to(torch.bfloat16))
+            g32 = f32_out.cpu().numpy()
+            np.testing.assert_allclose(g32, want.numpy(), rtol=0,
+                                       atol=1e-4 * scale_out)
+            g16 = b16_out.float().cpu().numpy()
+            assert (np.abs(g16 - want.numpy()) <= bf16_ulp
+                    * np.abs(want.numpy()) + 1e-4 * scale_out).all()
+            want16 = tbc.band_conv(st.feats, keys, plan, w, scale, bias,
+                                   True, bf16, patch,
+                                   out_dtype=torch.bfloat16)
+            w16 = want16.float().numpy()
+            assert (np.abs(from_f32.float().cpu().numpy() - w16)
+                    <= bf16_ulp * np.abs(w16) + 1e-4 * scale_out).all()
+
+
 def test_band_conv_rejects_a_patch_that_disagrees():
     dev = _cuda()
     rng = np.random.default_rng(5)

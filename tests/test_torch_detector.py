@@ -55,8 +55,10 @@ def random_variables(model, batch, seed=0):
     return out
 
 
-@pytest.fixture(scope='module')
-def runs():
+def detector_runs(extra_env=None):
+    """(JAX output, JAX intermediates, port output) of one eval forward of
+    the tiny preset, both sides under the environment's ``VIRCONV_*``
+    switches plus ``extra_env``."""
     import os
     model_cfg, data_cfg = tiny_cfg(mm=True)
     n_pts = shrink_cfg(model_cfg, data_cfg)
@@ -73,7 +75,7 @@ def runs():
     # that lie on a pixel boundary to the next pixel; eager JAX, like the
     # port, sums the projection in index order.
     env = {'VIRCONV_BAND': '1', 'VIRCONV_DENSE2D': '0',
-           'VIRCONV_POOL_KERNEL': '1'}
+           'VIRCONV_POOL_KERNEL': '1', **(extra_env or {})}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     orig = jsp.subm_conv_ctx, jsp.strided_conv_ctx
@@ -84,6 +86,11 @@ def runs():
             jax.tree_util.tree_map(jnp.asarray, variables), batch,
             train=False, capture_intermediates=True,
             mutable=['intermediates'])
+        tmodel = VoxelRCNN(CfgNode(model_cfg), CfgNode(data_cfg))
+        load_state_dict_checked(tmodel, from_jax_variables(variables))
+        tbatch = {k: None if v is None else torch.from_numpy(np.array(v))
+                  for k, v in batch.items()}
+        got = tmodel(tbatch, bf16=False)
     finally:
         jsp.subm_conv_ctx, jsp.strided_conv_ctx = orig
         for k, v in saved.items():
@@ -91,14 +98,12 @@ def runs():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    inter = state['intermediates']
+    return want, state['intermediates'], got
 
-    tmodel = VoxelRCNN(CfgNode(model_cfg), CfgNode(data_cfg))
-    load_state_dict_checked(tmodel, from_jax_variables(variables))
-    tbatch = {k: None if v is None else torch.from_numpy(np.array(v))
-              for k, v in batch.items()}
-    got = tmodel(tbatch, bf16=False)
-    return want, inter, got
+
+@pytest.fixture(scope='module')
+def runs():
+    return detector_runs()
 
 
 def _np(x):

@@ -5,6 +5,7 @@ across by name at the full VirConv-T and VirConv-L widths, the serving
 entry point runs end to end on the CPU when asked to, the CUDA build
 digest covers every header a source includes, and each kernel wrapper's
 limits are the ones its ``.cu`` file declares."""
+import ctypes
 import functools
 import os
 import re
@@ -310,6 +311,23 @@ def test_wrapper_limits_match_kernel_constexprs(module, source):
     consts = _constexprs(source)
     for py_name, value in limits.items():
         assert consts.get(_cuda_name(py_name)) == value, py_name
+
+
+@pytest.mark.parametrize('source', sorted(_cuda.SIGNATURES))
+def test_entry_point_signatures_match_their_c_prototypes(source):
+    """Each C entry point takes as many parameters as ctypes passes it, a
+    pointer (or the stream) where ctypes passes c_void_p: a call with one
+    argument too few or too many would read garbage there."""
+    text = (_cuda.CSRC / f'{source}.cu').read_text()
+    for fn, (_, argtypes) in _cuda.SIGNATURES[source].items():
+        m = re.search(r'extern "C" [\w ]+?\b' + fn + r'\(([^)]*)\)', text)
+        assert m, fn
+        params = [p.strip() for p in m.group(1).split(',')]
+        assert len(params) == len(argtypes), (fn, len(params),
+                                              len(argtypes))
+        for p, t in zip(params, argtypes):
+            pointer = '*' in p or p.startswith('cudaStream_t')
+            assert pointer == (t is ctypes.c_void_p), (fn, p, t)
 
 
 def test_onehot_mode_numbers_match_kernel():

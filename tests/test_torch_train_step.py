@@ -71,15 +71,13 @@ def sparse_grid_batch():
     return batch
 
 
-def run_jax(model, variables, batch, monkeypatch):
-    """value_and_grad of the JAX train forward under ``jit`` (eagerly it
-    takes ~150 s on a CPU, under ``jit`` ~60 s; this camera puts no
-    projection near a pixel boundary, so fusion cannot move a voxel, which
-    is why tests/test_torch_detector.py runs JAX eagerly). Records, through
-    ordered debug callbacks, the StVD uniforms and each stage's
-    ROI-sampling draws (split from the stage's key as target_assign.py
-    splits it) with its input and sampled rois; and each sample's NMS
-    selection (under ``vmap``, so unordered)."""
+def install_recorders(monkeypatch):
+    """Wraps the JAX StVD, ROI sampling and NMS so that every traced train
+    forward records, through ordered debug callbacks, the StVD uniforms and
+    each stage's ROI-sampling draws (split from the stage's key as
+    target_assign.py splits it) with its input and sampled rois; and each
+    sample's NMS selection (under ``vmap``, so unordered). Returns the
+    lists (stvd, stages, nms) the records go to, in run order."""
     stvd, stages, nms = [], [], []
     orig_discard = jvirconv.layer_voxel_discard
     orig_targets = jted.proposal_targets
@@ -125,6 +123,16 @@ def run_jax(model, variables, batch, monkeypatch):
     monkeypatch.setattr(jvirconv, 'layer_voxel_discard', discard)
     monkeypatch.setattr(jted, 'proposal_targets', targets)
     monkeypatch.setattr(jbox, 'nms_bev', nms_bev)
+    return stvd, stages, nms
+
+
+def run_jax(model, variables, batch, monkeypatch):
+    """value_and_grad of the JAX train forward under ``jit`` (eagerly it
+    takes ~150 s on a CPU, under ``jit`` ~60 s; this camera puts no
+    projection near a pixel boundary, so fusion cannot move a voxel, which
+    is why tests/test_torch_detector.py runs JAX eagerly), with the draws
+    and NMS selections ``install_recorders`` records."""
+    stvd, stages, nms = install_recorders(monkeypatch)
     jbatch = {k: None if v is None else jnp.asarray(v)
               for k, v in batch.items()}
     rngs = {'stvd': jax.random.PRNGKey(4), 'sampling': jax.random.PRNGKey(5),

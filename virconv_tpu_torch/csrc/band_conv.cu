@@ -63,6 +63,18 @@
 // dependent launch), leaving the patch's tiles to it (zeroing only their
 // invalid rows); K1's last CTA waits for the patch's grid, so the K1 grid
 // completes after it.
+//
+// bf16 features (the TPU kernel's out_dtype; the JAX package's
+// VIRCONV_BF16_FEATS): the feature rows may be bf16 and the output rows
+// stored as bf16. Every body is templated on both element types. The sums
+// and the epilogue stay f32 in registers; a bf16 row is widened to f32 as
+// it is staged (tile mode: one 16-byte load of 8 values, widened and
+// stored into the ring, where f32 rows go by cp.async; row mode and the
+// patch's row mode: loaded and widened in registers), which is exact, so
+// the operands are the f32 path's and only the rows' bytes halve. The
+// store rounds each value to nearest even. The patch reads the same rows
+// and stores the same type, as the JAX composition does (an f32 conv of
+// the bf16 rows, the epilogue, then a cast).
 
 // K4 replaces virconv_tpu/ops/pallas/band_conv.py::_dw_kernel:
 // dW[k] = gather_k(feats)^T @ (g * row_ok), summed over every tile. The TPU
@@ -227,17 +239,18 @@ __device__ __forceinline__ void search_taps(const int* keys_s, int wlen,
 // or 16, a compile-time stride of the resident weights). The row's sources
 // come from lower-bound searches in global memory (the window keys are read
 // through L1), all before the sums; the hit taps' rows are summed in tap
-// then channel order with fmaf.
-template <bool kBf16, int kCout>
+// then channel order with fmaf. TIn, TOut: the element types of the feature
+// rows read and the output rows stored (f32 or bf16).
+template <bool kBf16, int kCout, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
-    const float* __restrict__ feats, const int* __restrict__ keys,
+    const TIn* __restrict__ feats, const int* __restrict__ keys,
     const int* __restrict__ base_keys, const int* __restrict__ valid_bits,
     const int* __restrict__ blk, const float* __restrict__ wprep,
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* __restrict__ geo, const float* __restrict__ scale,
     const float* __restrict__ bias, int affine, int relu, int tile,
     int block, long n_rows, int n_out, int vec4,
-    const bool* __restrict__ fits, float* __restrict__ out) {
+    const bool* __restrict__ fits, TOut* __restrict__ out) {
   extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout)
   __shared__ int geo_s[2 * kMaxTaps];
   __shared__ int src_s[kMaxTaps * kRowThreads];
@@ -253,7 +266,7 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
   if (row >= n_rows) {
   } else if (fits != nullptr && !fits[t]) {   // the patch's tile
     if (row < n_out && !ok)
-      for (int j = 0; j < c_out; ++j) out[row * c_out + j] = 0.0f;
+      for (int j = 0; j < c_out; ++j) store_as(out + row * c_out + j, 0.0f);
   } else {
     const int qk = base_keys[row];
     // every tap's source first: independent searches, then the sums
@@ -267,8 +280,9 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
 #pragma unroll
       for (int j = 0; j < kCout; ++j) {
         if (j >= c_out) break;
-        out[row * c_out + j] = epilogue(acc[j], j, scale, bias, affine,
-                                        relu) * (ok ? 1.0f : 0.0f);
+        store_as(out + row * c_out + j,
+                 epilogue(acc[j], j, scale, bias, affine, relu) *
+                     (ok ? 1.0f : 0.0f));
       }
     }
   }
@@ -276,17 +290,17 @@ __global__ void __launch_bounds__(kRowThreads) band_conv_row_kernel(
 }
 
 // Tile mode. kNT: the most 8-channel column tiles of a slab this
-// instantiation takes.
-template <bool kBf16, int kNT>
+// instantiation takes; TIn, TOut as in row mode.
+template <bool kBf16, int kNT, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
-    const float* __restrict__ feats, const int* __restrict__ keys,
+    const TIn* __restrict__ feats, const int* __restrict__ keys,
     const int* __restrict__ base_keys, const int* __restrict__ valid_bits,
     const int* __restrict__ blk, const void* __restrict__ wprep,
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* __restrict__ geo,  // deltas[K] then group_of[K]
     const float* __restrict__ scale, const float* __restrict__ bias,
     int affine, int relu, int tile, int block, int n_out, int vec4,
-    const bool* __restrict__ fits, float* __restrict__ out) {
+    const bool* __restrict__ fits, TOut* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int geo_s[2 * kMaxTaps];
   __shared__ int tap_mask[kMaxTaps];   // bit f: fragment f has a hit
@@ -314,7 +328,7 @@ __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
       const int co = n0 + i % L.slab;
       if (row < n_out && co < c_out &&
           !((valid_bits[row] >> kRowValidBit) & 1))
-        out[row * c_out + co] = 0.0f;
+        store_as(out + row * c_out + co, 0.0f);
     }
     wait_for_patch(fits);
     return;
@@ -349,8 +363,8 @@ __global__ void __launch_bounds__(kTileThreads) band_conv_kernel(
   tile_store<kBf16, kNT>(acc, L, n0, [&](int rl, int co, float v) {
     const long row = row_base + rl;
     if (rl >= n_rows || row >= n_out || co >= c_out) return;
-    out[row * c_out + co] =
-        epilogue(v, co, scale, bias, affine, relu) * row_ok[rl];
+    store_as(out + row * c_out + co,
+             epilogue(v, co, scale, bias, affine, relu) * row_ok[rl]);
   });
   wait_for_patch(fits);
 }
@@ -366,13 +380,13 @@ __device__ __forceinline__ int patch_source(const int* __restrict__ pnmap,
 
 // The gather patch, tile mode: a 64-row CTA and output slab of the patch
 // rows, f32 operands (tile_sums), K1's epilogue, stored to rows pidx.
-template <int kNT>
+template <int kNT, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kTileThreads) patch_tile_kernel(
-    const float* __restrict__ feats, const int* __restrict__ pnmap,
+    const TIn* __restrict__ feats, const int* __restrict__ pnmap,
     const long long* __restrict__ pidx, const void* __restrict__ wprep,
     int n_patch, int n_in, int c_in, int c_out, int n_taps, int vec4,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    int affine, int relu, float* __restrict__ out) {
+    int affine, int relu, TOut* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int tap_mask[kMaxTaps];
   __shared__ int tap_list[kMaxTaps];
@@ -394,19 +408,20 @@ __global__ void __launch_bounds__(kTileThreads) patch_tile_kernel(
   tile_store<false, kNT>(acc, L, s0, [&](int rl, int co, float v) {
     const int row = row0 + rl;
     if (row >= n_patch || co >= c_out) return;
-    out[pidx[row] * c_out + co] = epilogue(v, co, scale, bias, affine, relu);
+    store_as(out + pidx[row] * c_out + co,
+             epilogue(v, co, scale, bias, affine, relu));
   });
 }
 
 // The gather patch, row mode (C <= 8, C' <= kCout): a thread per patch
 // row against every tap's weights resident in shared memory (row_sums).
-template <int kCout>
+template <int kCout, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kRowThreads) patch_row_kernel(
-    const float* __restrict__ feats, const int* __restrict__ pnmap,
+    const TIn* __restrict__ feats, const int* __restrict__ pnmap,
     const long long* __restrict__ pidx, const float* __restrict__ wprep,
     int n_patch, int n_in, int c_in, int c_out, int n_taps, int vec4,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    int affine, int relu, float* __restrict__ out) {
+    int affine, int relu, TOut* __restrict__ out) {
   extern __shared__ __align__(16) float w_s[];  // (K, c_in, kCout), then
                                                 // the sources [K][128]
   int* src_s = reinterpret_cast<int*>(w_s + n_taps * c_in * kCout);
@@ -425,11 +440,11 @@ __global__ void __launch_bounds__(kRowThreads) patch_row_kernel(
   if (row >= n_patch) return;
   float acc[kCout];
   row_sums<false, kCout>(acc, src_s, n_taps, feats, c_in, vec4, w_s);
-  float* o = out + pidx[row] * c_out;
+  TOut* o = out + pidx[row] * c_out;
 #pragma unroll
   for (int j = 0; j < kCout; ++j) {
     if (j >= c_out) break;
-    o[j] = epilogue(acc[j], j, scale, bias, affine, relu);
+    store_as(o + j, epilogue(acc[j], j, scale, bias, affine, relu));
   }
 }
 
@@ -742,33 +757,24 @@ int launch_k1(void (*kernel)(Params...), dim3 grid, int threads, long smem,
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-extern "C" int band_conv_fwd(
-    const float* feats, const int* keys, const int* base_keys,
+// band_conv_fwd for feature rows of type TIn and output rows of type TOut.
+template <typename TIn, typename TOut>
+int band_conv_fwd_typed(
+    const TIn* feats, const int* keys, const int* base_keys,
     const int* valid_bits, const int* blk, const float* weights,
     int n_in, int c_in, int c_out, int n_taps, int n_groups,
     const int* geo, const float* scale, const float* bias,
     int affine, int relu, int bf16, int tile, int block, int n_tiles,
     int n_out, const bool* fits, const long long* pidx, const int* pnmap,
-    int n_patch, void* wprep, float* out, cudaStream_t stream) {
-  // base_keys / valid_bits / blk cover n_tiles * tile rows; out has the
-  // n_out unpadded rows; wprep holds band_conv_fwd_scratch_bytes bytes
-  // (patch = n_patch > 0). The patch: pidx (n_patch,) every valid row of
-  // the tiles whose fits (n_tiles,) is false, pnmap (n_patch, n_taps) their
-  // neighbor map. K1 then computes only the other tiles' rows (and zeros
-  // the invalid rows of those tiles), in a grid beside the patch's.
-  if (n_taps < 1 || n_taps > kMaxTaps || c_in < 1 || c_in > kMaxCin ||
-      c_out < 1 || n_groups < 1 || n_groups > kMaxGroups || tile < 1 ||
-      block < 1 || block > kMaxBlock || n_patch < 0 ||
-      (n_patch > 0 && (fits == nullptr || pidx == nullptr ||
-                       pnmap == nullptr)))
-    return -1;
-  if (n_tiles == 0) return 0;
+    int n_patch, void* wprep, TOut* out, cudaStream_t stream) {
   const bool b16 = bf16 != 0;
   const bool patched = n_patch > 0;
   const Layout l = layout_of(c_in, c_out, n_taps, n_groups, block, b16);
   const Layout lp = layout_of(c_in, c_out, n_taps, 0, 0, false);  // patch
   if (l.smem > kSmemMax || lp.smem > kSmemMax) return -1;
-  const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+  // 16-byte loads of the feature rows: 4 f32 or 8 bf16 values
+  const int vec4 = c_in % (16 / (int)sizeof(TIn)) == 0 &&
+                   (uintptr_t)feats % 16 == 0;
   // f32 calls: the patch reads K1's copy; bf16 calls: its own f32 copy
   void* wpatch = wprep;
   WeightCopy second{0, 0, 0, 0, nullptr};
@@ -784,8 +790,9 @@ extern "C" int band_conv_fwd(
 
   // the gather patch, in the mode of the same widths, first
   if (patched && lp.row_mode) {
-    const auto kernel = lp.slab == 8 ? patch_row_kernel<8>
-                                     : patch_row_kernel<kRowMaxCout>;
+    const auto kernel = lp.slab == 8
+                            ? patch_row_kernel<8, TIn, TOut>
+                            : patch_row_kernel<kRowMaxCout, TIn, TOut>;
     static long smem_set[2] = {0, 0};
     const long smem = lp.smem + (long)n_taps * kRowThreads * sizeof(int);
     err = allow_smem(kernel, smem, &smem_set[lp.slab != 8]);
@@ -795,8 +802,8 @@ extern "C" int band_conv_fwd(
         feats, pnmap, pidx, static_cast<const float*>(wpatch), n_patch,
         n_in, c_in, c_out, n_taps, vec4, scale, bias, affine, relu, out);
   } else if (patched) {
-    const auto kernel = lp.slab > 16 ? patch_tile_kernel<8>
-                                     : patch_tile_kernel<2>;
+    const auto kernel = lp.slab > 16 ? patch_tile_kernel<8, TIn, TOut>
+                                     : patch_tile_kernel<2, TIn, TOut>;
     static long smem_set[2] = {0, 0};
     err = allow_smem(kernel, lp.smem, &smem_set[lp.slab > 16]);
     if (err != 0) return err;
@@ -813,10 +820,11 @@ extern "C" int band_conv_fwd(
     const dim3 grid((unsigned)(((long)n_tiles * tile + kRowThreads - 1) /
                                kRowThreads));
     const auto row_kernel =
-        l.slab == 8 ? (b16 ? band_conv_row_kernel<true, 8>
-                           : band_conv_row_kernel<false, 8>)
-                    : (b16 ? band_conv_row_kernel<true, kRowMaxCout>
-                           : band_conv_row_kernel<false, kRowMaxCout>);
+        l.slab == 8
+            ? (b16 ? band_conv_row_kernel<true, 8, TIn, TOut>
+                   : band_conv_row_kernel<false, 8, TIn, TOut>)
+            : (b16 ? band_conv_row_kernel<true, kRowMaxCout, TIn, TOut>
+                   : band_conv_row_kernel<false, kRowMaxCout, TIn, TOut>);
     return launch_k1(row_kernel, grid, kRowThreads, l.smem, stream, patched,
                      feats, keys, base_keys, valid_bits, blk,
                      static_cast<const float*>(wprep), n_in, c_in, c_out,
@@ -824,10 +832,12 @@ extern "C" int band_conv_fwd(
                      block, (long)n_tiles * tile, n_out, vec4, fits, out);
   }
   // tile mode: one instantiation per operand type and slab (<= 16, <= 64)
-  using Kernel = decltype(&band_conv_kernel<true, 2>);
+  using Kernel = decltype(&band_conv_kernel<true, 2, TIn, TOut>);
   static const Kernel kernels[4] = {
-      band_conv_kernel<false, 2>, band_conv_kernel<false, 8>,
-      band_conv_kernel<true, 2>, band_conv_kernel<true, 8>};
+      band_conv_kernel<false, 2, TIn, TOut>,
+      band_conv_kernel<false, 8, TIn, TOut>,
+      band_conv_kernel<true, 2, TIn, TOut>,
+      band_conv_kernel<true, 8, TIn, TOut>};
   static long smem_set[4] = {0, 0, 0, 0};  // largest size granted
   const int v = 2 * b16 + (l.slab > 16);
   err = allow_smem(kernels[v], l.smem, &smem_set[v]);
@@ -839,6 +849,43 @@ extern "C" int band_conv_fwd(
                    static_cast<const void*>(wprep), n_in, c_in, c_out,
                    n_taps, n_groups, geo, scale, bias, affine, relu, tile,
                    block, n_out, vec4, fits, out);
+}
+
+extern "C" int band_conv_fwd(
+    const void* feats, const int* keys, const int* base_keys,
+    const int* valid_bits, const int* blk, const float* weights,
+    int n_in, int c_in, int c_out, int n_taps, int n_groups,
+    const int* geo, const float* scale, const float* bias,
+    int affine, int relu, int bf16, int tile, int block, int n_tiles,
+    int n_out, const bool* fits, const long long* pidx, const int* pnmap,
+    int n_patch, int feats_bf16, int out_bf16, void* wprep, void* out,
+    cudaStream_t stream) {
+  // feats (n_in, c_in) f32, or bf16 when feats_bf16; out (n_out, c_out)
+  // f32, or bf16 when out_bf16 (the sums and the epilogue stay f32, the
+  // store rounds to nearest even). base_keys / valid_bits / blk cover
+  // n_tiles * tile rows; wprep holds band_conv_fwd_scratch_bytes bytes
+  // (patch = n_patch > 0). The patch: pidx (n_patch,) every valid row of
+  // the tiles whose fits (n_tiles,) is false, pnmap (n_patch, n_taps) their
+  // neighbor map. K1 then computes only the other tiles' rows (and zeros
+  // the invalid rows of those tiles), in a grid beside the patch's.
+  if (n_taps < 1 || n_taps > kMaxTaps || c_in < 1 || c_in > kMaxCin ||
+      c_out < 1 || n_groups < 1 || n_groups > kMaxGroups || tile < 1 ||
+      block < 1 || block > kMaxBlock || n_patch < 0 ||
+      (n_patch > 0 && (fits == nullptr || pidx == nullptr ||
+                       pnmap == nullptr)))
+    return -1;
+  if (n_tiles == 0) return 0;
+#define BAND_CONV_FWD(TIN, TOUT)                                             \
+  return band_conv_fwd_typed<TIN, TOUT>(                                     \
+      static_cast<const TIN*>(feats), keys, base_keys, valid_bits, blk,     \
+      weights, n_in, c_in, c_out, n_taps, n_groups, geo, scale, bias,       \
+      affine, relu, bf16, tile, block, n_tiles, n_out, fits, pidx, pnmap,   \
+      n_patch, wprep, static_cast<TOUT*>(out), stream)
+  if (feats_bf16 && out_bf16) BAND_CONV_FWD(__nv_bfloat16, __nv_bfloat16);
+  if (feats_bf16) BAND_CONV_FWD(__nv_bfloat16, float);
+  if (out_bf16) BAND_CONV_FWD(float, __nv_bfloat16);
+  BAND_CONV_FWD(float, float);
+#undef BAND_CONV_FWD
 }
 
 extern "C" long band_conv_dw_scratch_bytes(int n_taps, int c_in, int c_out,

@@ -1,9 +1,12 @@
-// Device helpers shared by the port's kernels: bf16 rounding, cp.async
-// copies into shared memory, the bf16 tensor-core product, and the
-// gathered-row convolution that K1 (band_conv.cu), K5 and K6
-// (gather_conv.cu) share once each has its (row, tap) source table: the
-// weight prep kernel, the tile mode's ring of gathered rows with its
-// epilogue mapping, and the row mode's per-thread sums.
+// Device helpers shared by the port's kernels: bf16 rounding, loads and
+// stores of f32 or bf16 rows, cp.async copies into shared memory, the bf16
+// tensor-core product, and the gathered-row convolution that K1
+// (band_conv.cu), K5 and K6 (gather_conv.cu) share once each has its
+// (row, tap) source table: the weight prep kernel, the tile mode's ring of
+// gathered rows with its epilogue mapping, and the row mode's per-thread
+// sums. The gathered rows are f32 or bf16 in device memory (K1's
+// bf16-feature mode) and f32 in shared memory and registers: a bf16 value
+// widens to f32 exactly.
 
 #pragma once
 
@@ -15,6 +18,19 @@ namespace {
 
 __device__ __forceinline__ float maybe_bf16(float x, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+// An f32 value stored as the element type (bf16: rounded to nearest
+// even).
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The two bf16 halves of a 32-bit word as f32, low half first.
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
 }
 
 // Two floats rounded to bf16 and packed, the first in the low half.
@@ -241,9 +257,12 @@ __device__ __forceinline__ void copy_w_tile(unsigned char* dst,
   }
 }
 
-// Copies the first c_in floats of feats[src[r]] into row r of a, for the
+// Copies the first c_in values of feats[src[r]] into row r of a, for the
 // 64 rows whose 16-row fragment bit is set in frag_mask (zeros where
-// src[r] is -1). The pad columns stay as they are (zero).
+// src[r] is -1). The pad columns stay as they are (zero). f32 rows go by
+// cp.async (vec4: 16-byte copies); bf16 rows are loaded (vec4: 8 values
+// in one 16-byte load), widened to f32 and stored, so the ring holds f32
+// rows either way.
 __device__ __forceinline__ void gather_rows(float* a, int a_stride,
                                             const int* src, int frag_mask,
                                             const float* __restrict__ feats,
@@ -265,6 +284,32 @@ __device__ __forceinline__ void gather_rows(float* a, int a_stride,
       cp_async4(a + rr * a_stride + c,
                 s >= 0 ? feats + (long)s * c_in + c : feats,
                 s >= 0 ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void gather_rows(
+    float* a, int a_stride, const int* src, int frag_mask,
+    const __nv_bfloat16* __restrict__ feats, int c_in, int vec4, int t) {
+  const int width = vec4 ? c_in >> 3 : c_in;  // loads per row
+  for (int i = t; i < kTileRows * width; i += kTileThreads) {
+    const int rr = i / width;
+    if (!((frag_mask >> (rr >> 4)) & 1)) continue;
+    const int s = src[rr];
+    if (vec4) {
+      const int c = (i - rr * width) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (s >= 0)
+        v = *reinterpret_cast<const uint4*>(feats + (long)s * c_in + c);
+      const float2 x0 = bf16x2_to_f32(v.x), x1 = bf16x2_to_f32(v.y);
+      const float2 x2 = bf16x2_to_f32(v.z), x3 = bf16x2_to_f32(v.w);
+      float4* d = reinterpret_cast<float4*>(a + rr * a_stride + c);
+      d[0] = make_float4(x0.x, x0.y, x1.x, x1.y);
+      d[1] = make_float4(x2.x, x2.y, x3.x, x3.y);
+    } else {
+      const int c = i - rr * width;
+      a[rr * a_stride + c] =
+          s >= 0 ? __bfloat162float(feats[(long)s * c_in + c]) : 0.0f;
     }
   }
 }
@@ -342,10 +387,10 @@ __device__ __forceinline__ void tap_product(float* acc, const float* a16,
 // ring of n_stages (64 gathered rows, W[k] tile) stages over those taps;
 // warp w multiplies its 16 rows where they hit. tap_mask and tap_list are
 // shared arrays of n_taps ints, n_active a shared int.
-template <bool kBf16, int kNT>
+template <bool kBf16, int kNT, typename TIn>
 __device__ __forceinline__ void tile_sums(
     float* acc, const int* src_s, unsigned char* area, const Layout& L,
-    const float* __restrict__ feats, int c_in, int vec4, const void* wprep,
+    const TIn* __restrict__ feats, int c_in, int vec4, const void* wprep,
     int n0, int n_taps, int* tap_mask, int* tap_list, int& n_active) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int k = warp; k < n_taps; k += kTileThreads / 32) {
@@ -434,14 +479,37 @@ __device__ __forceinline__ void tile_store(const float* acc, const Layout& L,
   }
 }
 
+// The first c_in (<= kRowMaxCin) values of one row as f32 in x, zeros
+// past them (vec4: 16-byte loads of f32 rows).
+__device__ __forceinline__ void load_row(float* x, const float* f, int c_in,
+                                         int vec4) {
+#pragma unroll
+  for (int c = 0; c < kRowMaxCin; c += 4) {
+    if (c < c_in && vec4) {
+      const float4 v = *reinterpret_cast<const float4*>(f + c);
+      x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[c + e] = c + e < c_in ? f[c + e] : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void load_row(float* x, const __nv_bfloat16* f,
+                                         int c_in, int) {
+#pragma unroll
+  for (int c = 0; c < kRowMaxCin; ++c)
+    x[c] = c < c_in ? __bfloat162float(f[c]) : 0.0f;
+}
+
 // Row mode's sums for the calling thread's output row: its hit taps'
-// sources src_s[k * kRowThreads + tid] (-1: none), each row's c_in floats
+// sources src_s[k * kRowThreads + tid] (-1: none), each row's c_in values
 // times that tap's weights resident at w_s (K, c_in, kCout), in tap then
 // channel order with fmaf (bf16: the row rounded, the weights prepped so).
-template <bool kBf16, int kCout>
+template <bool kBf16, int kCout, typename TIn>
 __device__ __forceinline__ void row_sums(float* acc, const int* src_s,
                                          int n_taps,
-                                         const float* __restrict__ feats,
+                                         const TIn* __restrict__ feats,
                                          int c_in, int vec4,
                                          const float* w_s) {
   const int tid = threadIdx.x;
@@ -450,18 +518,8 @@ __device__ __forceinline__ void row_sums(float* acc, const int* src_s,
   for (int k = 0; k < n_taps; ++k) {
     const int src = src_s[k * kRowThreads + tid];
     if (src < 0) continue;
-    const float* f = feats + (long)src * c_in;
     float x[kRowMaxCin];
-#pragma unroll
-    for (int c = 0; c < kRowMaxCin; c += 4) {
-      if (c < c_in && vec4) {
-        const float4 v = *reinterpret_cast<const float4*>(f + c);
-        x[c] = v.x; x[c + 1] = v.y; x[c + 2] = v.z; x[c + 3] = v.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[c + e] = c + e < c_in ? f[c + e] : 0.0f;
-      }
-    }
+    load_row(x, feats + (long)src * c_in, c_in, vec4);
     const float* w = w_s + k * c_in * kCout;
 #pragma unroll
     for (int c = 0; c < kRowMaxCin; ++c) {

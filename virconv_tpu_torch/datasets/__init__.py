@@ -19,11 +19,13 @@ import time
 import numpy as np
 
 from .dataset import DatasetTemplate
+from .kitti.kitti_dataset import KittiDataset
 from .kitti.kitti_dataset_mm import KittiDatasetMM
 from .kitti.kitti_dataset_semi import KittiDatasetSemi
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
+    'KittiDataset': KittiDataset,
     'KittiDatasetMM': KittiDatasetMM,
     'KittiDatasetSemi': KittiDatasetSemi,
 }

@@ -12,6 +12,7 @@ from torch import nn
 
 from ...config import CfgNode
 from ...ops import boxes as box_ops
+from ...ops.odiou import odiou_3d_weighted
 
 
 def generate_anchors(point_cloud_range, grid_size, stride, anchor_sizes,
@@ -137,17 +138,14 @@ def compute_anchor_mask(points_xy, points_mask, point_cloud_range,
 
 class AnchorHeadSingle(nn.Module):
     """1x1-conv RPN over BEV features with NMS proposals. A truthy
-    ``OD_LOSS`` raises ``NotImplementedError``: its ODIoU loss term is not
-    ported yet."""
+    ``OD_LOSS`` adds the ODIoU loss term (``ops/odiou.py``) to the RPN
+    loss."""
 
     def __init__(self, model_cfg, in_channels: int, num_class: int,
                  grid_size, point_cloud_range):
         super().__init__()
         mcfg = CfgNode(model_cfg)
-        if mcfg.get('OD_LOSS', False):
-            raise NotImplementedError(
-                'DENSE_HEAD.OD_LOSS: the ODIoU RPN loss term is not ported '
-                'yet')
+        self.od_loss = bool(mcfg.get('OD_LOSS', False))
         cfg = mcfg.ANCHOR_GENERATOR_CONFIG[0]
         anchors, self.bev_shape = generate_anchors(
             point_cloud_range, grid_size, cfg['feature_map_stride'],
@@ -240,8 +238,9 @@ class AnchorHeadSingle(nn.Module):
 
     def loss(self, out, loss_weights, code_weights):
         """RPN loss: focal classification, smooth-L1 box regression with a
-        sin-difference heading, direction cross-entropy. Returns (total,
-        {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir})."""
+        sin-difference heading, direction cross-entropy, and with
+        ``OD_LOSS`` the ODIoU term. Returns (total, {rpn_loss_cls,
+        rpn_loss_loc, rpn_loss_dir[, rpn_loss_od]})."""
         tgt = out['targets']
         labels = tgt['labels']
         b = labels.shape[0]
@@ -281,6 +280,19 @@ class AnchorHeadSingle(nn.Module):
         dir_w = dir_w / torch.clamp(dir_w.sum(-1, keepdim=True), min=1.0)
         dir_loss = -(dir_oh * logp).sum(-1) * dir_w
         dir_loss = dir_loss.sum() / b * loss_weights['dir_weight']
-        return cls_loss + loc_loss + dir_loss, {
-            'rpn_loss_cls': cls_loss, 'rpn_loss_loc': loc_loss,
-            'rpn_loss_dir': dir_loss}
+        total = cls_loss + loc_loss + dir_loss
+        tb = {'rpn_loss_cls': cls_loss, 'rpn_loss_loc': loc_loss,
+              'rpn_loss_dir': dir_loss}
+        if self.od_loss:
+            # the reference's normalization (anchor_head_template.py:296-318
+            # and odiou_loss.py:904-906, as the JAX package has it):
+            # 2 * sum(od over positives) / b, scaled by 2 / (n_pos + 1).
+            # Only positive anchors weigh in, so only they are computed.
+            anchors = self.anchors[None]
+            gt = self.coder.decode(rt, anchors)[positives]
+            od = odiou_3d_weighted(gt, self.coder.decode(bp, anchors)
+                                   [positives], torch.ones_like(gt[:, 0]), b)
+            od = 2.0 * od / (positives.sum() + 1)
+            total = total + od
+            tb['rpn_loss_od'] = od
+        return total, tb

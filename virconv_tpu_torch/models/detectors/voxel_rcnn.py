@@ -102,13 +102,18 @@ class VoxelRCNN(nn.Module):
 
     def forward(self, batch: Dict[str, Any], bf16: bool = True, rng=None):
         """Eval forward (no gradients), or in train mode the loss of one
-        step. ``bf16``: bf16 operands in the eval sparse conv and ROI
-        pooling kernels (f32 accumulation), as on the TPU; training is f32.
+        step. ``bf16``: bf16 operands in the eval sparse conv and (with
+        ``VIRCONV_POOL_BF16``, on by default) ROI pooling kernels, f32
+        accumulation, as on the TPU; in train mode bf16 operands in the
+        band conv only with ``VIRCONV_BAND_TRAIN_BF16`` (off by default:
+        training is f32). ``VIRCONV_BF16_FEATS`` (off) stores the eval
+        convs' rows as bf16. The three switches are the JAX package's,
+        read as the contexts and pools are built.
         ``rng`` (train mode): the step's random draws (``train.draws``)."""
         if not self.training:
             with torch.no_grad():
                 return self._forward(batch, bf16, None)
-        return self._forward(batch, False, rng)
+        return self._forward(batch, bf16, rng)
 
     def _forward(self, batch, bf16, rng):
         train = self.training

@@ -157,6 +157,14 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                 + self.bias[None, :, None, None])
 
 
+def promote(x, weight):
+    """``x`` in the type flax's ``nn.Dense`` and ``nn.Conv`` compute in for
+    input ``x`` and kernel ``weight`` (``promote_dtype``: bf16 features
+    with f32 kernels compute in f32, a widening that is exact). Torch's
+    layers take no mixed types, so the port writes the promotion out."""
+    return x.to(torch.promote_types(x.dtype, weight.dtype))
+
+
 class DenseConvBlock(nn.Module):
     """3x3 conv + BN + ReLU on NHWC maps, with the explicit symmetric
     (k//2, k//2) padding of the reference (not flax 'SAME')."""
@@ -172,5 +180,6 @@ class DenseConvBlock(nn.Module):
 
     def forward(self, x):
         """x (B, H, W, C) -> (B, H', W', C')."""
+        x = promote(x, self.Conv_0.weight)
         y = self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2)))
         return torch.relu(y).permute(0, 2, 3, 1)

@@ -23,9 +23,17 @@ from torch import nn
 from ...ops import sparse as sp
 from ...ops import roi_pool as rp
 from ...ops.gather_rows import gather_rows
-from ..layers import MaskedBatchNorm
+from ..layers import MaskedBatchNorm, promote
 
 CHUNK_BUDGET_EVAL = 64_000_000
+
+
+def pool_bf16_enabled() -> bool:
+    """``VIRCONV_POOL_BF16`` (default on): the eval ROI pooling kernel takes
+    bf16 feature operands when the detector runs its eval convs in bf16;
+    ``0`` keeps the pool's operands f32 under bf16 convs. Read at each
+    pool call."""
+    return sp.env_flag('VIRCONV_POOL_BF16', '1')
 
 # Which branch each SA call took, keyed 'kernel'/'probe' and by
 # 'branch stride q_per_roi'; read by chip_smoke.py.
@@ -229,7 +237,11 @@ class NeighborVoxelSAModule(nn.Module):
                 bf16: bool = True):
         """Pooled (M, sum of out widths) features of M queries.
         ``table_fn`` returns the PoolTables of ``st`` (built on demand for
-        the probe path); ``q_per_roi`` enables the ROI pooling kernel."""
+        the probe path); ``q_per_roi`` enables the ROI pooling kernel;
+        ``bf16``: bf16 feature operands in the kernel when
+        ``pool_bf16_enabled()``. ``st.feats`` may be bf16 (the eval convs'
+        bf16 rows): ``mlp_in`` promotes them to f32, as flax's Dense
+        does."""
         specs = tuple((self.query_ranges[g], self.radii[g], self.nsamples[g])
                       for g in range(len(self.query_ranges)))
         n_g = len(specs)
@@ -238,7 +250,8 @@ class NeighborVoxelSAModule(nn.Module):
                                     query_mask, table_fn, specs)
         feats_g, w_eff, b_eff = [], [], []
         for g in range(n_g):
-            f = getattr(self, f'mlp_in{g}')(st.feats)
+            mlp_in = getattr(self, f'mlp_in{g}')
+            f = mlp_in(promote(st.feats, mlp_in.weight))
             feats_g.append(getattr(self, f'mlp_in_bn{g}')(f, st.mask))
             mult, bias = getattr(self, f'mlp_pos_bn{g}').fold()
             w_eff.append(getattr(self, f'mlp_pos{g}').kernel * mult[None])
@@ -254,7 +267,8 @@ class NeighborVoxelSAModule(nn.Module):
             branch = 'kernel'
             pooled = rp.roi_pool_apply(plan, feats_g, w_eff, b_eff, specs,
                                        self.voxel_size, stride,
-                                       self.point_cloud_range, bf16=bf16)
+                                       self.point_cloud_range,
+                                       bf16=bf16 and pool_bf16_enabled())
         else:
             branch = 'probe'
             pooled = self._probe_pool(st, stride, query_xyz, query_coords,

@@ -36,7 +36,7 @@ SIGNATURES = {
     'band_conv': {
         'band_conv_fwd_scratch_bytes': (_L, [_I] * 5),
         'band_conv_fwd': (_I, [_P] * 6 + [_I] * 5 + [_P] * 3 + [_I] * 7
-                          + [_P] * 3 + [_I] + [_P] * 3),
+                          + [_P] * 3 + [_I] * 3 + [_P] * 3),
         'band_conv_dw_scratch_bytes': (_L, [_I] * 6),
         'band_conv_dw': (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 6
                          + [_P] * 3)},

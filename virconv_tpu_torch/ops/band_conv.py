@@ -17,7 +17,10 @@ on the first row of a duplicate-key run, which is the NRConv 2D first-wins
 source (callers zero the other rows of a run, as the JAX package does).
 ``out = epilogue(sum_k feats[src_k] @ W[k])`` with epilogue = affine, ReLU,
 times row-valid bit. ``bf16`` rounds feats and W to bf16 before the f32
-multiply-add, as the TPU kernel's bf16 operands do.
+multiply-add, as the TPU kernel's bf16 operands do. ``feats`` may be f32 or
+bf16 (a bf16 row widens to f32 exactly); the sums and the epilogue are
+f32, and the stored rows are ``out_dtype`` (f32 or bf16, rounded to nearest
+even), the TPU kernel's ``out_dtype``.
 
 ``patch = (pidx, pnmap)`` (``ops/sparse._sized_patch``: every valid row of
 the non-fitting tiles and their neighbor map) replaces rows ``pidx`` with the
@@ -137,10 +140,11 @@ def _tap_sources(keys, plan: BandPlan, valid_bits, n_in):
 
 
 def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
-                    bias=None, relu=False, bf16=True, patch=None):
+                    bias=None, relu=False, bf16=True, patch=None,
+                    out_dtype=torch.float32):
     """Plain PyTorch version of the kernel contract (module docstring),
     the patch applied after it as ``nmap_conv_plain``, ``_epilogue`` and
-    an index put."""
+    an index put, all in f32; the rows are cast to ``out_dtype`` last."""
     f = feats.float()
     w = weights.float()
     if bf16:
@@ -162,7 +166,7 @@ def band_conv_plain(feats, keys, plan: BandPlan, weights, scale=None,
         pidx, pnmap = patch
         out[pidx] = _epilogue(nmap_conv_plain(feats, pnmap, weights), None,
                               scale, bias, relu)
-    return out
+    return out.to(out_dtype)
 
 
 def band_conv_dw_plain(feats, keys, plan: BandPlan, g, valid_bits=None,
@@ -185,16 +189,17 @@ def band_conv_dw_plain(feats, keys, plan: BandPlan, g, valid_bits=None,
 
 
 def band_conv(feats, keys, plan: BandPlan, weights, scale=None, bias=None,
-              relu: bool = False, bf16: bool = True, patch=None):
+              relu: bool = False, bf16: bool = True, patch=None,
+              out_dtype=torch.float32):
     """One sparse conv through the band window, with the gather ``patch``
     ``(pidx, pnmap)`` of its non-fitting rows when given: the CUDA kernels
-    for CUDA tensors, the plain version for CPU tensors. Returns
-    (N_out, C') f32."""
+    for CUDA tensors, the plain version for CPU tensors. ``feats`` f32 or
+    bf16; returns (N_out, C') ``out_dtype`` (f32 or bf16)."""
     if not feats.is_cuda:
         return band_conv_plain(feats, keys, plan, weights, scale, bias,
-                               relu, bf16, patch)
+                               relu, bf16, patch, out_dtype)
     return _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu,
-                           bf16, patch)
+                           bf16, patch, out_dtype)
 
 
 def band_conv_dw(feats, keys, plan: BandPlan, g, valid_bits=None,
@@ -243,8 +248,11 @@ def _geometry(plan, dev):
     return g
 
 
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16,
-                    patch=None):
+                    patch=None, out_dtype=torch.float32):
     """Launch ``band_conv_fwd`` (csrc/band_conv.cu): a prep kernel lays the
     weights out (bf16: rounded; with a patch at bf16, an f32 copy too),
     then in tile mode one CTA per 64 rows of a
@@ -256,20 +264,26 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16,
     in shared memory. With a patch, a launch before K1's gives its rows
     the exact conv with f32 operands on the same bodies, K1's epilogue
     fused into their store to ``out[pidx]``, and K1 runs beside it
-    (programmatic dependent launch) on the tiles that fit.
+    (programmatic dependent launch) on the tiles that fit. bf16 feature
+    rows are widened to f32 as they are staged, and ``out_dtype`` bf16
+    rounds each stored value (the bodies are templated on both types).
 
-    Replaces virconv_tpu/ops/pallas/band_conv.py::_kernel. Bound: at the
-    main path's widths (C, C' <= 64) the work is 2*C*C' operations per
-    (row, tap) hit against one gathered row of C floats: bytes at the bf16
-    peak (serving), operations at the f32 peak (training). The row gather
-    is a lower-bound binary search of the tile's 2-block window: no one-hot
-    matmul, no neighbor map."""
+    Replaces virconv_tpu/ops/pallas/band_conv.py::_kernel (with its
+    ``out_dtype``). Bound: at the main path's widths (C, C' <= 64) the work
+    is 2*C*C' operations per (row, tap) hit against one gathered row of C
+    values: bytes at the bf16 peak (serving; bf16 rows halve them),
+    operations at the f32 peak (training). The row gather is a lower-bound
+    binary search of the tile's 2-block window: no one-hot matmul, no
+    neighbor map."""
     global launches, patch_launches
     from . import _cuda
     dev = feats.device
     n_in, c_in = feats.shape
     k, _, c_out = weights.shape
-    _cuda.check_cuda_tensor(feats, 'feats', torch.float32, 2)
+    if feats.dtype not in FEATURE_DTYPES or out_dtype not in FEATURE_DTYPES:
+        raise ValueError(f'band_conv: feats {feats.dtype}, out_dtype '
+                         f'{out_dtype}: the kernel takes f32 or bf16')
+    _cuda.check_cuda_tensor(feats, 'feats', feats.dtype, 2)
     _cuda.check_cuda_tensor(keys, 'keys', torch.int32, 1, dev)
     _cuda.check_cuda_tensor(weights, 'weights', torch.float32, 3, dev)
     for name in ('base_keys', 'valid_bits', 'blk'):
@@ -301,7 +315,7 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16,
                              f'{tuple(pnmap.shape)}, for {plan.n_out} rows '
                              f'and {k} taps')
     n_tiles = plan.base_keys.shape[0]
-    out = torch.empty((plan.n_out, c_out), dtype=torch.float32, device=dev)
+    out = torch.empty((plan.n_out, c_out), dtype=out_dtype, device=dev)
     lib = _cuda.load('band_conv')
     wprep = torch.empty((lib.band_conv_fwd_scratch_bytes(
         c_in, c_out, k, int(bf16), int(n_patch > 0)),), dtype=torch.uint8,
@@ -317,8 +331,9 @@ def _band_conv_cuda(feats, keys, plan, weights, scale, bias, relu, bf16,
         int(affine), int(relu), int(bf16), plan.tile, plan.block, n_tiles,
         plan.n_out, _cuda.ptr(plan.fits) if n_patch else null,
         _cuda.ptr(pidx) if n_patch else null,
-        _cuda.ptr(pnmap) if n_patch else null, n_patch, _cuda.ptr(wprep),
-        _cuda.ptr(out), _cuda.stream_ptr(dev))
+        _cuda.ptr(pnmap) if n_patch else null, n_patch,
+        int(feats.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _cuda.ptr(wprep), _cuda.ptr(out), _cuda.stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f'band_conv_fwd launch failed: CUDA error {err}')
     launches += 1

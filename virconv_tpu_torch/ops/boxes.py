@@ -15,6 +15,22 @@ import torch
 EPS = 1e-8
 
 
+def clip(x, lo=None, hi=None):
+    """``jnp.clip``: a maximum, then a minimum, so a value at a bound
+    passes half its gradient, as JAX's does (``torch.clamp`` passes all of
+    it). Where the box overlap meets its bounds exactly (touching or
+    parallel edges), its gradients then agree with the JAX package's.
+    Without a gradient to take (evaluation, NMS) it is ``torch.clamp``:
+    the same values in one launch."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, torch.full_like(x, lo))
+    if hi is not None:
+        x = torch.minimum(x, torch.full_like(x, hi))
+    return x
+
+
 def limit_period(val, offset=0.5, period=math.pi):
     return val - torch.floor(val / period + offset) * period
 
@@ -87,8 +103,8 @@ def _clipped_edge_integrals(corners, normals, offsets, coincide_tol=1e-4):
     parallel = nd.abs() <= par_eps
     infeasible = (parallel & (nu > c + coincide_tol)).any(-1)
     on_boundary = (parallel & ((nu - c).abs() <= coincide_tol)).any(-1)
-    t0 = torch.clamp(t_lo, 0.0, 1.0)
-    t1 = torch.clamp(t_hi, 0.0, 1.0)
+    t0 = clip(t_lo, 0.0, 1.0)
+    t1 = clip(t_hi, 0.0, 1.0)
     ok = (~infeasible) & (t1 > t0)
     p0 = u + t0[..., None] * d
     p1 = u + t1[..., None] * d
@@ -107,7 +123,7 @@ def boxes_overlap_bev(boxes_a, boxes_b, row_chunk: int | None = None):
     def block(ca_, na_, oa_):
         suma = _clipped_edge_integrals(ca_[:, None], nb[None], ob[None])
         sumb = _clipped_edge_integrals(cb[None], na_[:, None], oa_[:, None])
-        return torch.clamp(0.5 * (suma + sumb), min=0.0)
+        return clip(0.5 * (suma + sumb), 0.0)
 
     n = boxes_a.shape[0]
     if row_chunk is None or n <= row_chunk:
@@ -115,6 +131,37 @@ def boxes_overlap_bev(boxes_a, boxes_b, row_chunk: int | None = None):
     return torch.cat([block(ca[i:i + row_chunk], na[i:i + row_chunk],
                             oa[i:i + row_chunk])
                       for i in range(0, n, row_chunk)])
+
+
+def boxes_overlap_bev_pairs(boxes_a, boxes_b):
+    """Rotated BEV overlap area of each pair (boxes_a[i], boxes_b[i]): (N,),
+    the diagonal of ``boxes_overlap_bev`` (the JAX package's per-pair
+    ``vmap`` of it) without the N x N work."""
+    na, oa = _rect_halfplanes(boxes_a)
+    nb, ob = _rect_halfplanes(boxes_b)
+    suma = _clipped_edge_integrals(boxes_to_corners_bev(boxes_a), nb, ob)
+    sumb = _clipped_edge_integrals(boxes_to_corners_bev(boxes_b), na, oa)
+    return clip(0.5 * (suma + sumb), 0.0)
+
+
+def points_in_boxes(points, boxes):
+    """(P,) int32 index of the first (N, 7) box containing each of the
+    (P, 3+) points, -1 if none: the dense rotate + axis-aligned test of
+    ``virconv_tpu.ops.boxes.points_in_boxes``, on the caller's device
+    (the host copies are ``ops/boxes_np.py`` and ``ops/native.py``)."""
+    d = points[:, None, 0:3] - boxes[None, :, 0:3]          # (P, N, 3)
+    cosa = torch.cos(boxes[:, 6])[None]
+    sina = torch.sin(boxes[:, 6])[None]
+    lx = d[..., 0] * cosa + d[..., 1] * sina
+    ly = -d[..., 0] * sina + d[..., 1] * cosa
+    inside = ((lx.abs() <= boxes[None, :, 3] / 2)
+              & (ly.abs() <= boxes[None, :, 4] / 2)
+              & (d[..., 2].abs() <= boxes[None, :, 5] / 2))
+    if inside.shape[1] == 0:
+        return torch.full((points.shape[0],), -1, dtype=torch.int32,
+                          device=points.device)
+    idx = torch.argmax(inside.to(torch.uint8), 1).to(torch.int32)
+    return torch.where(inside.any(1), idx, torch.full_like(idx, -1))
 
 
 def boxes_iou_bev(boxes_a, boxes_b, row_chunk: int | None = None):

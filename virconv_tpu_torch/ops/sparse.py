@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -32,6 +33,27 @@ ROW_VALID_BIT = 30           # bit of valid_bits marking "output row valid"
 # Which branch each band-mode conv took, counted per conv call; read by
 # chip_smoke.py (a slow branch on the main path is a performance fault).
 branch_counts = collections.Counter()
+
+
+def env_flag(name: str, default: str) -> bool:
+    """A switch of the JAX package's environment: off for '0', 'false' or
+    'False', on for any other value; ``default`` when unset."""
+    return os.environ.get(name, default) not in ('0', 'false', 'False')
+
+
+def band_train_bf16_enabled() -> bool:
+    """``VIRCONV_BAND_TRAIN_BF16`` (default off): the training band conv
+    (K1 forward and input gradient, K4) takes bf16 operands with f32
+    sums; its gather-patch terms stay f32. Read when a training conv
+    context is built."""
+    return env_flag('VIRCONV_BAND_TRAIN_BF16', '0')
+
+
+def feats_bf16_enabled() -> bool:
+    """``VIRCONV_BF16_FEATS`` (default off): the eval band convs store their
+    (N, C') rows as bf16 (sums and epilogue f32), so the next layer reads
+    bf16 rows. Read when an eval conv context is built."""
+    return env_flag('VIRCONV_BF16_FEATS', '0')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -552,7 +574,9 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
     """The conv function of one (key set, geometry) context, shared by the
     layers on it: ``conv(feats (N_in, C), weights (K, C, C'), scale=None,
     bias=None, relu=False) -> (N_out, C')`` with the affine + ReLU epilogue
-    fused and invalid output rows zero.
+    fused and invalid output rows zero. The rows are bf16 when
+    ``feats_bf16_enabled()`` at the context's build, else f32; feats may be
+    either.
 
     It runs the band-window kernel plus an exact gather patch for the rows
     of tiles whose window does not fit, in one ``band_conv`` call. If the
@@ -562,6 +586,7 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
     patch = _sized_patch(plan, lambda qk: lookup(keys, qk),
                          first_index) if fast_ok else None
     slow_map = [None]
+    out_dtype = torch.bfloat16 if feats_bf16_enabled() else torch.float32
 
     def conv(feats, weights, scale=None, bias=None, relu=False):
         from .band_conv import band_conv
@@ -571,56 +596,61 @@ def _band_ctx(plan, keys, out_mask, slow_nmap, bf16, src_sel=None,
         if fast_ok:
             branch_counts['band'] += 1
             return band_conv(src, keys, plan, weights, scale, bias, relu,
-                             bf16, patch)
+                             bf16, patch, out_dtype)
         branch_counts['nmap_slow'] += 1
         if slow_map[0] is None:
             slow_map[0] = slow_nmap()
         out = nmap_conv(src, slow_map[0], weights)
         return _epilogue(out * out_mask[:, None].to(out.dtype), out_mask,
-                         scale, bias, relu)
+                         scale, bias, relu).to(out_dtype)
     return conv
 
 
 class _BandTrain(torch.autograd.Function):
-    """Exact submanifold band conv (K1 + gather patch), f32, with the
+    """Exact submanifold band conv (K1 + gather patch), f32 out, with the
     backward of the JAX package's ``_band_train``: the input gradient is the
     same conv with tap-reversed, transposed weights ``W_T[k] = W[K-1-k]^T``
     (offset_{K-1-k} == -offset_k, so plan, windows and patch are reused as
     they are); the weight gradient is K4 over the rows of fitting tiles
-    (``bits_dw``) plus the patch rows' exact contribution."""
+    (``bits_dw``) plus the patch rows' exact contribution. ``bf16``: bf16
+    operands in K1 (forward and input gradient) and K4; the patch terms
+    keep f32 operands, as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, feats, weights, keys, plan, bits_dw, patch):
+    def forward(ctx, feats, weights, keys, plan, bits_dw, patch, bf16):
         from .band_conv import band_conv
         ctx.save_for_backward(feats, weights)
-        ctx.rest = keys, plan, bits_dw, patch
-        return band_conv(feats, keys, plan, weights, bf16=False, patch=patch)
+        ctx.rest = keys, plan, bits_dw, patch, bf16
+        return band_conv(feats, keys, plan, weights, bf16=bf16, patch=patch)
 
     @staticmethod
     def backward(ctx, g):
         from .band_conv import band_conv, band_conv_dw
         feats, weights = ctx.saved_tensors
-        keys, plan, bits_dw, patch = ctx.rest
+        keys, plan, bits_dw, patch, bf16 = ctx.rest
         g = g.contiguous()
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             wt = weights.flip(0).transpose(1, 2).contiguous()
-            dfeats = band_conv(g, keys, plan, wt, bf16=False, patch=patch)
+            dfeats = band_conv(g, keys, plan, wt, bf16=bf16, patch=patch)
         if ctx.needs_input_grad[1]:
             dw = band_conv_dw(feats, keys, plan, g, valid_bits=bits_dw,
-                              bf16=False)
+                              bf16=bf16)
             if patch is not None:
                 pidx, pnmap = patch
                 g_patch = g[pidx]
                 dw = dw + torch.stack([_gather(feats, pnmap[:, j]).T @ g_patch
                                        for j in range(pnmap.shape[1])])
-        return dfeats, dw, None, None, None, None
+        return dfeats, dw, None, None, None, None, None
 
 
-def _subm_conv_train_ctx(st, kernel_size, tile, block):
+def _subm_conv_train_ctx(st, kernel_size, tile, block, bf16):
     """Training conv function ``conv(feats, weights)`` of a 3D submanifold
     conv: ``_BandTrain`` (its patch holds every row of the non-fitting
     tiles) when the plan's keys are sorted, else the neighbor-map conv.
+    The band conv takes bf16 operands when ``bf16`` and
+    ``band_train_bf16_enabled()`` at the context's build, as the JAX
+    package's ``_BandStatics``.
 
     StVD leaves its dropped rows (INVALID keys) between valid ones; such a
     tensor is convolved in key order and its rows are put back, so the
@@ -630,7 +660,7 @@ def _subm_conv_train_ctx(st, kernel_size, tile, block):
     if not bool((keys[1:] >= keys[:-1]).all()):
         st_s, perm = sort_by_key_with_perm(st)
         inv = torch.argsort(perm)
-        conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block)
+        conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block, bf16)
         return lambda feats, weights: conv_s(feats[perm], weights)[inv]
     plan, keys = subm_band_plan(st, kernel_size, tile, block)
     fast_ok = bool(plan.keys_sorted)
@@ -639,12 +669,13 @@ def _subm_conv_train_ctx(st, kernel_size, tile, block):
     bits_dw = torch.where(plan.fits[:, None], plan.valid_bits,
                           torch.zeros_like(plan.valid_bits))
     slow = [None]
+    op_bf16 = bool(bf16) and band_train_bf16_enabled()
 
     def conv(feats, weights):
         if fast_ok:
             branch_counts['band_train'] += 1
             return _BandTrain.apply(feats, weights, keys, plan, bits_dw,
-                                    patch)
+                                    patch, op_bf16)
         branch_counts['band_train_nmap'] += 1
         if slow[0] is None:
             slow[0] = nmap_subm_conv_ctx(st, kernel_size)
@@ -657,7 +688,7 @@ def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
                   bf16: bool = True, train: bool = False):
     """Conv function of a submanifold conv on ``st`` (sorted by key): eval
     (see ``_band_ctx``), or with ``train`` the differentiable band conv
-    ``conv(feats, weights)`` in f32 (``_subm_conv_train_ctx``).
+    ``conv(feats, weights)`` with f32 rows (``_subm_conv_train_ctx``).
 
     ``first_wins_sources`` (eval only): for key sets with duplicates (the
     NRConv 2D image-plane tensor) all but the first row of each key are
@@ -668,7 +699,7 @@ def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
         if first_wins_sources:
             raise ValueError('the band training conv takes no duplicate-key '
                              'sources')
-        return _subm_conv_train_ctx(st, kernel_size, tile, block)
+        return _subm_conv_train_ctx(st, kernel_size, tile, block, bf16)
     plan, keys = subm_band_plan(st, kernel_size, tile, block)
     src_sel = first_index = None
     if first_wins_sources:

@@ -21,7 +21,10 @@ them) beside their bounds,
 phase 6b's gradient comparison and phase 11's two seeded trainers (fault
 C4); phase 12's CSPN kernel per frame, generation seconds per frame by
 stage, points per frame and the VirConv-T evaluation of the generated
-points; and phase 8's sums by layer shape (K, C -> C'). A row a log lacks
+points; phase 13's precision modes (K1 with bf16 features per T and L
+request, K1 and K4 with bf16 operands per training step, K2+K3 at f32
+operands per request, the requests, steps and the ODIoU step); and phase
+8's sums by layer shape (K, C -> C'). A row a log lacks
 (an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
@@ -117,6 +120,16 @@ def rows_of(data):
                         ' '.join(f'{split[p]:.3f}' for p in (
                             'csr_ms', 'sum_ms', 'hot_row_tail_ms',
                             'csr_sort_ms'))))
+        for key, label, unit_ in (             # phase 13 (absent before)
+                ('bf16_feats', 'bf16 features', 'request'),
+                ('train_bf16', 'bf16 operands', 'step'),
+                ('pool_f32', 'f32 operands', 'request')):
+            pk = k.get(key)
+            if pk is not None:
+                total(f'{k["name"]} {label} per {unit_}', pk, pk['launches'])
+                if 'virconv_l' in pk:
+                    total(f'VirConv-L {k["name"]} {label} per {unit_}',
+                          pk['virconv_l'], pk['virconv_l']['launches'])
         lk = k.get('virconv_l')              # phase 11 (absent before)
         if lk is not None:
             total(f'VirConv-L {k["name"]} per {unit}', lk, lk['launches'])
@@ -221,6 +234,24 @@ def rows_of(data):
                     f'{vp["eval"]["sec_per_example"]:.4f}'))
         out.append(('PENetC2 64 x 96 CUDA vs CPU max err',
                     f'{vp["small_cuda_vs_cpu"]["max_abs_err"]:.3g}'))
+    pr = data.get('precision')               # phase 13 (absent before)
+    if pr is not None:
+        for key, model in (('bf16_feats', 'VirConv-T'),
+                           ('bf16_feats_virconv_l', 'VirConv-L')):
+            out.append((f'{model} ms per request, bf16 features', ' '.join(
+                f'{t:.1f}' for t in pr[key]['ms_per_request'])))
+            vs = pr[key]['vs_f32_features']
+            if 'rois_matched' in vs:         # absent before the ROI match
+                out.append((f'{model} vs f32 features: ROIs matched, box / '
+                            'logit max diff over them',
+                            f'{vs["rois_matched"]}/{vs["rois_ref"]} '
+                            f'{vs["matched_box_preds_max_abs_diff"]:.4g} / '
+                            f'{vs["matched_cls_preds_max_abs_diff"]:.4g}'))
+        out.append(('training ms per step, bf16 band convs', ' '.join(
+            f'{t:.1f}' for t in pr['train_bf16']['ms_per_step'])))
+        out.append(('OD_LOSS step: ms, rpn_loss_od',
+                    f'{pr["od_loss"]["ms"]:.1f} '
+                    f'{pr["od_loss"]["terms"]["rpn_loss_od"]:.4f}'))
     vs = data.get('virconv_s')
     if vs is not None:
         out.append(('VirConv-S train_gpu ms per step', ' '.join(
