@@ -127,6 +127,38 @@ Phases (each prints one line; any failure exits non-zero):
      by stage and points per frame; (d) ``eval_one_ckpt`` of VirConv-T
      over the generated tree, gated as 9a; (e) PENetC2 at 64 x 96 on CUDA
      against the CPU, the depth within 1e-4 x scale;
+ 13. the JAX package's precision switches (K1 with bf16 features, K1
+     and K4 with bf16 training operands, K2+K3 at f32 operands, the
+     ODIoU step);
+ 14. data parallel (``parallel/``), 2 ranks sharing this card over gloo
+     (NCCL refuses two ranks on one device; ``parallel.spawn.run_ranks``
+     starts them): (a) one full-width VirConv-T step of phase 6's batch
+     within the boxes of ``DP_CROP`` (where no capacity cap binds), a
+     frame (3 entries) per rank, against the one-process ``Trainer`` step
+     from the same weights with its draws mapped to the ranks and its NMS
+     selections replayed on them (``replay_nms``), the box-regression
+     outputs zeroed (``zero_box_outputs``): no proposal order or sampling
+     threshold can then turn on round-off. Gates: the loss within rel
+     1e-4, the parameters within 3 x the first learning rate + 1e-3 rel
+     and the BN statistics within 2e-4 + 1e-2 rel
+     (tests/test_multidevice.py's), every gradient within 1e-2 of its
+     norm (the worst entry against phase 7's 1e-3 x its scale printed:
+     round-off crosses ReLU kinks at full width, PERF.md §6), both
+     ranks' parameters the same bits, a second 2-rank run the same bits,
+     no capacity cap dropping a row, K1, K4 and the gather's backward
+     launched on each rank (counts set to 0 before each rank's steps,
+     read after); then on phase 6's whole batch, 3 steps of 2 ranks with
+     their own draws: per-rank warm step ms against the one-process step,
+     the gradient all-reduce's and the sync-BN all-reduces' calls, bytes
+     and ms per step, peak memory per rank, and the rows each cap drops
+     per rank; (b) one rank in an nccl group of its own, the same bits as
+     the trainer without a group; (c) ``tools/test_gpu.py --launcher
+     pytorch`` over phase 9's tree and checkpoint, rank 0's merged dicts
+     against one process with per-frame streams (the same frames and
+     counts, boxes within 5e-3, scores within 2e-3, AP within 1e-4); (d)
+     ``tools/train_gpu.py --launcher pytorch`` for one epoch on phase
+     10's tree: the same finite losses on both ranks, the checkpoint
+     written by rank 0 alone, the distributed evaluation after training;
 then one JSON line of per-kernel numbers (the six kernels' ports, the
 gather patch's (``band_conv_patch``), ``nmap_conv``'s (phase 8),
 ``gather_rows``' per training step and ``cspn``'s per frame; times and
@@ -137,7 +169,8 @@ K1's and K2+K3's over the phase 9a run as
 ``launches_train_cli`` and ``launches_train_cli_eval``; VirConv-L's per
 request and per step under ``virconv_l``) with phase 9's numbers under
 ``eval``, phase 10's under ``train_cli``, phase 11's under ``virconv_l``
-and ``virconv_s`` and phase 12's under ``virtual_points``, the card's
+and ``virconv_s``, phase 12's under ``virtual_points``, phase 13's under
+``precision`` and phase 14's under ``data_parallel``, the card's
 name and power limit, and the device JSON as the last line; phase 3's
 launches per request under ``serve``. Each phase
 prints its seconds. It needs the repository around it: alone, or without
@@ -2494,6 +2527,514 @@ def precision_phase(frames):
                            'train_bf16': train_run, 'od_loss': od}
 
 
+DP_WORLD = 2          # phase 14: ranks, all on cuda:0 over gloo
+# the timing run's steps per rank: a first, a warm one, a warm one with
+# its collectives timed (each synchronized)
+DP_TIMING = (False, False, True)
+# phase 14a's equality batch: the x, y box (m) of each entry's LiDAR and
+# virtual points (on the H100: the largest boxes tried whose caps hold
+# in one process and on each rank)
+DP_CROP = {'points': (0, 15, -8, 8), 'points_mm': (0, 10, -5, 5)}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def dp_cli_rank(rank, world, payload):
+    """Rank ``rank`` of a ``--launcher pytorch`` run of ``tools/<tool>.py``
+    (phase 14c, 14d): torchrun's environment, then the CLI's ``main`` in
+    this process with every launch count set to 0 just before and read
+    just after. Returns what the checks need."""
+    from virconv_tpu_torch.ops import band_conv, gather_rows, roi_pool
+    tool, argv, port, cfg = payload
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'tools'))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(port))
+    band_conv.launches = band_conv.dw_launches = roi_pool.launches = 0
+    gather_rows.launches = gather_rows.bwd_launches = 0
+    if tool == 'test_gpu':
+        import test_gpu
+        if cfg is not None:          # a CPU rehearsal's tiny config
+            test_gpu.CONFIGS['virconv_t'] = lambda: cfg
+        res = test_gpu.main(argv)[0]
+        out = None if res is None else {
+            'det_annos': res.det_annos, 'result': res.result_dict,
+            'frames': res.frames, 'sec_per_example': res.sec_per_example}
+    else:
+        import train_gpu
+        if cfg is not None:
+            train_gpu.CONFIGS['virconv_t'] = lambda: cfg
+        run = train_gpu.main(argv)
+        out = {'steps': run.steps, 'frames': run.frames,
+               'checkpoints': [p.name for p in run.checkpoints],
+               'eval': None if run.eval is None else {
+                   'result': run.eval.result_dict,
+                   'frames': run.eval.frames}}
+    return {'result': out, 'launches': {
+        'band_conv_fwd': band_conv.launches,
+        'band_conv_dw': band_conv.dw_launches,
+        'roi_pool_fwd': roi_pool.launches,
+        'gather_rows': gather_rows.launches + gather_rows.bwd_launches}}
+
+
+def _grad_worst(got, want):
+    """(the worst gradient error in units of its scale, its parameter):
+    phase 7's rule, each scale floored at 1e-4 x the step's largest."""
+    floor = 1e-4 * max(float(g.abs().max()) for g in want.values())
+    return max((float((got[n] - g).abs().max())
+                / max(float(g.abs().max()), floor), n)
+               for n, g in want.items())
+
+
+def _worst_over(got, want, atol, rtol):
+    """(the worst |got - want| / (atol + rtol |want|), its name)."""
+    return max((float(((got[n].double() - w.double()).abs()
+                       / (atol + rtol * w.double().abs())).max()), n)
+               for n, w in want.items())
+
+
+def _bits(a, b):
+    """Dicts of tensors with the same bits (float32 by int32 view)."""
+    import torch
+    return set(a) == set(b) and all(
+        bits_equal(a[n], b[n]) if b[n].dtype == torch.float32
+        else torch.equal(a[n], b[n]) for n in b)
+
+
+def dp_batch():
+    """Phase 6's batch (``train_batch()``: 2 frames x ROT_NUM 3 at full
+    width) with each entry's points outside the BEV boxes of ``DP_CROP``
+    (x0, x1, y0, y1 metres, per stream) made invalid: the boxes keep every
+    capacity cap from binding, in one process and on each rank. On the
+    whole batch one process's caps drop rows, and each rank's caps, sized
+    from its own entries, drop others."""
+    from virconv_tpu_torch.utils.bench_inputs import train_batch
+    batch = train_batch()
+    for pts, (x0, x1, y0, y1) in DP_CROP.items():
+        x, y = batch[pts][..., 0], batch[pts][..., 1]
+        batch[f'{pts}_valid'] = batch[f'{pts}_valid'] & (x >= x0) \
+            & (x < x1) & (y >= y0) & (y < y1)
+    return batch
+
+
+def zero_box_outputs(model):
+    """Zero the box-regression outputs of the RPN (``conv_box``) and of the
+    cascade's three regression heads: the proposals are then the anchor
+    boxes exactly and each stage's ROIs the previous stage's, on any
+    device and in any reduction order. With random regression weights the
+    proposals of two runs that sum in other orders differ by round-off,
+    and one proposal whose IoU sits on a sampling threshold changes the
+    sampled ROIs and, through the cascade's batch-wide BN, every stage
+    after it (on the H100: losses 2.1e-3 apart). Every other layer
+    keeps its seeded weights."""
+    import torch
+    with torch.no_grad():
+        for conv in (model.dense_head.conv_box, model.roi_head.reg_head.out,
+                     model.roi_head.reg_head_pi.out,
+                     model.roi_head.reg_head_p.out):
+            conv.weight.zero_()
+            conv.bias.zero_()
+    return model
+
+
+class NmsRecord:
+    """Records the RPN's NMS selections of a step (``box_ops.nms_bev``, one
+    call per entry, in entry order) while it is entered."""
+
+    def __enter__(self):
+        from virconv_tpu_torch.ops import boxes
+        self._boxes, self._orig = boxes, boxes.nms_bev
+        self.calls = []
+
+        def record(*a, **k):
+            out = self._orig(*a, **k)
+            self.calls.append(tuple(t.detach().cpu() for t in out))
+            return out
+        boxes.nms_bev = record
+        return self
+
+    def __exit__(self, *exc):
+        self._boxes.nms_bev = self._orig
+        return False
+
+
+def replay_nms(rank, world, payload):
+    """A ``step_rank`` setup: the rank's NMS calls return the one-process
+    step's selections of its entries (``payload['nms']``, one per global
+    entry), in order."""
+    from virconv_tpu_torch.ops import boxes
+    calls = payload['nms']
+    per = len(calls) // world
+    queue = list(calls[rank * per:(rank + 1) * per])
+
+    def replay(boxes_, *a, **k):
+        sel, valid = queue.pop(0)
+        return sel.to(boxes_.device), valid.to(boxes_.device)
+    boxes.nms_bev = replay
+
+
+def _one_process_step(make_cfg, device, batch, draws, prepare=None):
+    """A fresh seeded ``Trainer``'s first step on ``batch`` with ``draws``
+    (its loss, gradients, parameters, buffers and capacity caps), then a
+    second, timed (ms, peak GiB); and the weights it started from.
+    ``prepare(model)`` edits the weights first."""
+    import torch
+    from virconv_tpu_torch.ops import sparse
+    from virconv_tpu_torch.train.trainer import Trainer
+    cuda = device == 'cuda'
+    with torch.enable_grad():
+        trainer = Trainer(make_cfg(), device=device, seed=0)
+        if prepare is not None:
+            prepare(trainer.model)
+        state_dict = {k: v.detach().cpu().clone() for k, v in
+                      trainer.model.state_dict().items()}
+        sparse.CAP_LOG = []
+        with NmsRecord() as nms:
+            loss, _ = trainer.step(batch, draws)
+        caps, sparse.CAP_LOG = sparse.CAP_LOG, None
+        model = trainer.model
+        one = {'loss': float(loss), 'caps': caps, 'nms': nms.calls,
+               'grads': {n: p.grad.detach().cpu() for n, p in
+                         model.named_parameters() if p.grad is not None},
+               'params': {n: p.detach().cpu().clone() for n, p in
+                          model.named_parameters()},
+               'buffers': {n: b.detach().cpu().clone() for n, b in
+                           model.named_buffers()},
+               'lr0': float(trainer.optimizer.lr_fn(0))}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer.step(batch)
+        if cuda:
+            torch.cuda.synchronize()
+        one['ms'] = (time.perf_counter() - t) * 1e3
+        one['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if cuda else 0.0
+        del trainer, model
+        if cuda:
+            torch.cuda.empty_cache()
+    return one, state_dict
+
+
+def _dropped(caps):
+    return [(site, cap, rows) for site, cap, rows in caps if rows > cap]
+
+
+def dp_equality(make_cfg, device, batch, entries_per_frame):
+    """One step of ``make_cfg``'s model on ``batch``, its box-regression
+    outputs zeroed: the one-process ``Trainer`` with draws from a seeded
+    generator, then 2 ranks on one card over gloo (``parallel.spawn.
+    step_rank``) from the same weights, each on its frames, with those
+    draws mapped to it (``Draws.for_rank``) and the one process's NMS
+    selections replayed (``replay_nms``), twice; then one rank in an nccl
+    group of its own (gloo on the CPU) once. Returns the comparison."""
+    import torch
+    from virconv_tpu_torch.parallel.spawn import run_ranks, step_rank
+    from virconv_tpu_torch.train.draws import Draws
+    cuda = device == 'cuda'
+    draws = Draws(torch.Generator(device=device).manual_seed(11))
+    one, state_dict = _one_process_step(make_cfg, device, batch, draws,
+                                        zero_box_outputs)
+    payload = {'cfg': make_cfg(), 'state_dict': state_dict,
+               'batch': batch, 'device': 'cuda:0' if cuda else 'cpu',
+               'seed': 0, 'entries_per_frame': entries_per_frame,
+               'draws': [draws.for_rank(r, DP_WORLD)
+                         for r in range(DP_WORLD)],
+               'setup': replay_nms, 'nms': one['nms']}
+    ranks, again = (run_ranks(step_rank, DP_WORLD, payload, timeout=600,
+                              threads=4) for _ in range(2))
+    lr0 = one['lr0']
+    grad = max(_grad_worst(r['grads'], one['grads']) for r in ranks)
+    norm_floor = 1e-4 * max(float(g.norm()) for g in one['grads'].values())
+    out = {
+        'loss_one_process': one['loss'],
+        'loss_ranks': [r['loss'] for r in ranks],
+        'loss_rel_err': max(abs(r['loss'] - one['loss']) / abs(one['loss'])
+                            for r in ranks),
+        'worst_grad': list(grad),
+        'worst_grad_norm_rel': list(max(
+            (float((r['grads'][n] - g).norm()) / max(float(g.norm()),
+                                                      norm_floor), n)
+            for r in ranks for n, g in one['grads'].items())),
+        'worst_param_over_tol': list(max(
+            _worst_over(r['params'], one['params'], 3 * lr0, 1e-3)
+            for r in ranks)),
+        'worst_bn_stat_over_tol': list(max(
+            _worst_over(r['buffers'], one['buffers'], 2e-4, 1e-2)
+            for r in ranks)),
+        'ranks_bit_equal': _bits(ranks[0]['params'], ranks[1]['params'])
+        and _bits(ranks[0]['buffers'], ranks[1]['buffers']),
+        'repeat_bit_equal': all(
+            _bits(a[k], b[k]) for a, b in zip(ranks, again)
+            for k in ('params', 'buffers', 'grads'))
+        and all(a['loss'] == b['loss'] for a, b in zip(ranks, again)),
+        'dropped_rows_per_rank': [_dropped(r['caps']) for r in ranks],
+        'dropped_rows_one_process': _dropped(one['caps']),
+        'launches_per_rank': [r['steps'][0]['launches'] for r in ranks]}
+    solo = run_ranks(step_rank, 1, {
+        **payload, 'draws': [draws.for_rank(0, 1)]},
+        backend='nccl' if cuda else 'gloo', timeout=600, threads=4)[0]
+    out['nccl_world1_bit_equal'] = {
+        **{k: _bits(solo[k], one[k]) for k in ('grads', 'params', 'buffers')},
+        'loss': solo['loss'] == one['loss']}
+    return out
+
+
+def _equality_line(eq):
+    return (f'loss {eq["loss_ranks"]} vs {eq["loss_one_process"]!r} (rel '
+            f'{eq["loss_rel_err"]:.3g}, tol 1e-4), worst gradient '
+            f'{eq["worst_grad"][1]} at {eq["worst_grad"][0]:.3g} x its '
+            f'scale (norm {eq["worst_grad_norm_rel"][0]:.3g} of its norm, '
+            f'{eq["worst_grad_norm_rel"][1]}), worst parameter '
+            f'{eq["worst_param_over_tol"][1]} at '
+            f'{eq["worst_param_over_tol"][0]:.3g} of its tolerance (3 lr0 + '
+            f'1e-3 rel), worst BN statistic {eq["worst_bn_stat_over_tol"][1]} '
+            f'at {eq["worst_bn_stat_over_tol"][0]:.3g} of its tolerance (2e-4 '
+            f'+ 1e-2 rel); ranks bit-equal {eq["ranks_bit_equal"]}, second '
+            f'run bit-equal {eq["repeat_bit_equal"]}; rows dropped by a cap '
+            f'per rank {eq["dropped_rows_per_rank"]} (one process '
+            f'{eq["dropped_rows_one_process"]}); launches per rank '
+            f'{eq["launches_per_rank"]}')
+
+
+def _gate_equality(eq, name, launches=True):
+    """Phase 14a's gates on ``dp_equality``'s comparison. Gradients: each
+    parameter's within 1e-2 of its norm (floored at 1e-4 x the step's
+    largest norm). Phase 7's rule (each entry within 1e-3 x the
+    parameter's largest) cannot hold here: f32 round-off of the halved
+    sums crosses ReLU kinks of a full-width step (PERF.md §6), each of
+    which moves a single gradient row; the worst entry is printed."""
+    if launches:
+        for r in eq['launches_per_rank']:
+            for k in ('band_conv_fwd', 'band_conv_dw', 'gather_rows_bwd'):
+                if not r[k]:
+                    fail(f'{name}: {k} was never launched on a rank')
+    if any(eq['dropped_rows_per_rank']) or eq['dropped_rows_one_process']:
+        fail(f'{name}: a capacity cap dropped rows')
+    grad_ok = eq['worst_grad_norm_rel'][0] <= 1e-2
+    if not (eq['loss_rel_err'] <= 1e-4 and grad_ok
+            and eq['worst_param_over_tol'][0] <= 1
+            and eq['worst_bn_stat_over_tol'][0] <= 1):
+        fail(f'{name}: the 2-rank step is not the one-process step')
+    if not eq['ranks_bit_equal']:
+        fail(f'{name}: the ranks hold different parameters after the step')
+    if not eq['repeat_bit_equal']:
+        fail(f'{name}: a second 2-rank run gave other bits')
+    if not all(eq['nccl_world1_bit_equal'].values()):
+        fail(f'{name}: the nccl group of one differs from no group: '
+             f'{eq["nccl_world1_bit_equal"]}')
+
+
+def dp_step_phase(card, tag='phase 14', device='cuda', make_cfg=None,
+                  batch=None, full_batch=None):
+    """Phase 14a and 14b. The equality run (``dp_equality``): full-width
+    VirConv-T on ``dp_batch()`` (no cap binds), a frame (3 entries) per
+    rank, with the nccl group of one. The timing run, on phase 6's whole
+    batch: 3 steps of 2 ranks with their own draws, the second timed, the
+    third's collectives timed, against a warm one-process step, and the
+    rows each cap drops per rank. ``device``, ``make_cfg``, ``batch`` and
+    ``full_batch`` let a CPU rehearsal run it (gloo for the group of
+    one)."""
+    from virconv_tpu_torch.parallel.spawn import run_ranks, step_rank
+    from virconv_tpu_torch.utils.bench_inputs import train_batch
+    make_cfg = make_cfg or virconv_t_cfg
+    batch = dp_batch() if batch is None else batch
+    full_batch = train_batch() if full_batch is None else full_batch
+    eq = dp_equality(make_cfg, device, batch,
+                     make_cfg().MODEL.ROI_HEAD.ROT_NUM)
+    one_full, full_state = _one_process_step(make_cfg, device, full_batch,
+                                             None)
+    t = time.perf_counter()
+    full = run_ranks(step_rank, DP_WORLD, {
+        'cfg': make_cfg(), 'state_dict': full_state, 'batch': full_batch,
+        'device': 'cuda:0' if device == 'cuda' else 'cpu', 'seed': 0,
+        'entries_per_frame': make_cfg().MODEL.ROI_HEAD.ROT_NUM,
+        'steps': len(DP_TIMING), 'timing': DP_TIMING}, timeout=600,
+        threads=4)
+    full_s = time.perf_counter() - t
+    # the timing run: each rank's warm second step, and the collectives
+    # of its third
+    warm = [r['steps'][1] for r in full]
+    coll = full[0]['steps'][2]['collectives']
+    report = {
+        'card': card, 'world': DP_WORLD, 'backend': 'gloo',
+        'entries_per_rank': batch['points'].shape[0] // DP_WORLD,
+        'crop': {k: list(v) for k, v in DP_CROP.items()},
+        'valid_points': [int(batch['points_valid'].sum()),
+                         int(batch['points_mm_valid'].sum())],
+        'equality': eq,
+        'one_process_step_ms': one_full['ms'],
+        'one_process_peak_gib': one_full['peak_gib'],
+        'rank_step_ms': [w['seconds'] * 1e3 for w in warm],
+        'rank_first_step_ms': [r['steps'][0]['seconds'] * 1e3
+                               for r in full],
+        'rank_timed_step_ms': [r['steps'][2]['seconds'] * 1e3
+                               for r in full],
+        'rank_peak_gib': [(w['peak_bytes'] or 0) / 2 ** 30 for w in warm],
+        'grad_allreduce': {'calls': coll['grads']['calls'],
+                           'bytes': coll['grads']['bytes'],
+                           'ms': coll['grads']['seconds'] * 1e3},
+        'sync_bn': {'calls': coll['moments']['calls'],
+                    'bytes': coll['moments']['bytes'],
+                    'ms': coll['moments']['seconds'] * 1e3},
+        'counts': {'calls': coll['counts']['calls'],
+                   'ms': coll['counts']['seconds'] * 1e3},
+        'timing_run_s': full_s,
+        'dropped_rows_full_batch_per_rank': [_dropped(r['caps'])
+                                             for r in full],
+        'dropped_rows_full_batch_one_process': _dropped(one_full['caps']),
+        'launches_full_batch_per_rank': [r['steps'][0]['launches']
+                                         for r in full]}
+    print(f'[{tag}a] card "{card}" (a one-card gloo rehearsal: 2 ranks '
+          f'share cuda:0; nothing here measures NCCL over NVLink): '
+          f'VirConv-T on phase 6\'s batch, {report["entries_per_rank"]} '
+          f'entries per rank: warm step ms per rank '
+          f'{report["rank_step_ms"]} vs one process {one_full["ms"]:.1f}; '
+          f'gradient all-reduce {json.dumps(report["grad_allreduce"])}; '
+          f'sync-BN all-reduces per step {json.dumps(report["sync_bn"])}; '
+          f'count all-reduces {json.dumps(report["counts"])}; peak GiB per '
+          f'rank {report["rank_peak_gib"]} vs one process '
+          f'{one_full["peak_gib"]:.2f}; rows dropped by a cap per rank '
+          f'{report["dropped_rows_full_batch_per_rank"]} (one process '
+          f'{report["dropped_rows_full_batch_one_process"]})', flush=True)
+    print(f'[{tag}a] full width, phase 6\'s batch within x, y boxes '
+          f'{report["crop"]} m ({report["valid_points"]} valid points), box '
+          f'outputs zeroed, NMS replayed: {_equality_line(eq)}', flush=True)
+    print(f'[{tag}b] one rank in an nccl group of its own vs the trainer '
+          f'without a group, bit for bit: {eq["nccl_world1_bit_equal"]}',
+          flush=True)
+    _gate_equality(eq, 'full width', launches=device == 'cuda')
+    for r in report['launches_full_batch_per_rank']:
+        if device == 'cuda' and not (r['band_conv_fwd']
+                                     and r['band_conv_dw']):
+            fail('a kernel was never launched in the timing run')
+    if not all(np.isfinite(s['loss']) for r in full for s in r['steps']):
+        fail('a non-finite loss in the timing run')
+    return report
+
+
+def virconv_t_cfg():
+    from virconv_tpu_torch.config import virconv_t_config
+    return virconv_t_config()
+
+
+def dp_cli_phase(tmp, logger, card, tag='phase 14', device='cuda',
+                 cfg=None):
+    """Phase 14c and 14d: ``tools/test_gpu.py --launcher pytorch`` with 2
+    ranks over phase 9's scene tree and checkpoint against one process's
+    ``eval_one_ckpt`` with per-frame streams; ``tools/train_gpu.py
+    --launcher pytorch`` with 2 ranks for one epoch on phase 10's tree
+    (global batch 2, a frame per rank) and its distributed evaluation.
+    ``device`` and ``cfg`` (for both CLIs) let a CPU rehearsal run it."""
+    from virconv_tpu_torch.parallel.spawn import run_ranks
+    from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
+    root = tmp / 'scene'
+    eval_cfg = cfg or virconv_t_cfg()
+    eval_cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ckpt = tmp / 'ckpt_full_VirConv8x' / 'checkpoint_epoch_1.pth'
+    one = eval_one_ckpt(eval_cfg, ckpt, logger, tmp / 'dp_eval_one',
+                        device=device, seed=1024, frame_streams=True)
+    common = ['--cfg', 'virconv_t', '--device',
+              'cuda:0' if device == 'cuda' else 'cpu', '--launcher',
+              'pytorch', '--dist_backend', 'gloo']
+    t = time.perf_counter()
+    ranks = run_ranks(dp_cli_rank, DP_WORLD, ('test_gpu', common + [
+        '--ckpt', str(ckpt), '--output_dir', str(tmp / 'dp_eval'), '--set',
+        'DATA_CONFIG.DATA_PATH', str(root)], _free_port(), cfg),
+        backend=None, timeout=600, threads=4)
+    eval_s = time.perf_counter() - t
+    got = ranks[0]['result']
+    ok_rank1 = ranks[1]['result'] is None
+    ids = [a['frame_id'] for a in got['det_annos']] if got else []
+    counts = [len(a['score']) for a in got['det_annos']] if got else []
+    want_counts = [len(a['score']) for a in one.det_annos]
+    box = max((float(np.abs(a['boxes_lidar'] - b['boxes_lidar']).max())
+               for a, b in zip(got['det_annos'], one.det_annos)
+               if len(a['score']) and len(a['score']) == len(b['score'])),
+              default=0.0) if got else None
+    score = max((float(np.abs(a['score'] - b['score']).max())
+                 for a, b in zip(got['det_annos'], one.det_annos)
+                 if len(a['score']) and len(a['score']) == len(b['score'])),
+                default=0.0) if got else None
+    ap = max((abs(got['result'][k] - v) for k, v in
+              one.result_dict.items()), default=0.0) if got else None
+    evaluation = {'frames': [got['frames'] if got else None],
+                  'merged_frames': len(ids), 'detections': counts,
+                  'one_process_detections': want_counts,
+                  'max_box_diff': box, 'max_score_diff': score,
+                  'max_ap_diff': ap, 'seconds': eval_s,
+                  'launches_per_rank': [r['launches'] for r in ranks]}
+    print(f'[{tag}c] tools/test_gpu.py --launcher pytorch, {DP_WORLD} '
+          f'ranks on a scene tree of {len(one.det_annos)} frames: merged '
+          f'{len(ids)} frames, detections {counts} vs one process '
+          f'{want_counts}, max box diff {box}, score diff {score}, AP diff '
+          f'{ap}, {eval_s:.1f} s, launches per rank '
+          f'{evaluation["launches_per_rank"]} (card "{card}")', flush=True)
+    if not (got and ok_rank1 and ids == [a['frame_id'] for a in
+                                        one.det_annos]
+            and counts == want_counts):
+        fail('the merged distributed evaluation has other frames or '
+             'detections than one process')
+    if not (box <= 5e-3 and score <= 2e-3 and ap <= 1e-4
+            and got['result'].keys() == one.result_dict.keys()):
+        fail('the merged distributed evaluation differs from one process')
+    for r in ranks:
+        if not (r['launches']['band_conv_fwd']
+                and r['launches']['roi_pool_fwd']):
+            fail(f'a rank of the distributed evaluation missed a kernel: '
+                 f'{r["launches"]}')
+
+    out = tmp / 'dp_train'
+    t = time.perf_counter()
+    ranks = run_ranks(dp_cli_rank, DP_WORLD, ('train_gpu', common + [
+        '--batch_size', str(DP_WORLD), '--epochs', '1', '--output_dir',
+        str(out), '--log_interval', '1', '--fix_random_seed', '--set',
+        'DATA_CONFIG.DATA_PATH', str(tmp / 'train_scene')], _free_port(),
+        cfg), backend=None, timeout=900, threads=4)
+    train_s = time.perf_counter() - t
+    r0, r1 = (r['result'] for r in ranks)
+    files = sorted(p.name for p in (out / 'ckpt').iterdir())
+    training = {'steps_per_rank': [len(r0['steps']), len(r1['steps'])],
+                'loss': [[s['loss'] for s in r['steps']] for r in (r0, r1)],
+                'ms_per_step': [[s['seconds'] * 1e3 for s in r['steps']]
+                                for r in (r0, r1)],
+                'checkpoints': [r0['checkpoints'], r1['checkpoints']],
+                'ckpt_files': files,
+                'eval_frames': r0['eval']['frames'] if r0['eval'] else None,
+                'seconds': train_s,
+                'launches_per_rank': [r['launches'] for r in ranks]}
+    print(f'[{tag}d] tools/train_gpu.py --launcher pytorch, {DP_WORLD} '
+          f'ranks, one epoch: steps {training["steps_per_rank"]}, loss '
+          f'{training["loss"]}, ms/step {training["ms_per_step"]}, '
+          f'checkpoints by rank {training["checkpoints"]}, files {files}, '
+          f'distributed evaluation of {training["eval_frames"]} frames on '
+          f'rank 0, {train_s:.1f} s, launches per rank '
+          f'{training["launches_per_rank"]} (card "{card}")', flush=True)
+    losses = training['loss']
+    if not (losses[0] and losses[0] == losses[1]
+            and all(np.isfinite(losses[0]))):
+        fail('the ranks of the training CLI logged other or non-finite '
+             'losses')
+    if not (r0['checkpoints'] == ['checkpoint_epoch_1.pth']
+            and r1['checkpoints'] == [] and files == r0['checkpoints']):
+        fail(f'checkpoints {training["checkpoints"]}, files {files}')
+    if not (r0['eval'] and set(r0['eval']['result']) == R40_KEYS
+            and r1['eval'] is None):
+        fail('the distributed evaluation after training did not finish')
+    for r in ranks:
+        if not (r['launches']['band_conv_fwd']
+                and r['launches']['band_conv_dw']):
+            fail(f'a rank of the training CLI missed a kernel: '
+                 f'{r["launches"]}')
+    return evaluation, training
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2630,12 +3171,18 @@ def main():
 
         # ---- phase 12: PENet virtual points, then VirConv-T on them ---------
         vp_cases, virtual_points = virtual_points_phase(tmp, logger)
-    t0 = phase_done(12, t0)
+        t0 = phase_done(12, t0)
 
-    # ---- phase 13: the JAX package's precision switches ---------------------
-    # (TF32 still off, as set for phase 4)
-    p_cases, p_counts, precision = precision_phase(frames)
-    phase_done(13, t0)
+        # ---- phase 13: the JAX package's precision switches -----------------
+        # (TF32 still off, as set for phase 4)
+        p_cases, p_counts, precision = precision_phase(frames)
+        t0 = phase_done(13, t0)
+
+        # ---- phase 14: data parallel, 2 ranks on this card over gloo --------
+        data_parallel = {'step': dp_step_phase(card)}
+        data_parallel['eval'], data_parallel['train_cli'] = dp_cli_phase(
+            tmp, logger, card)
+    phase_done(14, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -2765,7 +3312,8 @@ def main():
                       'virtual_points': virtual_points, 'cases': cases,
                       'cases_virconv_l': l_cases,
                       'cases_cspn': vp_cases, 'precision': precision,
-                      'cases_precision': p_cases}), flush=True)
+                      'cases_precision': p_cases,
+                      'data_parallel': data_parallel}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

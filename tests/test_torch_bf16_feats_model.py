@@ -31,7 +31,9 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope='module')
 def runs():
-    return detector_runs({'VIRCONV_BF16_FEATS': '1'})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('VIRCONV_BF16_FEATS', '1')
+        return detector_runs()
 
 
 def pairs(runs):

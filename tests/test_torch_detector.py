@@ -55,10 +55,10 @@ def random_variables(model, batch, seed=0):
     return out
 
 
-def detector_runs(extra_env=None):
+def detector_runs():
     """(JAX output, JAX intermediates, port output) of one eval forward of
     the tiny preset, both sides under the environment's ``VIRCONV_*``
-    switches plus ``extra_env``."""
+    switches."""
     import os
     model_cfg, data_cfg = tiny_cfg(mm=True)
     n_pts = shrink_cfg(model_cfg, data_cfg)
@@ -75,7 +75,7 @@ def detector_runs(extra_env=None):
     # that lie on a pixel boundary to the next pixel; eager JAX, like the
     # port, sums the projection in index order.
     env = {'VIRCONV_BAND': '1', 'VIRCONV_DENSE2D': '0',
-           'VIRCONV_POOL_KERNEL': '1', **(extra_env or {})}
+           'VIRCONV_POOL_KERNEL': '1'}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     orig = jsp.subm_conv_ctx, jsp.strided_conv_ctx

@@ -56,7 +56,10 @@ EVAL_MODULES = (
     'virconv_tpu_torch.models.depth_completion.penet',
     'virconv_tpu_torch.models.depth_completion.penet_import',
     'virconv_tpu_torch.models.depth_completion.depth2points',
-    'virconv_tpu_torch.models.depth_completion.virtual_points')
+    'virconv_tpu_torch.models.depth_completion.virtual_points',
+    'virconv_tpu_torch.parallel', 'virconv_tpu_torch.parallel.dist',
+    'virconv_tpu_torch.parallel.data_parallel',
+    'virconv_tpu_torch.parallel.spawn')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
              'cv2', 'yaml', 'orbax')
 

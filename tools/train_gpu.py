@@ -23,11 +23,26 @@ configurations (``virconv_t``, ``virconv_l``, ``virconv_s``).
 
     python tools/train_gpu.py --cfg virconv_t \\
         --set DATA_CONFIG.DATA_PATH <kitti tree>
+
+Data parallel (``--launcher pytorch``, started by torchrun): W processes,
+each on ``cuda:LOCAL_RANK`` (an explicit ``--device cuda:N`` puts every
+rank on card N, gloo only) or on the CPU (``--device cpu``, gloo), in a
+``torch.distributed`` group of ``--dist_backend`` (nccl by default).
+``--batch_size`` is the global batch (default: BATCH_SIZE_PER_GPU x W) and
+must divide by W; each rank loads its block of every global batch, with
+its own augmentation stream, and ``Trainer(dist=True)`` takes the step of
+the global batch (synced BN, global loss normalizers, summed gradients).
+Rank 0 alone writes the checkpoints and logs; every rank waits at a
+barrier after each save; the evaluation after training is distributed.
+
+    torchrun --nproc_per_node 8 tools/train_gpu.py --launcher pytorch \\
+        --cfg virconv_t --set DATA_CONFIG.DATA_PATH <kitti tree>
 """
 
 import argparse
 import dataclasses
 import datetime
+import logging
 import sys
 import time
 from pathlib import Path
@@ -54,8 +69,8 @@ def parse_args(argv=None):
     parser.add_argument('--cfg', choices=sorted(CONFIGS),
                         default='virconv_t')
     parser.add_argument('--batch_size', type=int, default=None,
-                        help='frames per step (default: '
-                             'OPTIMIZATION.BATCH_SIZE_PER_GPU)')
+                        help='frames per step over all ranks (default: '
+                             'OPTIMIZATION.BATCH_SIZE_PER_GPU x ranks)')
     parser.add_argument('--epochs', type=int, default=None)
     parser.add_argument('--extra_tag', type=str, default='default')
     parser.add_argument('--ckpt', type=str, default=None,
@@ -71,6 +86,10 @@ def parse_args(argv=None):
                         help='the run directory (default: '
                              'output/<cfg>/<extra_tag>)')
     parser.add_argument('--device', type=str, default='cuda')
+    parser.add_argument('--launcher', choices=['none', 'pytorch'],
+                        default='none')
+    parser.add_argument('--dist_backend', choices=['nccl', 'gloo'],
+                        default='nccl')
     parser.add_argument('--set', dest='set_cfgs', default=None,
                         nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
@@ -86,7 +105,9 @@ class TrainRun:
     loss, lr, nonfinite_skips, seconds of the step, seconds waited for its
     batch). ``wall_seconds`` spans the training loop, ``wait_seconds`` the
     part of it spent waiting on the loader; ``loader_seconds`` and
-    ``frames`` are the producer's host time and frames."""
+    ``frames`` are the producer's host time and frames. In a data-parallel
+    run all of it is the rank's own (``checkpoints`` is empty but on rank
+    0, ``eval`` None but on rank 0)."""
     trainer: object
     output_dir: Path
     start_epoch: int
@@ -107,6 +128,11 @@ def main(argv=None, on_start=None, on_step=None):
     after each step."""
     args, cfg = parse_args(argv)
     device = resolve_device(args.device)
+    from virconv_tpu_torch.parallel.dist import (barrier, get_dist_info,
+                                                 init_distributed)
+    if args.launcher == 'pytorch':
+        device = init_distributed(args.dist_backend, device)
+    rank, world = get_dist_info()
     from virconv_tpu_torch.datasets import build_dataloader
     from virconv_tpu_torch.train.checkpoint import (latest_checkpoint,
                                                     load_checkpoint,
@@ -125,21 +151,33 @@ def main(argv=None, on_start=None, on_step=None):
         d.mkdir(parents=True, exist_ok=True)
     logger = create_logger(log_dir / (
         'log_train_%s.txt' % datetime.datetime.now().strftime(
-            '%Y%m%d-%H%M%S')))
-    metrics = MetricsLogger(log_dir / 'tensorboard')
+            '%Y%m%d-%H%M%S')) if rank == 0 else None)
+    if rank != 0:
+        logger.setLevel(logging.WARNING)
+    metrics = MetricsLogger(log_dir / 'tensorboard' if rank == 0 else None)
     logger.info('********** Start training **********')
-    logger.info(f'cfg {args.cfg}, device {device}, argv {argv}')
+    logger.info(f'cfg {args.cfg}, device {device}, ranks {world}, '
+                f'argv {argv}')
     if args.fix_random_seed:
         set_random_seed(FIXED_SEED)
         loader_seed = FIXED_SEED
     else:
         loader_seed = int(np.random.SeedSequence().generate_state(1)[0])
+    if world > 1:
+        # each rank's own augmentation stream; the shuffle seed is shared
+        loader_seed = int(np.random.SeedSequence(
+            [loader_seed, rank]).generate_state(1)[0])
 
-    batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    batch_size = args.batch_size or \
+        cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU * world
+    if batch_size % world:
+        raise ValueError(f'--batch_size {batch_size} (the global batch) '
+                         f'does not divide by the {world} ranks')
     epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
     dataset, loader = build_dataloader(
-        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, logger=logger,
-        seed=loader_seed, training=True, shuffle_seed=SHUFFLE_SEED)
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size // world, logger=logger,
+        seed=loader_seed, training=True, shuffle_seed=SHUFFLE_SEED,
+        num_shards=world, shard_id=rank)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise RuntimeError(
@@ -147,7 +185,7 @@ def main(argv=None, on_start=None, on_step=None):
             f'is empty or smaller than the batch size ({batch_size}). '
             'Check DATA_CONFIG.DATA_PATH and the info pkls.')
     trainer = Trainer(cfg=cfg, device=device, seed=MODEL_SEED,
-                      total_steps=steps_per_epoch * epochs)
+                      total_steps=steps_per_epoch * epochs, dist=world > 1)
 
     start_epoch = 0
     resume = Path(args.ckpt) if args.ckpt else latest_checkpoint(ckpt_dir)
@@ -199,10 +237,13 @@ def main(argv=None, on_start=None, on_step=None):
         logger.info('epoch %d done in %.1fs' % (epoch,
                                                  time.perf_counter()
                                                  - t_epoch))
-        st = trainer.state_dict()
-        checkpoints.append(save_checkpoint(
-            ckpt_dir, st['model_state'], epoch + 1, st['optimizer_state'],
-            st['step'], max_keep=args.max_ckpt_save_num))
+        if rank == 0:
+            st = trainer.state_dict()
+            checkpoints.append(save_checkpoint(
+                ckpt_dir, st['model_state'], epoch + 1,
+                st['optimizer_state'], st['step'],
+                max_keep=args.max_ckpt_save_num))
+        barrier('checkpoint saved')
     wall = time.perf_counter() - t_loop
     metrics.close()
     logger.info('********** Training done **********')
@@ -212,10 +253,14 @@ def main(argv=None, on_start=None, on_step=None):
     if not args.no_eval and last is not None:
         logger.info(f'==> evaluating {last}')
         result = eval_one_ckpt(cfg, last, logger, eval_dir, batch_size=1,
-                               device=device, seed=EVAL_LOADER_SEED)
+                               device=device, seed=EVAL_LOADER_SEED,
+                               dist_eval=world > 1)
     for handler in list(logger.handlers):
         logger.removeHandler(handler)
         handler.close()
+    if args.launcher == 'pytorch' and world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return TrainRun(trainer, output_dir, start_epoch, resume, steps, wall,
                     wait, loader.host_seconds, loader.frames, checkpoints,
                     result)

@@ -7,7 +7,16 @@ evaluation pad + stride sharding of the frames over ``num_shards``
 processes; and one producer thread that loads and collates batches ahead
 of the consumer (``DataLoader.PREFETCH`` batches). The producer draws
 every random number of the samples, in order, from the dataset's
-``RandomState``, a replacement index for a ``None`` sample included.
+``RandomState``, a replacement index for a ``None`` sample included; with
+``frame_streams`` it reseeds that state before each frame from (seed,
+frame index), so that a frame's draws do not depend on which frames a
+process loaded before it (distributed evaluation).
+
+Training over ``num_shards`` data-parallel ranks keeps the shuffle seed
+shared, drops the frames past the last whole global batch (``batch_size``
+x ``num_shards`` frames) and gives rank r the r-th block of
+``batch_size`` consecutive frames of each global batch: the ranks' batch k
+together are the one-process global batch k, in rank order.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ class DataLoader:
     PREFETCH = 2              # batches the producer may run ahead
 
     def __init__(self, dataset, batch_size, num_shards=1, shard_id=0,
-                 shuffle=False, seed=0, drop_last=False):
+                 shuffle=False, seed=0, drop_last=False, frame_streams=None):
+        """``frame_streams``: None, or the seed of the per-frame streams."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_shards = num_shards
@@ -52,6 +62,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.frame_streams = frame_streams
         self.epoch = 0
         self.host_seconds = 0.0
         self.frames = 0
@@ -63,7 +74,13 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        if self.num_shards > 1:
+        if self.num_shards > 1 and self.drop_last:
+            # training: the shard's block of every whole global batch
+            per = self.batch_size * self.num_shards
+            idx = idx[:len(idx) // per * per].reshape(
+                -1, self.num_shards, self.batch_size)[:, self.shard_id]
+            idx = idx.reshape(-1)
+        elif self.num_shards > 1:
             # pad + stride sharding (the reference's eval sampler)
             pad = (-len(idx)) % self.num_shards
             idx = np.concatenate([idx, idx[:pad]])[self.shard_id::
@@ -76,6 +93,9 @@ class DataLoader:
             else -(-n // self.batch_size)
 
     def _sample(self, i):
+        if self.frame_streams is not None:
+            self.dataset.rng.seed(int(np.random.SeedSequence(
+                [self.frame_streams, int(i)]).generate_state(1)[0]))
         s = self.dataset[int(i)]
         while s is None:
             s = self.dataset[int(self.dataset.rng.randint(
@@ -132,11 +152,13 @@ class DataLoader:
 
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None,
                      logger=None, seed=0, num_shards=1, shard_id=0,
-                     training=False, shuffle_seed=None):
+                     training=False, shuffle_seed=None, frame_streams=False):
     """(dataset, loader) of ``dataset_cfg.DATASET``; ``seed`` seeds the
-    dataset's ``RandomState``. ``training``: the training split and
+    dataset's ``RandomState`` (with ``frame_streams``, each frame's from
+    (seed, frame index)). ``training``: the training split and
     augmentations, shuffled epochs (from ``shuffle_seed``, by default
-    ``seed``) and no last partial batch."""
+    ``seed``) and no last partial batch; ``batch_size`` is the frames of
+    one shard."""
     if dataset_cfg.DATASET not in __all__:
         raise NotImplementedError(
             f'dataset {dataset_cfg.DATASET!r} is not ported (registered: '
@@ -147,5 +169,6 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None,
     loader = DataLoader(dataset, batch_size, num_shards=num_shards,
                         shard_id=shard_id, shuffle=training,
                         seed=seed if shuffle_seed is None else shuffle_seed,
-                        drop_last=training)
+                        drop_last=training,
+                        frame_streams=seed if frame_streams else None)
     return dataset, loader

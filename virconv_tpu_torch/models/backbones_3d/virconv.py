@@ -197,8 +197,8 @@ class NRConvStack(nn.Module):
         def discard(t):
             if not (self.training and self.layer_discard_rate > 0):
                 return t
-            u = rng.uniform((t.capacity,), t.feats.device)
-            return layer_voxel_discard(t, self.layer_discard_rate, u)
+            return layer_voxel_discard(t, self.layer_discard_rate,
+                                       rng.voxel_uniform(t))
 
         if self.discard_input:
             st = discard(st)

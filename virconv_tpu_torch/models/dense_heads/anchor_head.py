@@ -13,6 +13,7 @@ from torch import nn
 from ...config import CfgNode
 from ...ops import boxes as box_ops
 from ...ops.odiou import odiou_3d_weighted
+from ...parallel import data_parallel as dp
 
 
 def generate_anchors(point_cloud_range, grid_size, stride, anchor_sizes,
@@ -119,7 +120,9 @@ def compute_anchor_mask(points_xy, points_mask, point_cloud_range,
                         bev_shape):
     """(H, W) anchor occupancy mask shared across the batch: points in a
     x10-coarse grid, OR-dilated one cell forward per axis, upsampled x10;
-    the last ``W % 10`` columns (and ``H % 10`` rows) are never set."""
+    the last ``W % 10`` columns (and ``H % 10`` rows) are never set. In a
+    data-parallel step the batch is every rank's: the coarse grids are
+    OR-ed over the ranks."""
     h, w = bev_shape
     stride = (point_cloud_range[3] - point_cloud_range[0]) / w * 10.0
     ix = ((points_xy[:, 0] - point_cloud_range[0]) / stride).to(torch.int32)
@@ -129,6 +132,8 @@ def compute_anchor_mask(points_xy, points_mask, point_cloud_range,
     large = torch.zeros((h // 10, w // 10), dtype=torch.bool,
                         device=points_xy.device)
     large[iy[points_mask], ix[points_mask]] = True
+    if dp.active():
+        large = dp.global_sum(large.float()) > 0
     pad = torch.nn.functional.pad(large, (0, 1, 0, 1))
     dil = pad[:-1, :-1] | pad[1:, :-1] | pad[:-1, 1:] | pad[1:, 1:]
     fine = dil.repeat_interleave(10, 0).repeat_interleave(10, 1)
@@ -243,7 +248,10 @@ class AnchorHeadSingle(nn.Module):
         rpn_loss_loc, rpn_loss_dir[, rpn_loss_od]})."""
         tgt = out['targets']
         labels = tgt['labels']
-        b = labels.shape[0]
+        # the frame count of the '/ b' terms and the ODIoU's positive count
+        # are the global batch's in a data-parallel step; the per-frame
+        # pos_norm stays the frame's
+        b = dp.global_int(labels.shape[0], labels.device)
         positives = labels > 0
         negatives = labels == 0
         pos_norm = torch.clamp(positives.sum(1, keepdim=True).float(),
@@ -292,7 +300,7 @@ class AnchorHeadSingle(nn.Module):
             gt = self.coder.decode(rt, anchors)[positives]
             od = odiou_3d_weighted(gt, self.coder.decode(bp, anchors)
                                    [positives], torch.ones_like(gt[:, 0]), b)
-            od = 2.0 * od / (positives.sum() + 1)
+            od = 2.0 * od / (dp.global_sum(positives.sum()) + 1)
             total = total + od
             tb['rpn_loss_od'] = od
         return total, tb

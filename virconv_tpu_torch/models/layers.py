@@ -16,13 +16,16 @@ import torch
 from torch import nn
 
 from ..ops import sparse as sp
+from ..parallel import data_parallel as dp
 
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid rows of (N, C) features (eps 1e-3). Train mode
     normalizes by the masked batch moments and moves the running statistics
     by momentum 0.01 towards the mean and the unbiased variance, as torch's
-    BatchNorm1d (and the JAX package) do."""
+    BatchNorm1d (and the JAX package) do. In a data-parallel step
+    (``parallel.data_parallel.synced``) the moments and the count are the
+    global batch's."""
 
     def __init__(self, features: int, eps: float = 1e-3,
                  momentum: float = 0.01):
@@ -60,10 +63,14 @@ class MaskedBatchNorm(nn.Module):
             mult, bias = self.fold()
             y = x * mult + bias
             return torch.where(mask[:, None], y, torch.zeros_like(y))
+        # two passes, each summed over the ranks in a data-parallel step
+        # (dp.sync_moments): the mean, then the centered squares
         w = mask.to(x.dtype)[:, None]
-        cnt = torch.clamp(w.sum(), min=1.0)
-        mean = (x * w).sum(0) / cnt
-        var = ((x - mean) ** 2 * w).sum(0) / cnt
+        sum_x, n = dp.sync_moments((x * w).sum(0), w.sum())
+        cnt = torch.clamp(n, min=1.0)
+        mean = sum_x / cnt
+        (sum_sq,) = dp.sync_moments(((x - mean) ** 2 * w).sum(0))
+        var = sum_sq / cnt
         self._update_running(mean, var, cnt)
         y = (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[:, None], y, torch.zeros_like(y))
@@ -138,7 +145,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     ``nn.BatchNorm(momentum=0.99)``, the JAX package's dense BN: batch
     variance E[x^2] - E[x]^2 (biased) both to normalize and in the running
     statistics, which move by 0.01 per step. (torch's train mode puts the
-    unbiased variance in the running statistics.)"""
+    unbiased variance in the running statistics.) In a data-parallel step
+    the moments are the global batch's."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-3)
@@ -147,8 +155,14 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         axes = (0, 2, 3)
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+        if dp.active():
+            # the global moments: the ranks' means weighted by their share
+            # of the rows (exactly 1 for a group of one)
+            n = x.numel() // x.shape[1]
+            share = n / dp.global_int(n, x.device)
+            mean, mean_sq = dp.sync_moments(mean * share, mean_sq * share)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.99 * self.running_mean + 0.01 * mean)
             self.running_var.copy_(0.99 * self.running_var + 0.01 * var)

@@ -18,6 +18,7 @@ import math
 import torch
 
 from ...ops import boxes as box_ops
+from ...parallel import data_parallel as dp
 
 
 def _canonical_gt(rois, gt_of_rois):
@@ -116,8 +117,8 @@ def proposal_targets(rng, rois, roi_scores, roi_labels, gt_boxes, gt_valid,
     n_roi = int(cfg.ROI_PER_IMAGE)
     per = []
     for i in range(b):
-        u = [rng.uniform((r,), dev) for _ in range(3)]
-        rand_sel = rng.randint(2 ** 30, (n_roi,), dev)
+        u = [rng.uniform((r,), dev, entry=(i, b)) for _ in range(3)]
+        rand_sel = rng.randint(2 ** 30, (n_roi,), dev, entry=(i, b))
         per.append(sample_rois_single(*u, rand_sel, rois[i], roi_scores[i],
                                       roi_labels[i], gt_boxes[i],
                                       gt_valid[i], cfg))
@@ -136,8 +137,11 @@ def proposal_targets(rng, rois, roi_scores, roi_labels, gt_boxes, gt_valid,
             hard = ((ious < reg_fg) & (ious > cfg.HARD_SAMPLING_THRESH[ci])
                     & cls_mask)
             teval = int(1 / cfg.HARD_SAMPLING_RATIO[ci])
-            start = rng.randint(teval, (), dev)
-            stripe = (torch.arange(b, device=dev) % teval) == start
+            # one start for the whole batch (rank 0's in a data-parallel
+            # step), tested on the global entry index
+            start = dp.broadcast(rng.randint(teval, (), dev, shared=True))
+            off = dp.entry_offset(b, dev)
+            stripe = (torch.arange(off, off + b, device=dev) % teval) == start
             reg_valid = reg_valid + (hard & stripe[:, None]).to(torch.int32)
 
     cls_labels = torch.zeros_like(ious)

@@ -24,6 +24,7 @@ from torch import nn
 
 from ...config import CfgNode
 from ...ops import boxes as box_ops
+from ...parallel import data_parallel as dp
 from ...utils import transforms as tr
 from ..layers import DenseConvBlock, MaskedBatchNorm
 from .target_assign import proposal_targets
@@ -386,7 +387,11 @@ class TEDMHead(nn.Module):
 
     def loss(self, stage_targets, loss_weights, code_weights):
         """Cascade loss over stages and the three branches (fused 1.0,
-        multimodal-only and LiDAR-only 0.5 each). Returns (total, tb)."""
+        multimodal-only and LiDAR-only 0.5 each). Returns (total, tb). In a
+        data-parallel step the normalizers (valid and foreground ROI
+        counts) are the global batch's, so each rank's total and terms are
+        its partials of the global ones (``tb['rcnn_reg_fg_s*']`` its own
+        foreground count)."""
         total = 0.0
         tb = {}
         for s, st_t in enumerate(stage_targets):
@@ -412,14 +417,16 @@ class TEDMHead(nn.Module):
         bce = (torch.clamp(logits, min=0) - logits * labels
                + torch.log1p(torch.exp(-logits.abs())))
         valid = (labels >= 0).float()
-        return (bce * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        return (bce * valid).sum() / torch.clamp(dp.global_sum(valid.sum()),
+                                                 min=1.0)
 
     def _reg_loss(self, rcnn_reg, rois, tgt, loss_weights, code_weights):
         from ..dense_heads.anchor_head import weighted_smooth_l1
         code = self.code_size
         gt_ct = tgt['gt_of_rois'][..., :code].reshape(-1, code)
         fg = (tgt['reg_valid_mask'].reshape(-1) > 0).float()
-        fg_sum = torch.clamp(fg.sum(), min=1.0)
+        fg_all = dp.global_sum(fg.sum())
+        fg_sum = torch.clamp(fg_all, min=1.0)
         flat = rois.reshape(-1, code)
         zero = torch.zeros_like(flat[:, 0:3])
         rois_anchor = torch.cat([zero, flat[:, 3:6], zero[:, :1],
@@ -438,7 +445,7 @@ class TEDMHead(nn.Module):
         corner_term = (corner * fg).sum() / fg_sum \
             * loss_weights['rcnn_corner_weight']
         canon = self.coder.decode(reg_fg, rois_anchor)
-        bb_term = (box_ops.bb_loss(canon, gt_ct) * fg).sum() / (fg.sum()
+        bb_term = (box_ops.bb_loss(canon, gt_ct) * fg).sum() / (fg_all
                                                                  + 1.0)
         return l1_term + corner_term + bb_term, {
             'l1': l1_term, 'corner': corner_term, 'bb': bb_term,

@@ -23,6 +23,7 @@ from torch import nn
 from ...ops import sparse as sp
 from ...ops import roi_pool as rp
 from ...ops.gather_rows import gather_rows
+from ...parallel import data_parallel as dp
 from ..layers import MaskedBatchNorm, promote
 
 CHUNK_BUDGET_EVAL = 64_000_000
@@ -342,11 +343,16 @@ class NeighborVoxelSAModule(nn.Module):
         rel = (centers - query_xyz[:, None, :]) * valid[..., None]
         qm = query_mask[:, None] & torch.ones_like(valid)
         qmf = qm[..., None].to(rel.dtype)
-        cnt = torch.clamp(qm.sum().float(), min=1.0)
-        mean_rel = (rel * qmf).reshape(-1, 3).sum(0) / cnt
+        # two passes, each summed over the ranks in a data-parallel step:
+        # the count and sum of rel, then the centered 3 x 3 rc^T rc
+        sum_rel, n = dp.sync_moments((rel * qmf).reshape(-1, 3).sum(0),
+                                     qm.sum().float())
+        cnt = torch.clamp(n, min=1.0)
+        mean_rel = sum_rel / cnt
         rc = ((rel - mean_rel) * qmf).reshape(-1, 3)
+        (s2,) = dp.sync_moments(rc.T @ rc)
         var = torch.clamp(torch.einsum('ic,ic->c', w_pos,
-                                       (rc.T @ rc / cnt) @ w_pos), min=0.0)
+                                       (s2 / cnt) @ w_pos), min=0.0)
         mult, bias = getattr(self, f'mlp_pos_bn{g}').fold_moments(
             mean_rel @ w_pos, var, cnt)
         pos = rel @ (w_pos * mult) + bias

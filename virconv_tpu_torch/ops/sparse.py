@@ -28,6 +28,11 @@ import numpy as np
 import torch
 
 INVALID_KEY = 2 ** 31 - 1
+# rows each capacity cap was asked to hold: (site, capacity, rows) appended
+# by ``voxelize`` and ``downsample_coords`` while it is a list (a host
+# sync per cap; None, the default, records nothing). rows > capacity means
+# the cap dropped rows.
+CAP_LOG = None
 ROW_VALID_BIT = 30           # bit of valid_bits marking "output row valid"
 
 # Which branch each band-mode conv took, counted per conv call; read by
@@ -346,6 +351,9 @@ def downsample_coords(st: SparseTensor, stride, padding, kernel_size,
     is_first[1:] = srt[1:] != srt[:-1]
     out_keys = torch.sort(torch.where(is_first, srt,
                                       _full_like_invalid(srt))).values
+    if CAP_LOG is not None:
+        CAP_LOG.append(('downsample', out_capacity,
+                        int((out_keys != INVALID_KEY).sum())))
     if out_capacity <= out_keys.shape[0]:
         out_keys = out_keys[:out_capacity]
     else:
@@ -792,6 +800,8 @@ def voxelize(points, points_mask, point_cloud_range, voxel_size,
                                          torch.full_like(pos, -1)), 0).values
     rank = pos - seg_start
     keep = valid_s & (rank < max_points_per_voxel) & (voxel_id < max_voxels)
+    if CAP_LOG is not None:
+        CAP_LOG.append(('voxelize', max_voxels, int(is_first.sum())))
     slot = torch.clamp(voxel_id, max=max_voxels).long()
 
     # each voxel's kept points summed in rank order, as a sequential

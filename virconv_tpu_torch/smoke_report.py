@@ -23,8 +23,11 @@ C4); phase 12's CSPN kernel per frame, generation seconds per frame by
 stage, points per frame and the VirConv-T evaluation of the generated
 points; phase 13's precision modes (K1 with bf16 features per T and L
 request, K1 and K4 with bf16 operands per training step, K2+K3 at f32
-operands per request, the requests, steps and the ODIoU step); and phase
-8's sums by layer shape (K, C -> C'). A row a log lacks
+operands per request, the requests, steps and the ODIoU step); phase
+14's data-parallel rehearsal (2 ranks on one card over gloo: step ms per
+rank, the gradient and sync-BN all-reduces per step, peak memory, the
+comparison with one process, the distributed evaluation and training
+CLI); and phase 8's sums by layer shape (K, C -> C'). A row a log lacks
 (an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
@@ -252,6 +255,34 @@ def rows_of(data):
         out.append(('OD_LOSS step: ms, rpn_loss_od',
                     f'{pr["od_loss"]["ms"]:.1f} '
                     f'{pr["od_loss"]["terms"]["rpn_loss_od"]:.4f}'))
+    dp = data.get('data_parallel')           # phase 14 (absent before)
+    if dp is not None:
+        st = dp['step']
+        out.append(('data parallel (2 ranks, one card, gloo): warm ms per '
+                    'step per rank, one process', ' '.join(
+                        f'{t:.1f}' for t in st['rank_step_ms'])
+                    + f' {st["one_process_step_ms"]:.1f}'))
+        for key, label in (('grad_allreduce', 'gradient all-reduce'),
+                           ('sync_bn', 'sync-BN all-reduces')):
+            c = st[key]
+            out.append((f'data parallel {label} per step: calls, MB, ms',
+                        f'{c["calls"]} {c["bytes"] / 1e6:.3f} '
+                        f'{c["ms"]:.1f}'))
+        out.append(('data parallel peak GiB per rank, one process',
+                    ' '.join(f'{g:.2f}' for g in st['rank_peak_gib'])
+                    + f' {st["one_process_peak_gib"]:.2f}'))
+        eq = st['equality']
+        out.append(('data parallel vs one process: loss rel, worst grad '
+                    '(x scale, of norm), ranks / repeat bit-equal',
+                    f'{eq["loss_rel_err"]:.3g} {eq["worst_grad"][0]:.3g} '
+                    f'{eq["worst_grad_norm_rel"][0]:.3g} '
+                    f'{eq["ranks_bit_equal"]} / {eq["repeat_bit_equal"]}'))
+        out.append(('data parallel eval (2 ranks): s, max score diff',
+                    f'{dp["eval"]["seconds"]:.1f} '
+                    f'{dp["eval"]["max_score_diff"]:.3g}'))
+        out.append(('data parallel train_gpu (2 ranks): ms per step, rank 0',
+                    ' '.join(f'{t:.1f}' for t in
+                             dp['train_cli']['ms_per_step'][0])))
     vs = data.get('virconv_s')
     if vs is not None:
         out.append(('VirConv-S train_gpu ms per step', ' '.join(

@@ -4,7 +4,7 @@ The port's counterpart of ``virconv_tpu/train/eval_loop.py``, in the same
 order: the loader (test-time replicas, eval-time StVD), the forward on the
 device, ``post_process_batch``, the recall records, the KITTI prediction
 dicts (host WBF, optional ``.txt`` files) and the official AP(R40)
-metric.
+metric; with a process group, over the ranks' shards of the frames.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from .. import resolve_device
 from ..datasets import build_dataloader
 from ..models.detectors.voxel_rcnn import VoxelRCNN
+from ..parallel.dist import get_dist_info, merge_results_dist
 from ..utils.jax_weights import load_state_dict_checked
 from ..utils.metrics import compute_recall
 from ..utils.postprocess import post_process_batch
@@ -44,18 +45,31 @@ class EvalResult:
 
 def eval_one_ckpt(cfg, ckpt_path, logger, output_dir, batch_size=1,
                   device='cuda', save_to_file=False, max_batches=None,
-                  bf16=True, seed=0) -> EvalResult:
+                  bf16=True, seed=0, dist_eval=False,
+                  frame_streams=None) -> EvalResult | None:
     """Evaluate the checkpoint at ``ckpt_path`` (``train/checkpoint.py``)
     on ``cfg.DATA_CONFIG``'s test split. ``device`` defaults to CUDA and
     raises without a card, unless the caller asks for the CPU; ``bf16``:
     bf16 operands in the sparse conv and pool kernels, as
     ``serve.Detector``; ``seed`` seeds the loader's ``RandomState``.
     ``sec_per_example`` is the forward's seconds per frame, as the JAX loop
-    logs it."""
+    logs it.
+
+    With ``dist_eval`` in a ``torch.distributed`` group each rank
+    evaluates its pad + stride shard of the frames and ``merge_results_dist``
+    brings the dicts to rank 0, which computes the metric and returns the
+    result; other ranks return None (as ``virconv_tpu/train/eval_loop.py``).
+    The recalls, frames and seconds are the rank's own. ``frame_streams``
+    (default: on when sharded): the loader draws each frame's eval-time
+    StVD from (seed, frame index), so that the merged dicts do not depend
+    on the number of ranks; off, one stream runs through the frames in
+    order, as in the JAX package's loader."""
     dev = resolve_device(device)
+    rank, world = get_dist_info() if dist_eval else (0, 1)
     dataset, loader = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, logger=logger,
-        seed=seed)
+        seed=seed, num_shards=world, shard_id=rank,
+        frame_streams=world > 1 if frame_streams is None else frame_streams)
     model = VoxelRCNN(cfg.MODEL, cfg.DATA_CONFIG,
                       num_class=len(cfg.CLASS_NAMES))
     load_state_dict_checked(model, load_checkpoint(ckpt_path)['model_state'])
@@ -101,6 +115,12 @@ def eval_one_ckpt(cfg, ckpt_path, logger, output_dir, batch_size=1,
         logger.info('sec_per_example: %.4f' % sec_per_example)
     for key, (hit, tot) in sorted(recalls.items()):
         logger.info('%s: %.4f (%d/%d)' % (key, hit / max(tot, 1), hit, tot))
+    if world > 1:
+        # file-based partial-result merge (reference eval_utils.py:79-82)
+        det_annos = merge_results_dist(
+            det_annos, len(dataset), Path(output_dir) / 'tmp_result_merge')
+        if rank != 0:
+            return None
     result_str, result_dict = None, {}
     t0 = time.perf_counter()
     if det_annos:

@@ -6,6 +6,7 @@ state of ``virconv_tpu/train/trainer.py``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -15,20 +16,24 @@ from torch.profiler import record_function
 from .. import resolve_device
 from ..config import CfgNode, virconv_t_config
 from ..models.detectors.voxel_rcnn import VoxelRCNN
+from ..parallel import data_parallel as dp
 from ..utils.jax_weights import load_state_dict_checked, random_init_
 from .draws import Draws
 from .optim import OPTIMIZERS, build_optimizer
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int | None = None) -> int:
     """The generator seed of step ``step``: a function of (seed, step)
-    only, as the JAX step folds ``state.step`` into its keys."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+    only, as the JAX step folds ``state.step`` into its keys; with
+    ``rank``, folded with the rank of a data-parallel group of two or
+    more."""
+    entropy = [seed, step] if rank is None else [seed, step, rank]
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
 
 
 class Trainer:
-    """VirConv-T training on one device.
+    """VirConv-T training on one device, or data parallel over several.
 
     ``state_dict``: the port's weights (``utils.jax_weights``); without one
     the weights are random from ``seed``. ``device`` defaults to CUDA and
@@ -39,10 +44,23 @@ class Trainer:
     ``total_steps`` sizes the learning-rate schedules.
     ``OPTIMIZATION.OPTIMIZER`` is ``adam_onecycle``, ``adam`` or ``sgd``:
     any other name raises ``NotImplementedError`` before the model is
-    built."""
+    built.
+
+    ``dist``: data parallel over a ``torch.distributed`` group (True: the
+    default group), each rank stepping on its frames of the global batch.
+    Rank 0's parameters and buffers go to every rank at construction. A
+    step runs forward and backward inside ``data_parallel.synced`` (BN
+    moments and loss normalizers over the global batch), sums the
+    gradients over the ranks (``allreduce_grads``), then clips and updates
+    as one process would: every rank ends the step with the same
+    parameters. The loss and tb terms it returns are the global ones. In a
+    group of two or more, rank r's generator is seeded with
+    ``step_seed(seed, t, r)``: StVD, ROI sampling and dropout draw per
+    rank; the hard-sampling stripe start is rank 0's."""
 
     def __init__(self, cfg: CfgNode | None = None, state_dict=None,
-                 device="cuda", seed: int = 0, total_steps: int = 1000):
+                 device="cuda", seed: int = 0, total_steps: int = 1000,
+                 dist=None):
         self.cfg = cfg if cfg is not None else virconv_t_config()
         name = self.cfg.OPTIMIZATION.OPTIMIZER
         if name not in OPTIMIZERS:
@@ -65,6 +83,13 @@ class Trainer:
         else:
             load_state_dict_checked(model, state_dict)
         self.model = model.to(self.device).train()
+        self.group, self.rank = None, None
+        if dist:
+            import torch.distributed as tdist
+            self.group = tdist.group.WORLD if dist is True else dist
+            if tdist.get_world_size(self.group) > 1:
+                self.rank = tdist.get_rank(self.group)
+            dp.broadcast_module(self.model, self.group)
         self.seed = seed
         self.step_count = 0
         self.generator = torch.Generator(device=self.device)
@@ -89,21 +114,35 @@ class Trainer:
         ``nonfinite_skips``. The step applies the learning rate ``lr()``
         gave before it. The parameters' ``.grad`` keep this step's
         gradients, and the BN running statistics are updated in the
-        model."""
+        model. With ``dist``: ``batch`` is this rank's share, the gradients
+        are the global loss's and the loss and terms the global ones."""
         batch = self.to_device(batch)
         if draws is None:
-            self.generator.manual_seed(step_seed(self.seed, self.step_count))
+            self.generator.manual_seed(step_seed(self.seed, self.step_count,
+                                                 self.rank))
             draws = Draws(self.generator)
         self.model.zero_grad(set_to_none=True)
-        out = self.model(batch, rng=draws)
-        with record_function('backward'):
-            out['loss'].backward()
+        with (dp.synced(self.group) if self.group is not None
+              else contextlib.nullcontext()):
+            out = self.model(batch, rng=draws)
+            with record_function('backward'):
+                out['loss'].backward()
+            with record_function('allreduce_grads'):
+                dp.allreduce_grads(self.model)
+            loss, terms = out['loss'].detach(), {
+                k: v.detach() for k, v in out['tb'].items()}
+            if self.group is not None:
+                # the global loss and terms: the sums of the ranks' partials
+                names = list(terms)
+                flat = dp.global_sum(torch.stack(
+                    [loss.float()] + [terms[k].float() for k in names]))
+                loss = flat[0]
+                terms = dict(zip(names, flat[1:]))
         with record_function('optimizer'):
             self.optimizer.step()
         self.step_count += 1
-        tb = {**{k: v.detach() for k, v in out['tb'].items()},
-              'nonfinite_skips': self.optimizer.total_notfinite}
-        return out['loss'].detach(), tb
+        tb = {**terms, 'nonfinite_skips': self.optimizer.total_notfinite}
+        return loss, tb
 
     def state_dict(self):
         """``model_state`` (parameters and BN statistics), the optimizer's

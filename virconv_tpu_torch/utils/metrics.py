@@ -19,19 +19,26 @@ from ..ops import boxes_np
 
 class MetricsLogger:
     def __init__(self, log_dir, use_tensorboard=True):
-        self.log_dir = Path(log_dir)
+        """``log_dir`` None: phases are timed and nothing is written (the
+        ranks of a data-parallel run but rank 0)."""
+        self.log_dir = None if log_dir is None else Path(log_dir)
+        self._jsonl = None
+        self._tb = None
+        self._phase_totals = {}
+        if self.log_dir is None:
+            return
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.log_dir / 'events.jsonl', 'a')
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(str(self.log_dir))
             except Exception:           # tensorboard is not installed
                 self._tb = None
-        self._phase_totals = {}
 
     def scalar(self, tag: str, value: float, step: int):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {'tag': tag, 'value': float(value), 'step': int(step),
              'time': time.time()}) + '\n')
@@ -65,6 +72,8 @@ class MetricsLogger:
                 for name, (acc, cnt) in self._phase_totals.items()}
 
     def close(self):
+        if self._jsonl is None:
+            return
         if self._phase_totals:
             self._jsonl.write(json.dumps(
                 {'phase_summary': self.phase_summary()}) + '\n')
