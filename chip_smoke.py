@@ -159,6 +159,24 @@ Phases (each prints one line; any failure exits non-zero):
      ``tools/train_gpu.py --launcher pytorch`` for one epoch on phase
      10's tree: the same finite losses on both ranks, the checkpoint
      written by rank 0 alone, the distributed evaluation after training;
+ 15. the JAX package's six routing switches (``Switches``), f32 operands,
+     TF32 off: VirConv-T on phase 3's request under its default route and
+     under ``VIRCONV_BAND=0`` (every eval conv on ``nmap_conv``),
+     ``VIRCONV_BAND2D=0``, ``VIRCONV_DENSE2D=1``, ``VIRCONV_POOL_KERNEL=0``
+     and ``VIRCONV_POOL_TILE=1`` (K2+K3 quadrant-tiled below stride 8),
+     VirConv-L under the first three: per route a captured forward gated
+     against the default route's (every stream's coords and masks equal,
+     features within 1e-4 x scale, ROI valid sets equal and boxes within
+     1e-3, or matched ROI by ROI), every ``nmap_conv`` call and every
+     tiled K2+K3 call against its plain version, each tiled call un-tiled
+     bit for bit against the untiled call, then 2 requests with every
+     launch and branch count set to 0 just before and read just after: ms
+     per request, launches, branch counts, peak memory; the dense LiDAR
+     tail (``LidarStack(dense_tail=True)``) against the sparse stack on
+     the request's LiDAR stream, at eval and one training forward and
+     backward; a T training step's forward and backward under
+     ``VIRCONV_BAND_TRAIN=0`` against the default's from the same state
+     and draws;
 then one JSON line of per-kernel numbers (the six kernels' ports, the
 gather patch's (``band_conv_patch``), ``nmap_conv``'s (phase 8),
 ``gather_rows``' per training step and ``cspn``'s per frame; times and
@@ -170,7 +188,9 @@ K1's and K2+K3's over the phase 9a run as
 request and per step under ``virconv_l``) with phase 9's numbers under
 ``eval``, phase 10's under ``train_cli``, phase 11's under ``virconv_l``
 and ``virconv_s``, phase 12's under ``virtual_points``, phase 13's under
-``precision`` and phase 14's under ``data_parallel``, the card's
+``precision``, phase 14's under ``data_parallel`` and phase 15's under
+``routing`` (its kernel rows ``nmap_conv_fwd_eval`` and
+``roi_pool_fwd_tiled`` per T request), the card's
 name and power limit, and the device JSON as the last line; phase 3's
 launches per request under ``serve``. Each phase
 prints its seconds. It needs the repository around it: alone, or without
@@ -3035,6 +3055,581 @@ def dp_cli_phase(tmp, logger, card, tag='phase 14', device='cuda',
     return evaluation, training
 
 
+# ---- phase 15: the JAX package's routing switches --------------------------
+
+# (name, switches) of the eval routes phase 15 drives besides the default
+T_ROUTES = (('band_off', {'VIRCONV_BAND': '0'}),
+            ('band2d_off', {'VIRCONV_BAND2D': '0'}),
+            ('dense2d', {'VIRCONV_DENSE2D': '1'}),
+            ('pool_kernel_off', {'VIRCONV_POOL_KERNEL': '0'}),
+            ('pool_tile', {'VIRCONV_POOL_TILE': '1'}))
+L_ROUTES = T_ROUTES[:3]
+ROUTE_REQUESTS = 2
+
+
+class RouteCapture:
+    """Records one forward's ``nmap_conv`` launches (inputs) and its ROI
+    pooling plans, each with the queries of the SA call that built it (the
+    calls still run)."""
+
+    def __enter__(self):
+        from virconv_tpu_torch.models.roi_heads import voxel_pool
+        from virconv_tpu_torch.ops import nmap_conv, roi_pool
+        self.nmap, self.plans = [], []
+        self._mods = (nmap_conv, roi_pool, voxel_pool.NeighborVoxelSAModule)
+        self._orig = (nmap_conv._nmap_conv_cuda, roi_pool.roi_pool_plan,
+                      voxel_pool.NeighborVoxelSAModule.forward)
+        orig_nm, orig_plan, orig_fwd = self._orig
+        queries = [None]
+
+        def nm(feats, nmap, weights):
+            self.nmap.append((feats, nmap, weights))
+            return orig_nm(feats, nmap, weights)
+
+        def plan(*a, **k):
+            p = orig_plan(*a, **k)
+            self.plans.append((p, a, queries[0]))
+            return p
+
+        def fwd(mod, st, stride, qx, qc, qm, table_fn=None, q_per_roi=None,
+                bf16=True):
+            queries[0] = (qx, qc, qm, q_per_roi)
+            return orig_fwd(mod, st, stride, qx, qc, qm, table_fn,
+                            q_per_roi, bf16)
+        nmap_conv._nmap_conv_cuda, roi_pool.roi_pool_plan = nm, plan
+        self._mods[2].forward = fwd
+        return self
+
+    def __exit__(self, *exc):
+        nc, rp, sa = self._mods
+        nc._nmap_conv_cuda, rp.roi_pool_plan, sa.forward = self._orig
+        return False
+
+
+def check_nmap_case(name, args):
+    """One eval ``nmap_conv`` call (``VIRCONV_BAND=0``, ``BAND2D=0``) against
+    its plain version (1e-4 x scale), kernel and plain times, and the
+    bound: features, map and weights read once, the output written once,
+    2 C C' operations per (row, tap) hit at the f32 peak."""
+    from virconv_tpu_torch.ops import nmap_conv as nc
+    feats, nmap, w = args
+    k, c_in, c_out = w.shape
+    got = nc.nmap_conv(feats, nmap, w)
+    want = nc.nmap_conv_plain(feats, nmap, w)
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
+    if not err <= tol:
+        fail(f'nmap_conv {name}: max err {err} > {tol}')
+    hits = int((nmap >= 0).sum())
+    line = {'case': name, 'rows_in': feats.shape[0],
+            'rows_out': nmap.shape[0], 'c_in': c_in, 'c_out': c_out,
+            'taps': k, 'max_abs_err_f32': err,
+            'ms': cuda_ms(lambda: nc.nmap_conv(feats, nmap, w)),
+            'plain_ms': cuda_ms(lambda: nc.nmap_conv_plain(feats, nmap, w),
+                                reps=3, warmup=1),
+            'taps_hit': hits,
+            'bytes': nbytes(feats, nmap, w) + nmap.shape[0] * c_out * 4,
+            'ops': 2.0 * hits * c_in * c_out}
+    bound(line, F32_FLOPS)
+    return line
+
+
+def check_tiled_pool(name, args, record):
+    """One quadrant-tiled K2+K3 call (``VIRCONV_POOL_TILE=1``): as phase 2
+    against its plain version (``check_pool_case``), then un-tiled against
+    the untiled call on the same SA inputs (its plan built with room for
+    every block), bit for bit by int32 view."""
+    import torch
+    from virconv_tpu_torch.models.roi_heads import voxel_pool
+    from virconv_tpu_torch.ops import roi_pool as rp
+    plan, fg, w_eff, b_eff, specs, vs, stride, pcr = args
+    _, plan_args, (qx, qc, qm, q) = record
+    line = check_pool_case(name, args, bf16_timed=False)
+    g = round(q ** (1.0 / 3.0))
+    _, _, inv, qp = voxel_pool._tile_layout(g)
+    r0 = qx.shape[0] // q
+    st, ranges = plan_args[0], plan_args[5]
+    full = rp.roi_pool_plan(st, qx, qc, qm, q, ranges, vs, stride, pcr,
+                            nblk_cap=64 * r0 + 64)
+    if not bool(full.ok):
+        fail(f'roi_pool tiled {name}: the untiled plan overflowed')
+    untiled = rp.roi_pool_apply(full, fg, w_eff, b_eff, specs, vs, stride,
+                                pcr, False)
+    tiled = rp.roi_pool_apply(plan, fg, w_eff, b_eff, specs, vs, stride,
+                              pcr, False)
+    n_g, _, mid = tiled.shape
+    tiled = tiled.reshape(n_g, r0, 4 * qp, mid)[
+        :, :, torch.as_tensor(inv, device=tiled.device)].reshape(
+            n_g, r0 * q, mid)
+    line['bit_equal'] = bits_equal(tiled, untiled)
+    line['untiled_blocks'] = int(full.blk_start[-1])
+    if not line['bit_equal']:
+        fail(f'roi_pool tiled {name}: un-tiled output differs from the '
+             f'untiled call in {int((tiled != untiled).sum())} values')
+    return line
+
+
+def _stream_tensors(raw):
+    bb = raw['backbone']
+    for stream in ('multi_scale_3d_features', 'multi_scale_3d_features_mm'):
+        for k, st in bb.get(stream, {}).items():
+            yield f'{stream}.{k}', st
+    yield 'encoded_spconv_tensor', bb['encoded_spconv_tensor']
+
+
+def route_diffs(raw, ref, name):
+    """Gates a route's raw outputs against the default route's: every
+    stream's coords and masks equal, its features within 1e-4 x their
+    scale; the final ROI valid sets equal and the boxes within 1e-3, or,
+    where they differ, every ROI matched ROI by ROI
+    (``matched_roi_diffs``) with boxes within 1e-3. Returns the diffs."""
+    import torch
+    worst = 0.0
+    ref_streams = dict(_stream_tensors(ref))
+    for key, st in _stream_tensors(raw):
+        want = ref_streams[key]
+        if not (torch.equal(st.coords, want.coords)
+                and torch.equal(st.mask, want.mask)):
+            fail(f'route {name}: {key} coords or masks differ')
+        scale = max(1.0, float(want.feats.float().abs().max()))
+        err = float((st.feats.float() - want.feats.float()).abs().max())
+        worst = max(worst, err / scale)
+        if not err <= 1e-4 * scale:
+            fail(f'route {name}: {key} features {err} > 1e-4 x {scale}')
+    out = {'stream_max_err_over_scale': worst}
+    valid, valid_ref = raw['roi_valid'], ref['roi_valid']
+    if torch.equal(valid, valid_ref):
+        box = float((raw['batch_box_preds'] - ref['batch_box_preds'])[
+            valid].abs().max()) if bool(valid.any()) else 0.0
+        out['box_max_abs_diff'] = box
+        if box <= 1e-3:
+            return out
+    m = matched_roi_diffs(raw, ref)
+    out['roi_by_roi'] = m
+    print(f'[phase 15] {name}: ROIs by position differ, ROI by ROI '
+          f'{json.dumps(m)}', flush=True)
+    if not (m['rois_matched'] == m['rois_ref'] == int(valid.sum())
+            and m['matched_box_preds_max_abs_diff'] <= 1e-3):
+        fail(f'route {name}: final ROIs differ from the default route')
+    return out
+
+
+def route_run(det, frames, model, name, env, ref):
+    """One eval route of ``det`` under ``env``: a captured forward (its
+    ``nmap_conv`` and K2+K3 inputs, peak memory) gated against the default
+    route's ``ref`` (``route_diffs``), then ROUTE_REQUESTS requests with
+    every launch count and branch count set to 0 just before and read just
+    after. Returns (the route's numbers, the captured forward's raw
+    outputs, its ``RouteCapture`` and ``Capture``)."""
+    import torch
+    from virconv_tpu_torch.models.roi_heads import voxel_pool
+    from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool, sparse
+    with Switches(**env):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with RouteCapture() as rc, Capture() as cap:
+            raw = det.forward(frames)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        band_conv.launches = band_conv.patch_launches = 0
+        roi_pool.launches = nmap_conv.launches = 0
+        sparse.branch_counts.clear()
+        voxel_pool.branch_counts.clear()
+        times = []
+        for _ in range(ROUTE_REQUESTS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = det(frames)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = {'band_conv_fwd': band_conv.launches,
+                    'band_conv_patch': band_conv.patch_launches,
+                    'roi_pool_fwd': roi_pool.launches,
+                    'nmap_conv_fwd': nmap_conv.launches}
+        convs, pools = dict(sparse.branch_counts), dict(
+            voxel_pool.branch_counts)
+    if not all(np.isfinite(r['boxes']).all() for r in res):
+        fail(f'{model} route {name}: non-finite detections')
+    line = {'switches': env, 'ms_per_request': times,
+            'launches': launches, 'conv_branches': convs,
+            'pool_branches': pools, 'peak_gib': peak}
+    if ref is not None:
+        line.update(route_diffs(raw, ref, f'{model} {name}'))
+    print(f'[phase 15] {model} route {name} {json.dumps(env)}: '
+          f'{json.dumps(line)}', flush=True)
+    return line, raw, rc, cap
+
+
+def route_gates(model, name, line, n_calls):
+    """The launches a route must show over its ROUTE_REQUESTS requests."""
+    ln, convs, pools = (line[k] for k in ('launches', 'conv_branches',
+                                          'pool_branches'))
+    if convs.get('nmap_slow'):
+        fail(f'{model} {name}: a band context left the band kernel')
+    if name == 'band_off' and (convs.get('band') or ln['band_conv_fwd']
+                               or ln['nmap_conv_fwd'] != convs.get('nmap')
+                               or ln['nmap_conv_fwd'] != n_calls
+                               * ROUTE_REQUESTS):
+        fail(f'{model} band_off: not every eval conv on nmap_conv: {ln}, '
+             f'{convs}')
+    if name == 'band2d_off' and not (convs.get('band') and convs.get('nmap')
+                                     == ln['nmap_conv_fwd'] > 0):
+        fail(f'{model} band2d_off: {ln}, {convs}')
+    if name == 'dense2d' and (convs.get('nmap') or not convs.get('band')):
+        fail(f'{model} dense2d: {convs}')
+    if name == 'pool_kernel_off' and (ln['roi_pool_fwd']
+                                      or 'kernel' in pools):
+        fail(f'{model} pool_kernel_off: {ln}, {pools}')
+    if name == 'pool_tile' and not any(
+            k.startswith('kernel tiled') for k in pools):
+        fail(f'{model} pool_tile: no tiled K2+K3 launch: {pools}')
+
+
+def routes_for(det, frames, model, routes):
+    """The default route, then each of ``routes``, of one f32 detector.
+    Returns (numbers by route, nmap_conv lines of band_off, tiled K2+K3
+    lines, their launches)."""
+    import torch
+    out, nmap_lines, tiled_lines, counts = {}, [], [], {}
+    out['default'], ref, _, _ = route_run(det, frames, model, 'default', {},
+                                          None)
+    for name, env in routes:
+        line, raw, rc, cap = route_run(det, frames, model, name, env, ref)
+        route_gates(model, name, line, len(rc.nmap))
+        if name in ('band_off', 'band2d_off'):
+            lines = [check_nmap_case(f'{i:02d} k{a[2].shape[0]}', a)
+                     for i, a in enumerate(rc.nmap)]
+            line['nmap_conv'] = summed(lines)
+            print(f'[phase 15] {model} {name}: {len(lines)} nmap_conv '
+                  f'calls per request vs plain, {json.dumps(summed(lines))}',
+                  flush=True)
+            if name == 'band_off' and model == 'VirConv-T':
+                nmap_lines = lines
+                counts['nmap_conv_fwd'] = line['launches']['nmap_conv_fwd']
+        if name == 'pool_tile':
+            records = {id(r[0]): r for r in rc.plans}
+            for i, a in enumerate(cap.pool):
+                rec = records[id(a[0])]
+                if rec[2][3] == a[0].q_per_roi:       # an untiled call
+                    continue
+                tl = check_tiled_pool(f'{i} stride{a[6]}_q{a[0].q_per_roi}',
+                                      a, rec)
+                tiled_lines.append(tl)
+                print(f'[phase 15] {model} roi_pool tiled {short(tl)}',
+                      flush=True)
+            if not tiled_lines:
+                fail(f'{model} pool_tile: no tiled K2+K3 call captured')
+            line['roi_pool_tiled'] = summed(tiled_lines)
+            counts['roi_pool_fwd_tiled'] = sum(
+                v for k, v in line['pool_branches'].items()
+                if k.startswith('kernel tiled'))
+        out[name] = line
+        del raw, rc, cap
+    del ref
+    torch.cuda.empty_cache()
+    return out, nmap_lines, tiled_lines, counts
+
+
+def _sorted_rows(st):
+    """(keys, feats) of the valid rows in key order."""
+    import torch
+    keys = st.keys()
+    order = torch.argsort(keys)
+    n = int(st.mask.sum())
+    return keys[order][:n], st.feats[order][:n].float()
+
+
+def stacks_close(got, want, label):
+    """LidarStack outputs (dense tail against sparse): x_conv1-2 the same
+    rows, x_conv3, x_conv4 and ``out`` the same sites (compared in key
+    order: the dense tail's rows come in scan order), features within
+    1e-4 x their scale. Returns the worst error over its scale."""
+    import torch
+    worst = 0.0
+    for k in ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4', 'out'):
+        kg, fg = _sorted_rows(got[k])
+        kw, fw = _sorted_rows(want[k])
+        if not torch.equal(kg, kw):
+            fail(f'{label}: {k} sites differ ({kg.numel()} vs {kw.numel()})')
+        scale = max(1.0, float(fw.abs().max()))
+        err = float((fg - fw).abs().max()) if fw.numel() else 0.0
+        worst = max(worst, err / scale)
+        if not err <= 1e-4 * scale:
+            fail(f'{label}: {k} features {err} > 1e-4 x {scale}')
+    return worst
+
+
+def dense_tail_phase(det, frames, tag='phase 15'):
+    """``LidarStack(dense_tail=True)`` on the request's LiDAR stream (6
+    entries) with the VirConv-T stack's weights, against the sparse stack:
+    at eval (f32 operands, TF32 off), then one training forward and
+    backward of each (the loss a fixed random projection of every output,
+    summed over rows): outputs as ``stacks_close``, the loss within rel
+    1e-4, every gradient within 1e-2 of its norm (phase 14's rule: a
+    pre-activation within round-off of ReLU's kink moves single entries
+    by more than phase 7's 1e-3 x scale, which is printed), every BN
+    statistic within 1e-4 x its scale. Times and peak memory of each."""
+    import torch
+    from virconv_tpu_torch.models.backbones_3d.virconv import LidarStack
+    model = det.model
+    batch = det.make_batch(frames)
+    st = model.voxelize(batch['points'], batch['points_valid'],
+                        batch['points'].shape[0], model.indicator_max)
+    src = model.backbone.lidar
+    nf = tuple(getattr(src, f'conv{i}').kernel.shape[2]
+               for i in ('1', '2_a', '3_a', '4_a'))
+    dims = (src.conv_input.kernel.shape[1], nf,
+            src.conv_out.kernel.shape[2], src.cap_ratios)
+    dev = st.feats.device
+    stacks = {}
+    for dense in (False, True):
+        s = LidarStack(*dims, dense_tail=dense).to(dev)
+        s.load_state_dict(src.state_dict())
+        stacks[dense] = s
+    res = {'rows_in': int(st.mask.sum()), 'spatial_shape': st.spatial_shape}
+    outs = {}
+    for train in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(15)
+        proj = {k: torch.randn(c, generator=gen, device=dev)
+                for k, c in (('x_conv1', nf[0]), ('x_conv2', nf[1]),
+                             ('x_conv3', nf[2]), ('x_conv4', nf[3]),
+                             ('out', dims[2]))}
+        for dense, s in stacks.items():
+            s.train(train)
+            s.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with torch.set_grad_enabled(train):
+                o = s(st, bf16=False)
+                loss = sum((o[k].feats * proj[k]).sum() for k in proj)
+                if train:
+                    loss.backward()
+            torch.cuda.synchronize()
+            key = (f'{"train" if train else "eval"}_'
+                   f'{"dense" if dense else "sparse"}')
+            res[f'{key}_ms'] = (time.perf_counter() - t) * 1e3
+            res[f'{key}_peak_gib'] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+            outs[dense] = (o, float(loss))
+        label = f'dense tail ({"train" if train else "eval"})'
+        mode = 'train' if train else 'eval'
+        res[f'{mode}_max_err_over_scale'] = stacks_close(
+            outs[True][0], outs[False][0], label)
+        l_d, l_s = outs[True][1], outs[False][1]
+        res[f'{mode}_loss'] = [l_s, l_d]
+        if not abs(l_d - l_s) <= 1e-4 * abs(l_s):
+            fail(f'{label}: loss {l_d!r} vs sparse {l_s!r}')
+        del outs[True], outs[False]
+    grads = {d: {n: p.grad.detach() for n, p in s.named_parameters()
+                 if p.grad is not None} for d, s in stacks.items()}
+    res['grad_worst_over_scale'] = _grad_worst(grads[True], grads[False])
+    norm, name = _grad_norm_worst(grads[True], grads[False])
+    res['grad_worst_over_norm'] = [norm, name]
+    if set(grads[True]) != set(grads[False]) or not norm <= 1e-2:
+        fail(f'dense tail gradients: {norm} of the norm at {name}')
+    bufs = {d: dict(s.named_buffers()) for d, s in stacks.items()}
+    bn = max(float((bufs[True][n] - b).abs().max())
+             / max(float(b.abs().max()), 1e-6)
+             for n, b in bufs[False].items() if b.is_floating_point())
+    res['bn_stats_max_err_over_scale'] = bn
+    if not bn <= 1e-4:
+        fail(f'dense tail BN statistics: {bn} x scale')
+    print(f'[{tag}] VirConv-T LiDAR stack, dense tail vs sparse: '
+          f'{json.dumps(res)}', flush=True)
+    del stacks, grads, bufs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grad_norm_worst(got, want):
+    """(the worst |got - want| / |want| over the parameters, in L2 norm,
+    each norm floored at 1e-4 x the largest: phase 14's rule; gradients
+    that are zero in exact arithmetic are round-off), its parameter)."""
+    floor = 1e-4 * max(float(g.norm()) for g in want.values())
+    return max((float((got[n] - g).norm()) / max(float(g.norm()), floor), n)
+               for n, g in want.items())
+
+
+class PreActivations:
+    """Records every BN output of ``module`` in a forward (the
+    ``MaskedBatchNorm`` rows of the sparse blocks, the pools and the heads,
+    the ``FlaxBatchNorm2d`` maps of the BEV: what every ReLU of the model
+    but the pools' reads), by module name and call. With ``snap_to``
+    (another forward's records) each entry on the other side of ReLU's
+    kink from the recorded one is moved onto the recorded value, its
+    gradient passed through unchanged."""
+
+    def __init__(self, module, snap_to=None):
+        import torch
+        from virconv_tpu_torch.models.layers import (FlaxBatchNorm2d,
+                                                     MaskedBatchNorm)
+        self.rows, self._hooks = {}, []
+
+        def hook(m, args, out, name):
+            calls = sum(k.startswith(f'{name} #') for k in self.rows)
+            key = f'{name} #{calls}'
+            mask = args[1][:, None] if len(args) > 1 else torch.ones_like(
+                out, dtype=torch.bool)
+            self.rows[key] = (out.detach(), mask)
+            if snap_to is None:
+                return None
+            ref = snap_to[key][0]
+            flip = ((out > 0) != (ref > 0)) & mask
+            return out + torch.where(flip, ref - out, 0.0).detach()
+        for name, m in module.named_modules():
+            if isinstance(m, (MaskedBatchNorm, FlaxBatchNorm2d)):
+                self._hooks.append(m.register_forward_hook(
+                    lambda m, a, out, name=name: hook(m, a, out, name)))
+
+    def remove(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def sign_flips(a, b):
+    """Pre-activations on opposite sides of ReLU's kink in two forwards:
+    {module: (count, the largest |value| among them)}."""
+    out = {}
+    for name, (x, mask) in a.items():
+        y = b[name][0]
+        flip = ((x > 0) != (y > 0)) & mask
+        if bool(flip.any()):
+            out[name] = (int(flip.sum()), max(float(x[flip].abs().max()),
+                                              float(y[flip].abs().max())))
+    return out
+
+
+def band_train_off_step(batch, tag='phase 15'):
+    """One full-width VirConv-T training step's forward and backward from
+    one seeded trainer with the same draws (no optimizer step), the
+    box-regression outputs zeroed (``zero_box_outputs``) and the first
+    pass's NMS selections replayed: (1) by default; (2) under
+    ``VIRCONV_BAND_TRAIN=0``; (3) as (2) with every pre-activation
+    (``MaskedBatchNorm`` output) that (2) put on the other side of ReLU's
+    kink from (1) snapped to (1)'s value. Gates: K1 and K4 launched in
+    (1) and not in (2), (2)'s loss within rel 1e-4 of (1)'s, and (3)'s
+    gradients within 1e-3 x their scale of (1)'s (phase 7's rule): the
+    round-off between the band conv and the neighbor-map conv moves (2)'s
+    gradients further only through those sign changes, which are printed
+    with (2)'s worst gradients. ms and peak memory of (1) and (2)."""
+    import torch
+    from virconv_tpu_torch.ops import band_conv, boxes, sparse
+    from virconv_tpu_torch.train.draws import Draws
+    from virconv_tpu_torch.train.trainer import Trainer, step_seed
+    with torch.enable_grad():
+        trainer = Trainer(device='cuda', seed=0)
+        model = zero_box_outputs(trainer.model)
+        batch = trainer.to_device(batch)
+        res, passes, pre = {}, {}, {}
+        calls = []
+        for name, env in (('default', {}),
+                          ('band_train_off', {'VIRCONV_BAND_TRAIN': '0'}),
+                          ('band_train_off_snapped',
+                           {'VIRCONV_BAND_TRAIN': '0'})):
+            orig = boxes.nms_bev
+            if calls:
+                queue = list(calls)
+                boxes.nms_bev = lambda *a, **k: queue.pop(0)
+            else:
+                def record(*a, **k):
+                    out = orig(*a, **k)
+                    calls.append(out)
+                    return out
+                boxes.nms_bev = record
+            rec = PreActivations(model, pre.get('default')
+                                 if name.endswith('snapped') else None)
+            try:
+                with Switches(**env):
+                    trainer.generator.manual_seed(step_seed(0, 0))
+                    model.zero_grad(set_to_none=True)
+                    band_conv.launches = band_conv.dw_launches = 0
+                    sparse.branch_counts.clear()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    out = model(batch, rng=Draws(trainer.generator))
+                    out['loss'].backward()
+                    torch.cuda.synchronize()
+            finally:
+                boxes.nms_bev = orig
+                rec.remove()
+            res[name] = {'ms': (time.perf_counter() - t) * 1e3,
+                         'peak_gib': torch.cuda.max_memory_allocated()
+                         / 2 ** 30, 'loss': float(out['loss'].detach()),
+                         'k1_launches': band_conv.launches,
+                         'k4_launches': band_conv.dw_launches,
+                         'conv_branches': dict(sparse.branch_counts)}
+            passes[name] = {n: p.grad.detach().clone() for n, p in
+                            model.named_parameters() if p.grad is not None}
+            pre[name] = rec.rows
+            del out
+    d, off = res['default'], res['band_train_off']
+    if not (d['k1_launches'] and d['k4_launches']) or off['k1_launches'] \
+            or off['k4_launches'] or any(k.startswith('band') for k in
+                                         off['conv_branches']):
+        fail(f'{tag} BAND_TRAIN=0: band launches {res}')
+    want = passes['default']
+    floor = 1e-4 * max(float(g.abs().max()) for g in want.values())
+    for name in ('band_train_off', 'band_train_off_snapped'):
+        got = passes[name]
+        if set(got) != set(want):
+            fail(f'{tag} {name}: other parameters have gradients')
+        res[name]['loss_rel'] = abs(res[name]['loss'] - d['loss']) \
+            / abs(d['loss'])
+        res[name]['grad_worst_over_scale'] = sorted(
+            ((float((got[n] - g).abs().max())
+              / max(float(g.abs().max()), floor), n)
+             for n, g in want.items()), reverse=True)[:3]
+        res[name]['grad_worst_over_norm'] = _grad_norm_worst(got, want)
+        res[name]['pre_activation_sign_flips'] = sign_flips(
+            pre['default'], pre[name])
+    print(f'[{tag}] VirConv-T training step, VIRCONV_BAND_TRAIN=0 vs the '
+          f'default: {json.dumps(res)}', flush=True)
+    snapped = res['band_train_off_snapped']
+    if not (off['loss_rel'] <= 1e-4 and snapped['loss_rel'] <= 1e-4
+            and snapped['grad_worst_over_scale'][0][0] <= 1e-3):
+        fail(f'{tag} BAND_TRAIN=0 step differs: loss rel '
+             f'{off["loss_rel"]}, snapped gradients '
+             f'{snapped["grad_worst_over_scale"]} x scale')
+    del trainer, model, passes, pre
+    torch.cuda.empty_cache()
+    return res
+
+
+def routing_phase(frames, card):
+    """Phase 15: the JAX package's routing switches at full width, f32
+    operands, TF32 off: VirConv-T on phase 3's request under the default
+    route and each of T_ROUTES, VirConv-L under L_ROUTES (``routes_for``);
+    the dense LiDAR tail (``dense_tail_phase``); a T training step under
+    ``VIRCONV_BAND_TRAIN=0`` (``band_train_off_step``), on ``card``
+    (nvidia-smi's name and power limit). Returns (kernel lines by kernel,
+    their launches, the numbers)."""
+    import torch
+    from virconv_tpu_torch.config import virconv_l_config
+    from virconv_tpu_torch.serve import Detector
+    from virconv_tpu_torch.utils.bench_inputs import (FRAMES, synth_frames_l,
+                                                      train_batch)
+    print(f'[phase 15] {card}: the routing switches, f32 operands, TF32 '
+          'off', flush=True)
+    det = Detector(device='cuda', seed=0, bf16=False)
+    t_routes, nmap_lines, tiled_lines, counts = routes_for(
+        det, frames, 'VirConv-T', T_ROUTES)
+    dense_tail = dense_tail_phase(det, frames)
+    del det
+    det_l = Detector(cfg=virconv_l_config(), device='cuda', seed=0,
+                     bf16=False)
+    l_routes, _, _, _ = routes_for(det_l, synth_frames_l(FRAMES),
+                                   'VirConv-L', L_ROUTES)
+    del det_l
+    torch.cuda.empty_cache()
+    step = band_train_off_step(train_batch())
+    return ({'nmap_conv_fwd_eval': nmap_lines,
+             'roi_pool_fwd_tiled': tiled_lines}, counts,
+            {'card': card, 'virconv_t': t_routes, 'virconv_l': l_routes,
+             'dense_tail': dense_tail, 'band_train_off_step': step})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3182,7 +3777,12 @@ def main():
         data_parallel = {'step': dp_step_phase(card)}
         data_parallel['eval'], data_parallel['train_cli'] = dp_cli_phase(
             tmp, logger, card)
-    phase_done(14, t0)
+    t0 = phase_done(14, t0)
+
+    # ---- phase 15: the JAX package's routing switches ----------------------
+    # (TF32 still off, as set for phase 4)
+    r_cases, r_counts, routing = routing_phase(frames, card)
+    phase_done(15, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -3305,6 +3905,15 @@ def main():
         **summed(p_cases['band_conv_dw_bf16'], 'step')}
     by_name['roi_pool_fwd']['pool_f32'] = {'launches': p_counts['pool_f32'],
                               **summed(p_cases['pool_f32'])}
+    # phase 15: nmap_conv on every eval conv (VIRCONV_BAND=0) and K2+K3 in
+    # its quadrant-tiled mode (VIRCONV_POOL_TILE=1), per T request
+    for name, (s, rep) in (
+            ('nmap_conv_fwd_eval', meta['nmap_conv_fwd']),
+            ('roi_pool_fwd_tiled', meta['roi_pool_fwd'])):
+        kernels.append({'name': name, 'route': 'cuda', 'source': s,
+                        'replaces': rep, 'launches': r_counts[
+                            name.replace('_eval', '')],
+                        **summed(r_cases[name])})
     print(json.dumps({'kernels': kernels, 'serve': serve_run,
                       'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,
@@ -3313,7 +3922,8 @@ def main():
                       'cases_virconv_l': l_cases,
                       'cases_cspn': vp_cases, 'precision': precision,
                       'cases_precision': p_cases,
-                      'data_parallel': data_parallel}), flush=True)
+                      'data_parallel': data_parallel, 'routing': routing,
+                      'cases_routing': r_cases}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -621,6 +621,53 @@ def test_roi_pool_kernel_edge_cases(grid):
         assert not bool(got[:, ~qmask.to(dev)].cpu().any())
 
 
+@pytest.mark.parametrize('grid', [6, 4])
+def test_roi_pool_kernel_tiled_layout(grid):
+    """K2+K3 on ``VIRCONV_POOL_TILE``'s quadrant segments (Q = 56 or 16
+    per segment, 4 segments per ROI, per-tile pad queries masked off, the
+    tiled plan's cap of 3 blocks per segment): selections identical to the
+    plain version's, features within 1e-5, and un-tiled, bit for bit the
+    untiled kernel call's."""
+    from virconv_tpu_torch.models.roi_heads.voxel_pool import _tile_layout
+    dev = _cuda()
+    rng = np.random.default_rng(grid + 20)
+    st, qxyz, qc, qmask, q, specs, vox, pcr = _pool_scene(grid, rng)
+    gather, tval, inv, qp = (torch.as_tensor(v) for v in _tile_layout(grid))
+    r0 = qxyz.shape[0] // q
+    tx = qxyz.reshape(r0, q, 3)[:, gather].reshape(-1, 3)
+    tc = qc.reshape(r0, q, 4)[:, gather].reshape(-1, 4)
+    tm = (qmask.reshape(r0, q)[:, gather] & tval[None]).reshape(-1)
+    mid = 32
+    fg = [torch.from_numpy(rng.standard_normal((st.feats.shape[0], mid))
+                           .astype(np.float32)).to(dev) for _ in specs]
+    we = [torch.from_numpy(rng.standard_normal((3, mid)).astype(np.float32))
+          .to(dev) for _ in specs]
+    be = [torch.from_numpy(rng.standard_normal(mid).astype(np.float32))
+          .to(dev) for _ in specs]
+    std = _to(st, dev)
+    tplan = trp.roi_pool_plan(std, tx.to(dev), tc.to(dev), tm.to(dev),
+                              int(qp), specs[-1][0], vox, 1, pcr,
+                              nblk_cap=3 * 4 * r0 + 32)
+    plan = trp.roi_pool_plan(std, qxyz.to(dev), qc.to(dev), qmask.to(dev),
+                             q, specs[-1][0], vox, 1, pcr,
+                             nblk_cap=64 * r0 + 64)
+    assert bool(tplan.ok) and bool(plan.ok)
+    assert (tplan.n_roi, tplan.q_per_roi) == (4 * r0, int(qp))
+    args = (fg, we, be, specs, vox, 1, pcr)
+    for a, b in zip(trp.roi_pool_selection(tplan, specs, vox, 1, pcr),
+                    trp.roi_pool_kernel_selection(tplan, *args)):
+        assert torch.equal(a, b)
+    for bf16 in (False, True):
+        got = trp.roi_pool_apply(tplan, *args, bf16=bf16)
+        want = trp.roi_pool_plain(tplan, *args, bf16=bf16)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        untiled = trp.roi_pool_apply(plan, *args, bf16=bf16)
+        got = got.reshape(len(specs), r0, -1, mid)[:, :, inv.to(dev)]
+        assert torch.equal(got.reshape(untiled.shape).view(torch.int32),
+                           untiled.view(torch.int32))
+
+
 def _dw_edge_case(case):
     """(feats, keys, plan, g, valid_bits) of one K4 edge case at the
     training geometry (tile 128, block 256)."""

@@ -57,6 +57,8 @@ def run(monkeypatch, feats_dtype):
     monkeypatch.setenv('VIRCONV_POOL_KERNEL', '0')
     want = np.asarray(mod.apply(variables, st, 1, qxyz, qc, qmask, False,
                                 q_per_roi=g ** 3))
+    # the switch routes the JAX side only: the port reads it too
+    monkeypatch.delenv('VIRCONV_POOL_KERNEL')
     tst = to_torch_st(st.replace(feats=st.feats.astype(jnp.float32)))
     if feats_dtype == 'bf16':
         tst = tst.replace(feats=tst.feats.to(torch.bfloat16))

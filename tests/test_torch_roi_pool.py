@@ -141,6 +141,8 @@ def test_sa_module_matches_jax(branch, monkeypatch):
     monkeypatch.setenv('VIRCONV_POOL_KERNEL', '0')
     want = mod.apply(variables, st, 1, qxyz, qc, qmask, False,
                      q_per_roi=g ** 3)
+    # the switch routes the JAX side only: the port reads it too
+    monkeypatch.delenv('VIRCONV_POOL_KERNEL')
     tmod = tvp.NeighborVoxelSAModule(16, ((2, 2, 2), (4, 4, 4)), (0.4, 0.8),
                                      (8, 8), ((8, 16), (8, 16)), VOX,
                                      PCR).eval()

@@ -10,7 +10,11 @@ dropout is off (DP_RATIO 0) in this test only.
 In order: NMS keep sets and sampled ROIs identical; loss and every tb term
 within rtol 1e-4; every parameter's gradient within 1e-3 x the max |JAX
 grad| of that parameter (floored at 1e-4 x the step's largest gradient);
-the BN running statistics after the step at 1e-5.
+the BN running statistics after the step at 1e-5. The JAX step runs the
+neighbor-map training convs (``VIRCONV_BAND_TRAIN=0``, its CPU route);
+the port's default step runs its band training conv, and
+``test_band_train_off_step_matches_jax`` holds its step under
+``VIRCONV_BAND_TRAIN=0`` to the same JAX step at the same tolerances.
 The points sit on a sparse grid seen through an orthographic camera, so no
 two valid rows of any NRConv image-plane tensor share a pixel (asserted):
 duplicate pixels resolve differently on the two sides
@@ -152,7 +156,10 @@ def run_jax(model, variables, batch, monkeypatch):
 
 
 @pytest.fixture(scope='module')
-def steps():
+def jax_step():
+    """The JAX step (on this CPU the neighbor-map training convs:
+    ``VIRCONV_BAND_TRAIN=0``'s route, the JAX package's CPU default) and
+    what the port's steps need."""
     model_cfg, data_cfg = tiny_cfg(mm=True)
     shrink_cfg(model_cfg, data_cfg)
     model_cfg.ROI_HEAD.DP_RATIO = 0.0
@@ -170,8 +177,15 @@ def steps():
         box['kernel'] = box['kernel'] * np.float32(0.01)
         box['bias'] = box['bias'] * np.float32(0.01)
     with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('VIRCONV_BAND_TRAIN', '0')
         want = run_jax(jmodel, variables, batch, mp)
+    return model_cfg, data_cfg, batch, variables, want
 
+
+def port_step(jax_step):
+    """The port's step from the JAX step's weights with its draws replayed,
+    under the environment's switches."""
+    model_cfg, data_cfg, batch, variables, want = jax_step
     cfg = CfgNode({'CLASS_NAMES': ['Car'], 'MODEL': dict(model_cfg),
                    'DATA_CONFIG': dict(data_cfg),
                    'OPTIMIZATION': virconv_t_config().OPTIMIZATION})
@@ -193,12 +207,28 @@ def steps():
     replay = want['stvd'] + [d for s in want['stages'] for d in s['draws']]
     draws = Draws(replay=replay)
     trainer.model.forward = capture
+    tsp.branch_counts.clear()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tsp, 'nmap_subm_conv_ctx', ctx)
         loss, tb = trainer.step(batch, draws)
     assert not draws.replay, 'every JAX draw is used'
     return want, {'loss': loss, 'tb': tb, 'out': captured,
-                  'model': trainer.model, 'pixels': pixels}
+                  'model': trainer.model, 'pixels': pixels,
+                  'branches': dict(tsp.branch_counts)}
+
+
+@pytest.fixture(scope='module')
+def steps(jax_step):
+    return port_step(jax_step)
+
+
+@pytest.fixture(scope='module')
+def steps_band_train_off(jax_step):
+    """The port's step under ``VIRCONV_BAND_TRAIN=0``: its 3D submanifold
+    convs on the neighbor map too, as the JAX step's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('VIRCONV_BAND_TRAIN', '0')
+        return port_step(jax_step)
 
 
 def test_image_plane_has_no_duplicate_pixels(steps):
@@ -278,3 +308,16 @@ def test_bn_running_stats_after_step(steps):
     for name, v in stats.items():
         np.testing.assert_allclose(buffers[name].numpy(), v.numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def test_band_train_off_step_matches_jax(steps_band_train_off):
+    """Loss, tb terms, every gradient and the BN statistics at the default
+    step's tolerances, with no conv on the band training path: 4 image-plane
+    and 8 3D submanifold contexts on the neighbor map."""
+    _, got = steps_band_train_off
+    assert not any(k.startswith('band') for k in got['branches']), \
+        got['branches']
+    assert len(got['pixels']) == 4 + 8
+    test_loss_and_tb_terms_match(steps_band_train_off)
+    test_every_gradient_matches(steps_band_train_off)
+    test_bn_running_stats_after_step(steps_band_train_off)

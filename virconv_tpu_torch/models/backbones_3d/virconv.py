@@ -2,14 +2,21 @@
 VirConv8x of VirConv-T/S and the single fused-stream VirConvL8x of
 VirConv-L. Counterpart of ``virconv_tpu/models/backbones_3d/virconv.py``.
 
-Transform replicas ride the batch axis (entry = b * rot_num + i). At eval
-every sparse conv runs through the band-window kernel (ops/band_conv.py),
-including the NRConv image-plane 2D convs, whose rows are sorted by pixel
-key, convolved with first-wins duplicate sources, and un-sorted. In train
-mode the convs take the JAX package's training routes: 3D submanifold
-convs the differentiable band conv, strided convs and the image-plane 2D
-convs (on the unsorted tensor) the neighbor-map conv; and the multimodal
-stream drops voxels at random (StVD).
+Transform replicas ride the batch axis (entry = b * rot_num + i). The
+routes are the JAX package's, chosen by its switches as each forward runs
+(``ops/sparse.band_enabled`` and the rest). By default every eval sparse
+conv runs through the band-window kernel (ops/band_conv.py), including the
+NRConv image-plane 2D convs, whose rows are sorted by pixel key, convolved
+with first-wins duplicate sources, and un-sorted; ``VIRCONV_BAND=0`` puts
+every eval conv on the neighbor map, ``VIRCONV_BAND2D=0`` the 2D ones (on
+the unsorted tensor), and ``VIRCONV_DENSE2D=1`` runs the 2D convs as dense
+convs over the image grid. In train mode 3D submanifold convs take the
+differentiable band conv (the neighbor-map conv under ``VIRCONV_BAND=0``
+or ``VIRCONV_BAND_TRAIN=0``), strided convs and the image-plane 2D convs
+(on the unsorted tensor) the neighbor-map conv; and the multimodal stream
+drops voxels at random (StVD). ``LidarStack(dense_tail=True)`` runs the
+LiDAR stack's stride-4 and stride-8 scales as dense convs
+(ops/dense3d.py); no configuration selects it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,9 +24,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...ops import dense3d
 from ...ops import sparse as sp
 from ...utils.calibration import project_lidar_to_img
-from ..layers import SparseDownBlock, SubMConvBlock
+from ..layers import (Dense2DSubMBlock, DenseDown3DBlock, DenseSubM3DBlock,
+                      SparseDownBlock, SubMConvBlock)
 
 IMG_GRID = (1600, 600)   # 2D sparse grid of the image plane (u, v)
 
@@ -62,8 +71,8 @@ class NRConvBlock(nn.Module):
             c = out_channels
         self.d3_conv1 = SubMConvBlock(c, half)
         self.d3_conv2 = SubMConvBlock(half, half)
-        self.d2_conv1 = SubMConvBlock(half, half, n_taps=9)
-        self.d2_conv2 = SubMConvBlock(half, half, n_taps=9)
+        self.d2_conv1 = Dense2DSubMBlock(half, half)
+        self.d2_conv2 = Dense2DSubMBlock(half, half)
 
     def forward(self, st: sp.SparseTensor, v2r, p2t, trans_params,
                 feat_stride: int, out_capacity: int | None = None,
@@ -73,9 +82,12 @@ class NRConvBlock(nn.Module):
         feat_stride: voxel stride of this block's output; out_capacity:
         row capacity of a strided block's output; bf16: bf16 conv
         operands."""
+        train = self.training
+        band, band3d = _routes(train)
         if self.stride > 1:
-            st = self.down(st, out_capacity, bf16)
-        ctx3d = sp.subm_conv_ctx(st, 3, bf16=bf16, train=self.training)
+            st = self.down(st, out_capacity, bf16, band)
+        ctx3d = sp.subm_conv_ctx(st, 3, bf16=bf16, train=train,
+                                 use_band=band3d)
         d3 = self.d3_conv1(st, ctx3d)
         d3 = self.d3_conv2(d3, ctx3d)
 
@@ -97,27 +109,76 @@ class NRConvBlock(nn.Module):
                       feat_stride, rounding_mode='floor')
         v = torch.div(torch.clamp(uv[:, 1].to(torch.int32), 0, 600 - 1),
                       feat_stride, rounding_mode='floor')
+        if not train and sp.dense2d_enabled():
+            d2_feats = self._dense2d(d3, u, v, feat_stride, st.batch_size)
+            return d3.replace(feats=torch.cat([d3.feats, d2_feats], -1))
         coords2d = torch.stack([d3.coords[:, 0], u, v], -1)
         coords2d = torch.where(d3.mask[:, None], coords2d,
                                torch.full_like(coords2d, -1))
         st2d = sp.SparseTensor(feats=d3.feats, coords=coords2d, mask=d3.mask,
                                spatial_shape=IMG_GRID,
                                batch_size=st.batch_size)
-        if self.training:
+        if not (band and sp.band2d_enabled()):
             # neighbor-map conv on the unsorted tensor (the dense lookup
             # table needs no sort); duplicate pixels resolve to the first row
-            ctx2d = sp.nmap_subm_conv_ctx(st2d, 3)
+            ctx2d = sp.subm_conv_ctx(st2d, 3, train=train, use_band=False)
             d2 = self.d2_conv2(self.d2_conv1(st2d, ctx2d), ctx2d)
-            return d3.replace(feats=torch.cat([d3.feats, d2.feats], -1))
-        # the band kernel needs key-sorted rows: sort once, two convs with
-        # first-wins duplicate sources, un-sort once
-        st2s, perm = sp.sort_by_key_with_perm(st2d)
-        ctx2d = sp.subm_conv_ctx(st2s, 3, first_wins_sources=True,
-                                 bf16=bf16)
-        d2 = self.d2_conv1(st2s, ctx2d)
-        d2 = self.d2_conv2(d2, ctx2d)
-        d2_feats = d2.feats[torch.argsort(perm)]
+            d2_feats = d2.feats
+        else:
+            # the band kernel needs key-sorted rows: sort once, two convs
+            # with first-wins duplicate sources, un-sort once
+            st2s, perm = sp.sort_by_key_with_perm(st2d)
+            ctx2d = sp.subm_conv_ctx(st2s, 3, first_wins_sources=True,
+                                     bf16=bf16)
+            d2 = self.d2_conv1(st2s, ctx2d)
+            d2 = self.d2_conv2(d2, ctx2d)
+            d2_feats = d2.feats[torch.argsort(perm)]
+        # f32 2D rows beside bf16 3D rows (VIRCONV_BF16_FEATS) promote to
+        # f32, as jnp.concatenate does
         return d3.replace(feats=torch.cat([d3.feats, d2_feats], -1))
+
+    def _dense2d(self, d3, u, v, feat_stride, batch_size):
+        """The 2D convs as dense convs over the (B, half, U, V) image grid
+        (``VIRCONV_DENSE2D``): a representative row per pixel (the lowest
+        row index, first-wins as the band route), its features written to
+        its cell, the occupancy map, two dense 3x3 convs, and each row's
+        cell read back. Returns the (N, half) 2D features."""
+        dev = d3.feats.device
+        half = d3.num_channels
+        u_dim, v_dim = -(-1400 // feat_stride), -(-600 // feat_stride)
+        uv = u_dim * v_dim
+        cells = batch_size * uv
+        n = d3.capacity
+        bidx = torch.clamp(d3.coords[:, 0], min=0).long()
+        flat_e = torch.where(d3.mask, (u * v_dim + v).long(),
+                             torch.full_like(bidx, uv))
+        flat = bidx * uv + torch.clamp(flat_e, max=uv - 1)
+        rid = torch.arange(n, dtype=torch.int32, device=dev)
+        rep = torch.full((cells + 1,), n, dtype=torch.int32, device=dev)
+        rep.scatter_reduce_(0, torch.where(d3.mask, flat,
+                                           torch.full_like(flat, cells)),
+                            rid, 'amin')
+        sel = d3.mask & (rep[flat] == rid)
+        # one write per occupied cell, no accumulation
+        grid = torch.zeros((batch_size, half, uv), dtype=torch.float32,
+                           device=dev)
+        grid[bidx[sel], :, flat_e[sel]] = d3.feats[sel].float()
+        grid = grid.reshape(batch_size, half, u_dim, v_dim)
+        occ = (rep[:cells] < n).float().reshape(batch_size, 1, u_dim, v_dim)
+        g = self.d2_conv2.dense(self.d2_conv1.dense(grid, occ), occ)
+        d2 = g.reshape(batch_size, half, uv)[
+            bidx, :, torch.clamp(flat_e, max=uv - 1)]
+        return torch.where(d3.mask[:, None], d2,
+                           torch.zeros_like(d2)).to(d3.feats.dtype)
+
+
+def _routes(train: bool):
+    """(band, band3d) of the JAX package's backbones: the eval convs on the
+    band kernel, and the 3D submanifold convs on it (eval, or training
+    under ``VIRCONV_BAND_TRAIN`` too)."""
+    band = (not train) and sp.band_enabled()
+    return band, band or (train and sp.band_enabled()
+                          and sp.band_train_enabled())
 
 
 def _cap(n: int, ratio: float) -> int:
@@ -126,46 +187,70 @@ def _cap(n: int, ratio: float) -> int:
 
 
 class LidarStack(nn.Module):
-    """The 4-stage LiDAR sparse stack + conv_out of VirConv8x."""
+    """The 4-stage LiDAR sparse stack + conv_out of VirConv8x. With
+    ``dense_tail`` the stride-4 and stride-8 scales run as dense convs
+    (the JAX package's ``LidarStack.dense_tail``): ``conv3_down`` stays
+    sparse (on the neighbor map, as there), its output is written to a
+    dense grid, and x_conv3, x_conv4 and ``out`` come back as rows in
+    (b, z, y, x) scan order, not key order, as in the JAX package. The
+    parameters are the same tree either way."""
 
     def __init__(self, in_channels: int, num_filters=(16, 32, 64, 64),
-                 out_features: int = 64, cap_ratios=(1.0, 0.6, 0.35)):
+                 out_features: int = 64, cap_ratios=(1.0, 0.6, 0.35),
+                 dense_tail: bool = False):
         super().__init__()
         nf = tuple(num_filters)
         self.cap_ratios = tuple(cap_ratios)
+        self.dense_tail = dense_tail
+        sub = DenseSubM3DBlock if dense_tail else SubMConvBlock
+        down = DenseDown3DBlock if dense_tail else SparseDownBlock
         self.conv_input = SubMConvBlock(in_channels, nf[0])
         self.conv1 = SubMConvBlock(nf[0], nf[0])
         self.conv2_down = SparseDownBlock(nf[0], nf[1])
         self.conv2_a = SubMConvBlock(nf[1], nf[1])
         self.conv2_b = SubMConvBlock(nf[1], nf[1])
         self.conv3_down = SparseDownBlock(nf[1], nf[2])
-        self.conv3_a = SubMConvBlock(nf[2], nf[2])
-        self.conv3_b = SubMConvBlock(nf[2], nf[2])
-        self.conv4_down = SparseDownBlock(nf[2], nf[3], padding=(0, 1, 1))
-        self.conv4_a = SubMConvBlock(nf[3], nf[3])
-        self.conv4_b = SubMConvBlock(nf[3], nf[3])
-        self.conv_out = SparseDownBlock(
+        self.conv3_a = sub(nf[2], nf[2])
+        self.conv3_b = sub(nf[2], nf[2])
+        self.conv4_down = down(nf[2], nf[3], padding=(0, 1, 1))
+        self.conv4_a = sub(nf[3], nf[3])
+        self.conv4_b = sub(nf[3], nf[3])
+        self.conv_out = down(
             nf[3], out_features, kernel_size=(3, 1, 1), stride=(2, 1, 1),
             padding=(0, 0, 0))
 
     def forward(self, st: sp.SparseTensor, bf16: bool = True):
         caps = [_cap(st.capacity, r) for r in self.cap_ratios]
+        train = self.training
+        band, band3d = _routes(train)
 
         def ctx(t):
-            return sp.subm_conv_ctx(t, 3, bf16=bf16, train=self.training)
+            return sp.subm_conv_ctx(t, 3, bf16=bf16, train=train,
+                                    use_band=band3d)
         ctx1 = ctx(st)
         x = self.conv_input(st, ctx1)
         x1 = self.conv1(x, ctx1)
-        x2 = self.conv2_down(x1, caps[0], bf16)
+        x2 = self.conv2_down(x1, caps[0], bf16, band)
         ctx2 = ctx(x2)
         x2 = self.conv2_b(self.conv2_a(x2, ctx2), ctx2)
-        x3 = self.conv3_down(x2, caps[1], bf16)
+        if self.dense_tail:
+            g3 = dense3d.grid_from_sparse(
+                self.conv3_down(x2, caps[1], bf16, use_band=False))
+            g3 = self.conv3_b.dense(self.conv3_a.dense(g3))
+            g4 = self.conv4_down.dense(g3)
+            g4 = self.conv4_b.dense(self.conv4_a.dense(g4))
+            gout = self.conv_out.dense(g4)
+            return {'x_conv1': x1, 'x_conv2': x2,
+                    'x_conv3': dense3d.grid_to_sparse(g3, caps[1]),
+                    'x_conv4': dense3d.grid_to_sparse(g4, caps[2]),
+                    'out': dense3d.grid_to_sparse(gout, caps[2])}
+        x3 = self.conv3_down(x2, caps[1], bf16, band)
         ctx3 = ctx(x3)
         x3 = self.conv3_b(self.conv3_a(x3, ctx3), ctx3)
-        x4 = self.conv4_down(x3, caps[2], bf16)
+        x4 = self.conv4_down(x3, caps[2], bf16, band)
         ctx4 = ctx(x4)
         x4 = self.conv4_b(self.conv4_a(x4, ctx4), ctx4)
-        out = self.conv_out(x4, caps[2], bf16)
+        out = self.conv_out(x4, caps[2], bf16, band)
         return {'x_conv1': x1, 'x_conv2': x2, 'x_conv3': x3, 'x_conv4': x4,
                 'out': out}
 
@@ -263,7 +348,7 @@ class VirConvL8x(nn.Module):
         mm = self.mm(st.replace(feats=feats), v2r, p2t, trans_params, bf16,
                      rng)
         return {'multi_scale_3d_features': mm,
-                'encoded_spconv_tensor': self.conv_out(mm['x_conv4'], None,
-                                                       bf16),
+                'encoded_spconv_tensor': self.conv_out(
+                    mm['x_conv4'], None, bf16, _routes(self.training)[0]),
                 'multi_scale_3d_strides': {'x_conv1': 1, 'x_conv2': 2,
                                            'x_conv3': 4, 'x_conv4': 8}}

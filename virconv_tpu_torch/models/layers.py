@@ -1,6 +1,8 @@
 """Masked sparse-row BatchNorm and the sparse and dense conv blocks, in
 eval mode (BN folded into the conv epilogue) and train mode (``.train()``:
-conv, batch-statistics BN, ReLU, nothing fused).
+conv, batch-statistics BN, ReLU, nothing fused). The dense image-plane and
+3D blocks of the JAX package's experimental paths are sparse blocks whose
+parameters also run dense (``dense``).
 
 Parameter names follow the flax module paths of ``virconv_tpu/models/
 layers.py`` (``kernel``, ``MaskedBatchNorm_0``, ``Conv_0``, ``BatchNorm_0``)
@@ -13,8 +15,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import dense3d
 from ..ops import sparse as sp
 from ..parallel import data_parallel as dp
 
@@ -76,6 +80,13 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(mask[:, None], y, torch.zeros_like(y))
 
 
+def _n_taps(kernel_size) -> int:
+    k = 1
+    for s in kernel_size:
+        k *= s
+    return k
+
+
 class SubMConvBlock(nn.Module):
     """Submanifold sparse conv + folded BN + ReLU; the conv context is built
     by the caller and shared by the layers of one key set."""
@@ -105,9 +116,9 @@ class SubMConvBlock(nn.Module):
 
 
 class SparseDownBlock(nn.Module):
-    """Strided sparse conv + BN + ReLU: the band kernel with the BN folded
-    in at eval, the neighbor-map conv with batch-statistics BN in train
-    mode."""
+    """Strided sparse conv + BN + ReLU: at eval the band kernel (or, with
+    ``use_band`` False, the neighbor-map conv) with the BN folded in, in
+    train mode the neighbor-map conv with batch-statistics BN."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size=(3, 3, 3), stride=(2, 2, 2), padding=(1, 1, 1)):
@@ -115,14 +126,12 @@ class SparseDownBlock(nn.Module):
         self.kernel_size = tuple(kernel_size)
         self.stride = tuple(stride)
         self.padding = tuple(padding)
-        k = 1
-        for s in self.kernel_size:
-            k *= s
-        self.kernel = nn.Parameter(torch.zeros(k, in_channels, out_channels))
+        self.kernel = nn.Parameter(torch.zeros(
+            _n_taps(self.kernel_size), in_channels, out_channels))
         self.MaskedBatchNorm_0 = MaskedBatchNorm(out_channels)
 
     def forward(self, st: sp.SparseTensor, out_capacity: int | None = None,
-                bf16: bool = True):
+                bf16: bool = True, use_band: bool = True):
         cap = out_capacity or st.capacity
         st_out = sp.downsample_coords(st, self.stride, self.padding,
                                       self.kernel_size, cap)
@@ -133,11 +142,76 @@ class SparseDownBlock(nn.Module):
                                            st_out.mask)
             return st_out.replace(feats=torch.relu(feats))
         conv = sp.strided_conv_ctx(st, st_out, self.stride, self.padding,
-                                   self.kernel_size, bf16=bf16)
+                                   self.kernel_size, bf16=bf16,
+                                   use_band=use_band)
         mult, bias = self.MaskedBatchNorm_0.fold()
         feats = conv(st.feats, self.kernel, scale=mult, bias=bias,
                          relu=True)
         return st_out.replace(feats=feats)
+
+
+class Dense2DSubMBlock(SubMConvBlock):
+    """A ``SubMConvBlock`` of the NRConv image plane (K=9) whose parameters
+    also run dense (``VIRCONV_DENSE2D``): ``dense(grid, occ)`` is a 3x3
+    conv over the (B, C, U, V) image grid, the folded BN, ReLU and the
+    occupancy re-mask, as the JAX package's ``Dense2DSubMBlock``. Eval
+    only there: its BN moments would count cells, not rows."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, n_taps=9)
+
+    def dense(self, grid, occ):
+        """grid (B, C, U, V) f32; occ (B, 1, U, V) f32 occupancy."""
+        if self.training:
+            raise ValueError('the dense 2D path is eval-only')
+        c_in, c_out = self.kernel.shape[1:]
+        # gathered tap order (du-major, dv-minor) is the spatial order of a
+        # centered 3x3 kernel
+        w = self.kernel.reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+        out = F.conv2d(grid, w, padding=1)
+        mult, bias = self.MaskedBatchNorm_0.fold()
+        out = out * mult[None, :, None, None] + bias[None, :, None, None]
+        return torch.relu(out) * occ
+
+
+class DenseSubM3DBlock(SubMConvBlock):
+    """A ``SubMConvBlock`` whose parameters also run on a ``DenseGrid``:
+    ``dense(grid)`` is a dense conv, masked BN over the grid's active
+    cells (batch statistics in train mode) and ReLU, as the JAX package's
+    ``DenseSubM3DBlock``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size=(3, 3, 3)):
+        super().__init__(in_channels, out_channels,
+                         n_taps=_n_taps(kernel_size))
+        self.kernel_size = tuple(kernel_size)
+
+    def dense(self, grid):
+        x = dense3d.dense_conv3d(grid.feats, self.kernel, self.kernel_size)
+        b, dd, hh, ww, c = x.shape
+        feats = self.MaskedBatchNorm_0(x.reshape(-1, c),
+                                       grid.mask.reshape(-1))
+        if self.use_relu:
+            feats = torch.relu(feats)
+        return grid.replace(feats=feats.reshape(b, dd, hh, ww, c))
+
+
+class DenseDown3DBlock(SparseDownBlock):
+    """A ``SparseDownBlock`` whose parameters also run on a ``DenseGrid``:
+    ``dense(grid)`` is a dense strided conv, the output sites a max-pool
+    of the input mask, masked BN and ReLU, as the JAX package's
+    ``DenseDown3DBlock``."""
+
+    def dense(self, grid):
+        x = dense3d.dense_conv3d(grid.feats, self.kernel, self.kernel_size,
+                                 stride=self.stride, padding=self.padding)
+        mask = dense3d.down_mask(grid.mask, self.kernel_size, self.stride,
+                                 self.padding)
+        b, dd, hh, ww, c = x.shape
+        feats = torch.relu(self.MaskedBatchNorm_0(x.reshape(-1, c),
+                                                  mask.reshape(-1)))
+        return dense3d.DenseGrid(feats=feats.reshape(b, dd, hh, ww, c),
+                                 mask=mask)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):

@@ -5,15 +5,19 @@ Two branches select the same voxels: the per-query probe path
 (``voxel_query_groups``: a packed-occupancy window probe, first ``nsample``
 in-radius hits in (dz, dy, dx) scan order) and the ROI-local pooling kernel
 (ops/roi_pool.py). At eval the kernel runs whenever its plan's capacity caps
-hold; at stride 8 (x_conv4) they normally do, at stride 4 (x_conv3) they
-normally do not and the probe path runs. Training always takes the probe
-path, with batch-statistics BN (the position BN from algebraic moments of
-the 3-wide relative positions) and plain autograd gathers.
+hold (``VIRCONV_POOL_KERNEL=0``: never); at stride 8 (x_conv4) they
+normally do, at stride 4 (x_conv3) they normally do not and the probe path
+runs. ``VIRCONV_POOL_TILE=1`` splits each ROI's query grid into four (x, y)
+quadrant segments below stride 8, with a plan cap of 3 blocks per segment.
+Training always takes the probe path, with batch-statistics BN (the
+position BN from algebraic moments of the 3-wide relative positions) and
+the pool gathers on ``gather_rows``.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,8 +40,48 @@ def pool_bf16_enabled() -> bool:
     pool call."""
     return sp.env_flag('VIRCONV_POOL_BF16', '1')
 
+
+def pool_kernel_enabled() -> bool:
+    """``VIRCONV_POOL_KERNEL`` (default on: the JAX package's TPU default,
+    on every device): eval grid pools on the ROI pooling kernel when its
+    plan's caps hold; ``0`` sends them to the probe path without a plan.
+    Read at each pool call."""
+    return sp.env_flag('VIRCONV_POOL_KERNEL', '1')
+
+
+def pool_tile_enabled(stride) -> bool:
+    """``VIRCONV_POOL_TILE`` (default off): the pooling kernel's query grid
+    split into (x, y) quadrant segments, below stride 8 only."""
+    return sp.env_flag('VIRCONV_POOL_TILE', '0') and stride < 8
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_layout(g: int):
+    """Static (x, y)-quadrant split of the g^3 ROI query grid, whose query
+    r = a g^2 + b g + c has local (x, y, z) index (a, b, c): ``gather``
+    (4 qp,) tiled row -> original row (pads -> 0), ``tval`` (4 qp,) real
+    query, ``inv`` (g^3,) original row -> tiled row, and ``qp``, the
+    queries per tile padded to a multiple of 8 (numpy; the JAX package's
+    ``voxel_pool._tile_layout``)."""
+    idx = np.arange(g ** 3)
+    a = idx // (g * g)
+    b = (idx // g) % g
+    half = (g + 1) // 2
+    t = (a >= half).astype(np.int64) * 2 + (b >= half)
+    qp = -(-(half * half * g) // 8) * 8
+    gather = np.zeros((4, qp), np.int64)
+    tval = np.zeros((4, qp), bool)
+    inv = np.zeros((g ** 3,), np.int64)
+    for ti in range(4):
+        rows = idx[t == ti]
+        gather[ti, :len(rows)] = rows
+        tval[ti, :len(rows)] = True
+        inv[rows] = ti * qp + np.arange(len(rows))
+    return gather.reshape(-1), tval.reshape(-1), inv, qp
+
+
 # Which branch each SA call took, keyed 'kernel'/'probe' and by
-# 'branch stride q_per_roi'; read by chip_smoke.py.
+# 'branch[ tiled] stride s q q_per_roi'; read by chip_smoke.py.
 branch_counts = collections.Counter()
 
 
@@ -238,7 +282,9 @@ class NeighborVoxelSAModule(nn.Module):
                 bf16: bool = True):
         """Pooled (M, sum of out widths) features of M queries.
         ``table_fn`` returns the PoolTables of ``st`` (built on demand for
-        the probe path); ``q_per_roi`` enables the ROI pooling kernel;
+        the probe path); ``q_per_roi`` enables the ROI pooling kernel
+        (with ``pool_kernel_enabled()``, quadrant-tiled below stride 8
+        with ``pool_tile_enabled``);
         ``bf16``: bf16 feature operands in the kernel when
         ``pool_bf16_enabled()``. ``st.feats`` may be bf16 (the eval convs'
         bf16 rows): ``mlp_in`` promotes them to f32, as flax's Dense
@@ -258,12 +304,32 @@ class NeighborVoxelSAModule(nn.Module):
             w_eff.append(getattr(self, f'mlp_pos{g}').kernel * mult[None])
             b_eff.append(bias)
 
-        plan = None
-        if q_per_roi is not None and len({m[0] for m in self.mlps}) == 1:
-            plan = rp.roi_pool_plan(st, query_xyz, query_coords, query_mask,
-                                    q_per_roi, self.query_ranges[-1],
-                                    self.voxel_size, stride,
-                                    self.point_cloud_range)
+        plan, tiled = None, False
+        qx, qc, qm = query_xyz, query_coords, query_mask
+        if (q_per_roi is not None and pool_kernel_enabled()
+                and len({m[0] for m in self.mlps}) == 1):
+            # quadrant tiling: both branches run on the tiled query layout,
+            # whose per-query results are the untiled ones (the same
+            # candidates of each query's window, in the same key order)
+            g_grid = round(q_per_roi ** (1.0 / 3.0))
+            tiled = (g_grid ** 3 == q_per_roi and g_grid >= 2
+                     and pool_tile_enabled(stride))
+            qpr, nblk_cap = q_per_roi, None
+            if tiled:
+                gather, tval, inv, qpr = _tile_layout(g_grid)
+                gather, tval, inv = (torch.as_tensor(v, device=qx.device)
+                                     for v in (gather, tval, inv))
+                r0 = qx.shape[0] // q_per_roi
+                qx = qx.reshape(r0, q_per_roi, 3)[:, gather].reshape(-1, 3)
+                qc = qc.reshape(r0, q_per_roi, 4)[:, gather].reshape(-1, 4)
+                qm = (qm.reshape(r0, q_per_roi)[:, gather]
+                      & tval[None]).reshape(-1)
+                # 3 candidate blocks per tile segment, and slack
+                nblk_cap = 3 * (r0 * 4) + 32
+            plan = rp.roi_pool_plan(st, qx, qc, qm, qpr,
+                                    self.query_ranges[-1], self.voxel_size,
+                                    stride, self.point_cloud_range,
+                                    nblk_cap=nblk_cap)
         if plan is not None and bool(plan.ok):
             branch = 'kernel'
             pooled = rp.roi_pool_apply(plan, feats_g, w_eff, b_eff, specs,
@@ -272,10 +338,14 @@ class NeighborVoxelSAModule(nn.Module):
                                        bf16=bf16 and pool_bf16_enabled())
         else:
             branch = 'probe'
-            pooled = self._probe_pool(st, stride, query_xyz, query_coords,
-                                      query_mask, table_fn, specs, feats_g)
+            pooled = self._probe_pool(st, stride, qx, qc, qm, table_fn,
+                                      specs, feats_g)
+        if tiled:
+            pooled = pooled.reshape(n_g, r0, 4 * qpr, -1)[:, :, inv]
+            pooled = pooled.reshape(n_g, r0 * q_per_roi, -1)
         branch_counts[branch] += 1
-        branch_counts[f'{branch} stride {stride} q {q_per_roi}'] += 1
+        branch_counts[f'{branch}{" tiled" if tiled else ""} stride {stride} '
+                      f'q {q_per_roi}'] += 1
         outs = []
         for g in range(n_g):
             x = getattr(self, f'mlp_out{g}')(pooled[g])

@@ -1,7 +1,8 @@
 """Sparse voxel tensor substrate (PyTorch counterpart of
-``virconv_tpu/ops/sparse.py``): eval conv contexts and the training ones
-(band conv with a K1 + K4 backward, neighbor-map convs with a gather-only
-backward).
+``virconv_tpu/ops/sparse.py``): eval conv contexts (the band conv, or the
+neighbor-map conv with ``use_band=False``) and the training ones (band
+conv with a K1 + K4 backward, neighbor-map convs with a gather-only
+backward), and the readers of the JAX package's switches that pick them.
 
 A sparse tensor is a fixed-capacity triple:
 
@@ -35,8 +36,10 @@ INVALID_KEY = 2 ** 31 - 1
 CAP_LOG = None
 ROW_VALID_BIT = 30           # bit of valid_bits marking "output row valid"
 
-# Which branch each band-mode conv took, counted per conv call; read by
-# chip_smoke.py (a slow branch on the main path is a performance fault).
+# Which branch each conv took, counted per conv call ('band', 'nmap_slow',
+# 'band_train', 'band_train_nmap', and 'nmap' for an eval context on the
+# neighbor map); read by chip_smoke.py (a slow branch on the main path is a
+# performance fault).
 branch_counts = collections.Counter()
 
 
@@ -44,6 +47,38 @@ def env_flag(name: str, default: str) -> bool:
     """A switch of the JAX package's environment: off for '0', 'false' or
     'False', on for any other value; ``default`` when unset."""
     return os.environ.get(name, default) not in ('0', 'false', 'False')
+
+
+def band_enabled() -> bool:
+    """``VIRCONV_BAND`` (default on): the eval sparse convs run on the band
+    kernel (K1); ``0`` puts every eval conv on the neighbor map
+    (``nmap_conv``) and takes training's 3D convs off the band path too.
+    The JAX package turns it on only on a TPU; the card is the port's
+    accelerator, so the port's default is on, on every device. Read while
+    a forward builds its conv contexts."""
+    return env_flag('VIRCONV_BAND', '1')
+
+
+def band_train_enabled() -> bool:
+    """``VIRCONV_BAND_TRAIN`` (default on, on every device, as
+    ``band_enabled``): training 3D submanifold convs run the differentiable
+    band conv (K1 + K4) when ``band_enabled()`` too; ``0`` puts them on
+    the neighbor-map conv with its gather-only backward."""
+    return env_flag('VIRCONV_BAND_TRAIN', '1')
+
+
+def band2d_enabled() -> bool:
+    """``VIRCONV_BAND2D`` (default on): the NRConv image-plane 2D eval convs
+    sort, run K1 with first-wins sources and un-sort; ``0`` runs them on
+    the neighbor map of the unsorted tensor."""
+    return env_flag('VIRCONV_BAND2D', '1')
+
+
+def dense2d_enabled() -> bool:
+    """``VIRCONV_DENSE2D`` (default off): the NRConv image-plane 2D eval
+    convs run as two dense 3x3 convs over the image grid; it takes
+    precedence over ``band2d_enabled``."""
+    return env_flag('VIRCONV_DENSE2D', '0')
 
 
 def band_train_bf16_enabled() -> bool:
@@ -691,18 +726,38 @@ def _subm_conv_train_ctx(st, kernel_size, tile, block, bf16):
     return conv
 
 
+def _nmap_ctx(nmap, out_mask):
+    """Eval conv function of a context on the neighbor map ``nmap``: the
+    exact conv (``nmap_conv``) on f32 operands, then the epilogue on f32
+    rows, as the JAX package's 'nmap' context (which has no bf16 mode)."""
+    def conv(feats, weights, scale=None, bias=None, relu=False):
+        from .nmap_conv import nmap_conv
+        branch_counts['nmap'] += 1
+        out = nmap_conv(feats, nmap, weights)
+        return _epilogue(out * out_mask[:, None].to(out.dtype), out_mask,
+                         scale, bias, relu)
+    return conv
+
+
 def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
                   block: int = 256, first_wins_sources: bool = False,
-                  bf16: bool = True, train: bool = False):
+                  bf16: bool = True, train: bool = False,
+                  use_band: bool = True):
     """Conv function of a submanifold conv on ``st`` (sorted by key): eval
     (see ``_band_ctx``), or with ``train`` the differentiable band conv
     ``conv(feats, weights)`` with f32 rows (``_subm_conv_train_ctx``).
+    With ``use_band`` False, the neighbor-map conv on ``st`` in any row
+    order: at eval ``_nmap_ctx``, in training ``nmap_subm_conv_ctx``.
 
-    ``first_wins_sources`` (eval only): for key sets with duplicates (the
-    NRConv 2D image-plane tensor) all but the first row of each key are
-    zeroed as sources, so the kernel's lower-bound search and the patch
-    agree on one representative per key."""
+    ``first_wins_sources`` (eval band only): for key sets with duplicates
+    (the NRConv 2D image-plane tensor) all but the first row of each key
+    are zeroed as sources, so the kernel's lower-bound search and the
+    patch agree on one representative per key."""
     kernel_size = _triple(kernel_size, st.ndim)
+    if not use_band:
+        if train:
+            return nmap_subm_conv_ctx(st, kernel_size)
+        return _nmap_ctx(build_subm_neighbor_map(st, kernel_size), st.mask)
     if train:
         if first_wins_sources:
             raise ValueError('the band training conv takes no duplicate-key '
@@ -724,10 +779,15 @@ def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
 
 
 def strided_conv_ctx(st_in, st_out, stride, padding, kernel_size,
-                     tile: int = 128, block: int = 512, bf16: bool = True):
+                     tile: int = 128, block: int = 512, bf16: bool = True,
+                     use_band: bool = True):
     """Eval conv function (see ``_band_ctx``) of a strided conv
-    st_in -> st_out (both sorted)."""
+    st_in -> st_out (both sorted); with ``use_band`` False, on the
+    neighbor map (``_nmap_ctx``)."""
     kernel_size = _triple(kernel_size, st_in.ndim)
+    if not use_band:
+        return _nmap_ctx(build_strided_neighbor_map(
+            st_in, st_out, stride, padding, kernel_size), st_out.mask)
     plan, keys = strided_band_plan(st_in, st_out, stride, padding,
                                    kernel_size, tile, block)
     return _band_ctx(
