@@ -38,18 +38,32 @@ Phases (each prints one line; any failure exits non-zero):
      for identical bits, its first two calls also against the CPU's
      sequential ``index_add_`` bit for bit, its CSR against the stable
      sort's; its CSR build, sums and hot-row tail timed apart and printed
-     per step);
+     per step); and every neighbor-map training call (the strided and
+     NRConv 2D convs): ``nmap_conv`` forward and input gradient against
+     their plain versions and bit for bit against ``nmap_conv``'s previous
+     body, ``nmap_conv_dw`` for each conv's weight gradient and each band
+     conv's gather-patch term against its plain version and run twice for
+     identical bits, kernel and plain times, bounds and sums per step;
   6. the main training path: 3 full-width steps with every launch count
      set to 0 just before and read just after: finite losses, no skipped
      step, K1, K4 and the gather's backward launched, no band training
-     conv on the neighbor-map branch; ms per step, peak memory and each
-     step's loss terms; (6b) one step's forward and backward twice from
-     one trainer with the same draws: every parameter's gradient the same
-     bits (the modules that differ are printed, with the ops PyTorch's
-     deterministic mode flags);
+     conv on the neighbor-map branch, every counter (K1, K4, ``nmap_conv``,
+     ``nmap_conv_dw``, ``branch_counts['nmap_train']``) at phase 5's step's
+     calls per step, 15 neighbor-map convs per step; ms per step, peak
+     memory and each step's loss terms; (6b) one step's forward and
+     backward twice from one trainer with the same draws: every
+     parameter's gradient the same bits (the modules that differ are
+     printed, with the ops PyTorch's deterministic mode flags);
   7. one training step of the tiny configuration on CUDA and on the CPU
      with the same weights and the same random draws (drawn once on the
-     CPU), TF32 off: loss and every gradient compared;
+     CPU), TF32 off (``tiny_train_parity``): every loss within rtol 1e-4;
+     every gradient within 1e-3 x its scale with the ReLU kinks the two
+     devices' round-off put on opposite sides, and the box-geometry
+     outputs (RPN maps, regression heads), snapped to the CPU's values,
+     gradients passed through (the moves gated at 1e-4 x scale, the
+     kinks crossed and the unsnapped step's worst gradients printed);
+     and within 1e-3 x scale with the box-regression outputs zeroed on
+     both devices (``zero_box_outputs``);
   8. the windowed gather convs K5 (``fused_gather_conv``, f32, tile 512)
      and K6 (``onehot_gather_conv``, tile 256, block 2048, bf16 and f32
      operands), and ``nmap_conv`` (the neighbor-map branch's exact conv),
@@ -60,8 +74,10 @@ Phases (each prints one line; any failure exits non-zero):
      launched); then per conv: kernel vs plain (identical misses), and on
      the rows of tiles with no misses whose K1 tile fits, K1's raw output
      with the same operand type (f32: K5, K6 and ``nmap_conv`` bit for bit;
-     bf16: within 1e-4, bit equality reported), kernel, plain and K1
-     times, the bound; sums per request and misses per layer;
+     bf16: within 1e-4, bit equality reported), ``nmap_conv`` bit for bit
+     against its previous body (``nmap_conv_prev``), kernel, previous-body,
+     plain and K1 times, the (fragment, tap) rows each body multiplies per
+     hit, the bound; sums per request and misses per layer;
   9. the evaluation path: (a) a ``scene`` KITTI tree of EVAL_FRAMES=4
      KITTI-scale val frames, its infos and a seeded full-width VirConv-T
      checkpoint, evaluated by ``eval_one_ckpt`` on CUDA in batches of
@@ -102,12 +118,13 @@ Phases (each prints one line; any failure exits non-zero):
      to 0 just before and read just after, gated as phase 3: ms and
      launches per request, the pools by route; (c) 3 training steps
      (finite losses, no skip, K1
-     forward, K1 input gradient and K4 launched; ms per step, peak
+     forward, K1 input gradient and K4 launched, the counters at 11a's
+     step's calls, 12 neighbor-map convs per step; ms per step, peak
      memory), then (fault C4's gate, VirConv-T on phase 6's batch first)
      two fresh trainers from one seed take 3 steps each: every loss term,
      parameter and BN statistic the same bits after every step; (d) the
      tiny-L config CUDA vs CPU: evaluation as phase 4, one training step
-     as phase 7; (e)
+     as phase 7 with the unsnapped step's gradients gated too; (e)
      ``eval_one_ckpt`` of a seeded VirConv-L checkpoint on phase 9's scene
      tree through the single-stream loader, gated as phase 9a; (f)
      ``tools/train_gpu.py --cfg virconv_s`` for one epoch of 2 steps on a
@@ -168,7 +185,8 @@ Phases (each prints one line; any failure exits non-zero):
      against the default route's (every stream's coords and masks equal,
      features within 1e-4 x scale, ROI valid sets equal and boxes within
      1e-3, or matched ROI by ROI), every ``nmap_conv`` call and every
-     tiled K2+K3 call against its plain version, each tiled call un-tiled
+     tiled K2+K3 call against its plain version (``nmap_conv`` also bit for
+     bit against its previous body), each tiled call un-tiled
      bit for bit against the untiled call, then 2 requests with every
      launch and branch count set to 0 just before and read just after: ms
      per request, launches, branch counts, peak memory; the dense LiDAR
@@ -190,13 +208,17 @@ request and per step under ``virconv_l``) with phase 9's numbers under
 and ``virconv_s``, phase 12's under ``virtual_points``, phase 13's under
 ``precision``, phase 14's under ``data_parallel`` and phase 15's under
 ``routing`` (its kernel rows ``nmap_conv_fwd_eval`` and
-``roi_pool_fwd_tiled`` per T request), the card's
+``roi_pool_fwd_tiled`` per T request), the training neighbor-map conv's
+rows ``nmap_conv_fwd_train`` and ``nmap_conv_dw`` per T step (phase 5's
+calls, phase 6's launches; VirConv-L's per step under ``virconv_l``), the
+card's
 name and power limit, and the device JSON as the last line; phase 3's
 launches per request under ``serve``. Each phase
 prints its seconds. It needs the repository around it: alone, or without
 a CUDA device, it exits non-zero and prints no result.
 """
 
+import collections
 import json
 import math
 import os
@@ -325,22 +347,32 @@ class Capture:
 
 class TrainCapture:
     """Records the inputs of every K1 (with its gather patch) and K4 call of
-    one training step (the calls still launch the kernels). K1 calls made
-    while the model's forward runs are the convs; those after it, in the
-    backward, are the input-gradient passes."""
+    one training step, and of every neighbor-map training call
+    (``nmap_conv``, ``nmap_conv_dw``); the calls still launch the kernels.
+    K1 and ``nmap_conv`` calls made while the model's forward runs are the
+    convs; those after it, in the backward, are the input-gradient passes.
+    An ``nmap_conv_dw`` call made while ``sparse._BandTrain.backward`` runs
+    is a band conv's gather-patch term, any other a neighbor-map conv's
+    dW."""
 
     def __init__(self, model):
-        from virconv_tpu_torch.ops import band_conv
+        from virconv_tpu_torch.ops import band_conv, nmap_conv, sparse
         self.fwd, self.dgrad, self.dw = [], [], []
+        self.nmap_fwd, self.nmap_dgrad, self.nmap_dw = [], [], []
+        self.patch_dw = []
         self.bf16 = []      # each K1 and K4 call's operand flag
-        self._bc, self._model = band_conv, model
+        self._bc, self._nc, self._model = band_conv, nmap_conv, model
+        self._band_train = sparse._BandTrain
         self._orig = (band_conv._band_conv_cuda,
-                      band_conv._band_conv_dw_cuda)
-        self._in_forward = False
+                      band_conv._band_conv_dw_cuda,
+                      nmap_conv._nmap_conv_cuda,
+                      nmap_conv._nmap_conv_dw_cuda,
+                      sparse._BandTrain.backward)
+        self._in_forward = self._in_band_backward = False
 
     def __enter__(self):
         import torch
-        orig_k1, orig_k4 = self._orig
+        orig_k1, orig_k4, orig_nm, orig_nm_dw, orig_band_bwd = self._orig
         forward = self._model.forward
 
         def model_forward(*a, **k):
@@ -363,12 +395,34 @@ class TrainCapture:
             self.dw.append((feats, keys, plan, g, valid_bits))
             self.bf16.append(bf16)
             return orig_k4(feats, keys, plan, g, valid_bits, bf16)
+
+        def nm(feats, nmap, weights):
+            calls = self.nmap_fwd if self._in_forward else self.nmap_dgrad
+            calls.append((feats, nmap, weights))
+            return orig_nm(feats, nmap, weights)
+
+        def nm_dw(feats, nmap, g):
+            (self.patch_dw if self._in_band_backward else self.nmap_dw) \
+                .append((feats, nmap, g))
+            return orig_nm_dw(feats, nmap, g)
+
+        def band_backward(ctx, g):
+            self._in_band_backward = True
+            try:
+                return orig_band_bwd(ctx, g)
+            finally:
+                self._in_band_backward = False
         self._model.forward = model_forward
         self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = k1, k4
+        self._nc._nmap_conv_cuda, self._nc._nmap_conv_dw_cuda = nm, nm_dw
+        self._band_train.backward = staticmethod(band_backward)
         return self
 
     def __exit__(self, *exc):
-        self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda = self._orig
+        (self._bc._band_conv_cuda, self._bc._band_conv_dw_cuda,
+         self._nc._nmap_conv_cuda, self._nc._nmap_conv_dw_cuda,
+         band_bwd) = self._orig
+        self._band_train.backward = staticmethod(band_bwd)
         del self._model.forward
         return False
 
@@ -930,6 +984,14 @@ def check_gather_case(lay, k5, k6, k6f, knm):
     missnm = check_windowed(lnm, 'f32', (knm, none),
                             (nc.nmap_conv_plain(src, nmap, w), none),
                             k1[False], fits, n, exact=True)
+    # the redesigned nmap_conv against its previous body, bit for bit
+    if not bits_equal(knm, nc.nmap_conv_prev(src, nmap, w)):
+        fail(f'{lay["case"]} nmap_conv: the redesigned body differs from '
+             'the previous one')
+    lnm['bit_equal_prev'] = True
+    if lnm['mode'] == 'tile':
+        lnm['prev_rows_per_hit'], lnm['rows_per_hit'] = \
+            fragment_products(nmap)
     l5['ms'] = cuda_ms(lambda: gc.fused_gather_conv(src5, nmap5, w))
     l5['plain_ms'] = cuda_ms(lambda: gc.fused_gather_conv_plain(
         src5, nmap5, w), reps=3, warmup=1)
@@ -945,6 +1007,7 @@ def check_gather_case(lay, k5, k6, k6f, knm):
     l6f['plain_ms'] = cuda_ms(lambda: oc.onehot_gather_conv_plain(
         src, nmap, w, bf16=False), reps=3, warmup=1)
     lnm['ms'] = cuda_ms(lambda: nc.nmap_conv(src, nmap, w))
+    lnm['prev_ms'] = cuda_ms(lambda: nc.nmap_conv_prev(src, nmap, w))
     lnm['plain_ms'] = cuda_ms(lambda: nc.nmap_conv_plain(src, nmap, w),
                               reps=3, warmup=1)
     lnm['k1_ms'] = l5['k1_ms']
@@ -1026,7 +1089,8 @@ def gather_conv_phase(det, frames):
     equal = sum(c['k1_bit_equal_bf16'] for c in cases['onehot_conv_fwd'])
     print(f'[phase 8] on zero-miss fitting rows K5, K6 f32 and nmap_conv '
           f'equal K1 f32 bit for bit on all 24 convs; K6 bf16 equals K1 '
-          f'bf16 bit for bit on {equal} of 24', flush=True)
+          f'bf16 bit for bit on {equal} of 24; nmap_conv equals its '
+          f'previous body bit for bit on all 24', flush=True)
     return counts, by_mode, cases
 
 
@@ -1046,8 +1110,8 @@ def summed(lines, unit='request'):
     training step); the bound is that of all the calls' work together."""
     t_bytes = sum(c['t_bytes_ms'] for c in lines)
     t_ops = sum(c['t_ops_ms'] for c in lines)
-    device = ({'device_ms': sum(c['device_ms'] for c in lines)}
-              if lines and all('device_ms' in c for c in lines) else {})
+    device = {k: sum(c[k] for c in lines) for k in ('device_ms', 'prev_ms')
+              if lines and all(k in c for c in lines)}
     return {f'launches_per_{unit}': len(lines), **device,
             'max_abs_err': max((v for c in lines for k, v in c.items()
                                 if k.startswith('max_abs_err')),
@@ -1091,9 +1155,10 @@ def short(line):
             'selected', 'misses', 'max_abs_err_f32', 'max_abs_err_bf16',
             'k1_err_f32', 'k1_err_bf16', 'k1_bit_equal_f32',
             'k1_bit_equal_bf16', 'bitwise_repeatable', 'bit_equal',
+            'bit_equal_prev', 'prev_rows_per_hit', 'rows_per_hit',
             'equal_to_cpu_index_add', 'max_rows_per_source', 'long_rows',
             'csr_equal', 'patch_rows', 'ms', 'device_ms', 'fused_ms',
-            'old_ms', 'csr_ms',
+            'old_ms', 'prev_ms', 'csr_ms',
             'sum_ms', 'sum_warp_rows_ms', 'csr_sort_ms', 'plain_ms',
             'library_ms', 'k1_ms', 'bound_ms', 'bound_by')
     return json.dumps({k: line[k] for k in keep if k in line})
@@ -1279,15 +1344,23 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
         trainer.step(batch)
     torch.cuda.synchronize()
     n_patched = sum(a[7] is not None for a in cap.fwd + cap.dgrad)
+    taps = collections.Counter(a[2].shape[0] for a in cap.nmap_fwd)
     print(f'[{tag}] one training step: {len(cap.fwd)} K1 forward, '
           f'{len(cap.dgrad)} K1 input-gradient ({n_patched} with a gather '
           f'patch), {len(cap.dw)} K4, {len(rows.fwd)} + '
-          f'{len(rows.bwd)} gather_rows calls', flush=True)
-    if not (cap.fwd and cap.dgrad and cap.dw and rows.fwd and rows.bwd):
+          f'{len(rows.bwd)} gather_rows calls; neighbor-map convs: '
+          f'{len(cap.nmap_fwd)} nmap_conv forward (taps: '
+          f'{dict(sorted(taps.items()))}), {len(cap.nmap_dgrad)} nmap_conv '
+          f'input-gradient, {len(cap.nmap_dw)} nmap_conv_dw, '
+          f'{len(cap.patch_dw)} nmap_conv_dw gather-patch terms', flush=True)
+    if not (cap.fwd and cap.dgrad and cap.dw and rows.fwd and rows.bwd
+            and cap.nmap_fwd and cap.nmap_dgrad and cap.nmap_dw):
         fail('the training step missed a kernel use')
     cases = {'band_conv_fwd_train': [], 'band_conv_fwd_train_dgrad': [],
              'band_conv_dw': [], 'band_conv_patch_train': [],
-             'gather_rows_fwd': [], 'gather_rows_bwd': []}
+             'gather_rows_fwd': [], 'gather_rows_bwd': [],
+             'nmap_conv_fwd_train': [], 'nmap_conv_fwd_train_dgrad': [],
+             'nmap_conv_dw': [], 'nmap_conv_dw_patch': []}
     with torch.no_grad():
         for key, calls in (('band_conv_fwd_train', cap.fwd),
                            ('band_conv_fwd_train_dgrad', cap.dgrad)):
@@ -1315,7 +1388,71 @@ def train_kernel_calls(trainer, batch, tag='phase 5'):
                 cases[key].append(line)
                 print(f'[{tag}] {key} {short(line)}', flush=True)
         del rows
+        # the neighbor-map training convs: forward and input gradient on
+        # nmap_conv (also against its previous body), the weight gradients
+        # and the band convs' gather-patch terms on nmap_conv_dw
+        for key, calls in (('nmap_conv_fwd_train', cap.nmap_fwd),
+                           ('nmap_conv_fwd_train_dgrad', cap.nmap_dgrad)):
+            for i, a in enumerate(calls):
+                line = check_nmap_case(f'{i:02d} k{a[2].shape[0]}', a, tag)
+                cases[key].append(line)
+                print(f'[{tag}] {key} {short(line)}', flush=True)
+        for key, calls in (('nmap_conv_dw', cap.nmap_dw),
+                           ('nmap_conv_dw_patch', cap.patch_dw)):
+            for i, a in enumerate(calls):
+                line = check_nmap_dw_case(f'{i:02d} k{a[1].shape[1]}', a)
+                cases[key].append(line)
+                print(f'[{tag}] {key} {short(line)}', flush=True)
+        del cap
     return cases
+
+
+def per_step_launches(cases):
+    """The launches of one training step by counter that do not depend on
+    its voxels, from the calls phase 5 (or 11a) captured: K1 (forward and
+    input gradient), K4, ``nmap_conv`` (forward and input gradient), and
+    the neighbor-map convs (``branch_counts['nmap_train']``)."""
+    n = {k: len(v) for k, v in cases.items()}
+    return {'band_conv_fwd': n['band_conv_fwd_train']
+            + n['band_conv_fwd_train_dgrad'],
+            'band_conv_dw': n['band_conv_dw'],
+            'nmap_conv_fwd': n['nmap_conv_fwd_train']
+            + n['nmap_conv_fwd_train_dgrad'],
+            'nmap_train': n['nmap_conv_fwd_train']}
+
+
+def check_nmap_dw_case(name, args):
+    """One ``nmap_conv_dw`` call of the training step: kernel vs plain
+    (1e-4 x max(1, scale)), two kernel runs with identical bits, kernel and
+    plain times, and the bound: feats, map and g read once, dW written
+    once, 2 C C' operations per (row, tap) hit at the f32 peak."""
+    from virconv_tpu_torch.ops import band_conv as bc
+    from virconv_tpu_torch.ops import nmap_conv as nc
+    feats, nmap, g = args
+    (n_out, k), c_in, c_out = nmap.shape, feats.shape[1], g.shape[1]
+    got = nc.nmap_conv_dw(feats, nmap, g)
+    if not bits_equal(got, nc.nmap_conv_dw(feats, nmap, g)):
+        fail(f'nmap_conv_dw {name}: two runs differ')
+    want = nc.nmap_conv_dw_plain(feats, nmap, g)
+    err = float((got - want).abs().max())
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    if not err <= tol:
+        fail(f'nmap_conv_dw {name}: max err {err} > {tol}')
+    chunk = nc.dw_chunk_rows(n_out, k, c_out)
+    hits = int((nmap >= 0).sum())
+    line = {'case': name, 'rows_in': feats.shape[0], 'rows_out': n_out,
+            'c_in': c_in, 'c_out': c_out, 'taps': k,
+            'layout': f'{-(-n_out // chunk)} chunks of {chunk} rows x {k} '
+                      f'taps x {-(-c_out // bc.DW_MAX_SLAB)} slab(s)',
+            'max_abs_err_f32': err, 'bitwise_repeatable': True,
+            'ms': cuda_ms(lambda: nc.nmap_conv_dw(feats, nmap, g)),
+            'plain_ms': cuda_ms(lambda: nc.nmap_conv_dw_plain(feats, nmap, g),
+                                reps=3, warmup=1),
+            'taps_hit': hits,
+            'bytes': nbytes(feats, nmap, g) + k * c_in * c_out * 4,
+            'ops': 2.0 * hits * c_in * c_out}
+    bound(line, F32_FLOPS)
+    return line
 
 
 def rows_bwd_split(lines, tag='phase 5'):
@@ -1331,52 +1468,89 @@ def rows_bwd_split(lines, tag='phase 5'):
     return split
 
 
-def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T'):
+def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T',
+                per_step=None, nmap_convs=None):
     """Phase 6 (and 11c), the main training path: ``n_steps`` steps with
     every launch count set to 0 just before and read just after; no band
     training conv may take its neighbor-map branch. Each step's loss
-    terms are printed."""
+    terms are printed. ``per_step`` (``per_step_launches`` of the step
+    phase 5 captured): each counter must show that many launches per step
+    (K1 and K4 as before; ``nmap_conv`` once per neighbor-map conv and once
+    per its input gradient, ``nmap_conv_dw`` once per neighbor-map conv and
+    once per gather-patch term, ``branch_counts['nmap_train']`` once per
+    neighbor-map conv); ``nmap_convs``: the neighbor-map convs a step of
+    ``model`` has by its code."""
     import torch
-    from virconv_tpu_torch.ops import band_conv, gather_rows, sparse
+    from virconv_tpu_torch.ops import band_conv, gather_rows, nmap_conv, sparse
     band_conv.launches = band_conv.dw_launches = 0
     band_conv.patch_launches = 0
     gather_rows.launches = gather_rows.bwd_launches = 0
+    nmap_conv.launches = nmap_conv.dw_launches = 0
     sparse.branch_counts.clear()
     torch.cuda.reset_peak_memory_stats()
     times, losses, terms = [], [], []
-    for _ in range(n_steps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loss, tb = trainer.step(batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        losses.append(float(loss))
-        terms.append({k: float(v) for k, v in tb.items()})
-        print(f'[{tag}] step {len(losses)} loss {losses[-1]!r}, terms '
-              f'{json.dumps(terms[-1])}', flush=True)
-        bad = [k for k, v in tb.items() if not np.isfinite(float(v))]
-        if not np.isfinite(losses[-1]) or bad:
-            fail(f'non-finite training loss {losses[-1]} / terms {bad}')
-        if tb['nonfinite_skips'] != 0:
-            fail(f'{tb["nonfinite_skips"]} skipped steps')
+    counter = StepCounts(trainer).__enter__()
+    try:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, tb = trainer.step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            terms.append({k: float(v) for k, v in tb.items()})
+            print(f'[{tag}] step {len(losses)} loss {losses[-1]!r}, terms '
+                  f'{json.dumps(terms[-1])}', flush=True)
+            bad = [k for k, v in tb.items() if not np.isfinite(float(v))]
+            if not np.isfinite(losses[-1]) or bad:
+                fail(f'non-finite training loss {losses[-1]} / terms {bad}')
+            if tb['nonfinite_skips'] != 0:
+                fail(f'{tb["nonfinite_skips"]} skipped steps')
+    finally:
+        kinds = counter.take()
+        counter.__exit__()
     counts = {'band_conv_fwd': band_conv.launches,
               'band_conv_dw': band_conv.dw_launches,
               'band_conv_patch': band_conv.patch_launches,
               'gather_rows': gather_rows.launches + gather_rows.bwd_launches,
-              'gather_rows_bwd': gather_rows.bwd_launches}
+              'gather_rows_bwd': gather_rows.bwd_launches,
+              'nmap_conv_fwd': nmap_conv.launches,
+              'nmap_conv_dw': nmap_conv.dw_launches}
     branches = dict(sparse.branch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'[{tag}] {model} training, {n_steps} steps of '
           f'{batch["points"].shape[0]} entries: ms/step {times}, loss '
           f'{losses}, peak memory {peak_gib:.2f} GiB, launches {counts}, '
           f'conv branches {branches}', flush=True)
-    for k in ('band_conv_fwd', 'band_conv_dw', 'gather_rows_bwd'):
+    for k in ('band_conv_fwd', 'band_conv_dw', 'gather_rows_bwd',
+              'nmap_conv_fwd', 'nmap_conv_dw'):
         if counts[k] == 0:
             fail(f'{k} was never launched on the training path')
     if not branches.get('band_train') or branches.get('band_train_nmap', 0):
         fail(f'a band training conv left the band kernels: {branches}')
+    if per_step is not None:
+        # the gather-patch terms depend on each step's voxels (patched band
+        # convs, one nmap_conv_dw each): nmap_conv_dw launches once per
+        # neighbor-map conv and once per K1 forward call with a patch
+        got = {k: (branches if k == 'nmap_train' else counts).get(k, 0)
+               / n_steps for k in per_step}
+        dw_want = per_step['nmap_train'] * n_steps + kinds['k1_forward_patch']
+        print(f'[{tag}] {model} launches per step {json.dumps(got)} (the '
+              f'captured step: {json.dumps(per_step)}; neighbor-map convs '
+              f'by the code: {nmap_convs}); nmap_conv_dw '
+              f'{counts["nmap_conv_dw"]} over {n_steps} steps: '
+              f'{per_step["nmap_train"]} per step and one per K1 forward '
+              f'call with a patch ({kinds["k1_forward_patch"]})', flush=True)
+        if got != per_step or counts['nmap_conv_dw'] != dw_want:
+            fail(f'{model}: launches per step {got}, nmap_conv_dw '
+                 f'{counts["nmap_conv_dw"]}; want {per_step}, {dw_want}')
+        if nmap_convs is not None and per_step['nmap_train'] != nmap_convs:
+            fail(f'{model}: {per_step["nmap_train"]} neighbor-map convs per '
+                 f'step, {nmap_convs} by the code')
     return counts, {'ms_per_step': times, 'loss': losses, 'terms': terms,
-                    'peak_memory_gib': peak_gib, 'conv_branches': branches}
+                    'peak_memory_gib': peak_gib, 'conv_branches': branches,
+                    'launches_per_step': per_step,
+                    'launches_by_kind': kinds}
 
 
 def backward_twice(cfg, batch, tag='phase 6b'):
@@ -1433,10 +1607,31 @@ def backward_twice(cfg, batch, tag='phase 6b'):
             'ops_flagged_by_deterministic_mode': flagged}
 
 
-def train_step_parity(cfg, batch, devices=('cpu', 'cuda')):
+def _parity_step(cfg, batch, device, draws, prepare=None, snap_to=None,
+                 values=()):
+    """One training step of a fresh trainer of ``cfg`` (seed 1) on
+    ``device`` with ``draws``; ``prepare(model)`` edits its weights first.
+    The step's forward runs under ``PreActivations(model, snap_to,
+    values)``. Returns (the loss, every parameter's gradient on the CPU,
+    the records)."""
+    from virconv_tpu_torch.train.trainer import Trainer
+    tr = Trainer(cfg=cfg, device=device, seed=1)
+    if prepare is not None:
+        prepare(tr.model)
+    rec = PreActivations(tr.model, snap_to, values)
+    try:
+        loss, _ = tr.step(batch, draws)
+    finally:
+        rec.remove()
+    return float(loss), {n: p.grad.detach().cpu() for n, p in
+                         tr.model.named_parameters()}, rec
+
+
+def train_step_parity(cfg, batch, devices=('cpu', 'cuda'), prepare=None):
     """One training step of ``cfg`` on ``batch`` on each device, from fresh
     trainers with the same weights and the same draws (made once, on the
-    first device, and replayed on the second). Returns (the loss's
+    first device, and replayed on the second); ``prepare(model)`` edits
+    each trainer's weights first. Returns (the loss's
     relative error, (the worst gradient error in units of its scale, its
     parameter), the losses): each parameter's gradient error is taken
     against its max |grad| on the first device, floored at 1e-4 x the
@@ -1444,43 +1639,89 @@ def train_step_parity(cfg, batch, devices=('cpu', 'cuda')):
     are round-off)."""
     import torch
     from virconv_tpu_torch.train.draws import Draws
-    from virconv_tpu_torch.train.trainer import Trainer
     draws = Draws(torch.Generator().manual_seed(7))
-    res = {}
-    for d in devices:
-        tr = Trainer(cfg=cfg, device=d, seed=1)
-        rng = draws if not res else Draws(replay=draws.log)
-        loss, _ = tr.step(batch, rng)
-        res[d] = (float(loss), {n: p.grad.detach().cpu() for n, p in
-                                tr.model.named_parameters()})
-    (l_ref, g_ref), (l_dev, g_dev) = res[devices[0]], res[devices[1]]
-    floor = 1e-4 * max(float(g.abs().max()) for g in g_ref.values())
-    worst = max((float((g_dev[n] - g).abs().max())
-                 / max(float(g.abs().max()), floor), n)
-                for n, g in g_ref.items())
+    l_ref, g_ref, _ = _parity_step(cfg, batch, devices[0], draws, prepare)
+    l_dev, g_dev, _ = _parity_step(cfg, batch, devices[1],
+                                   Draws(replay=draws.log), prepare)
     loss_rel = abs(l_dev - l_ref) / max(abs(l_ref), 1e-12)
-    return loss_rel, worst, (l_ref, l_dev)
+    return loss_rel, _grad_worst(g_dev, g_ref), (l_ref, l_dev)
+
+
+# the outputs that set a training step's box geometry: the RPN's box,
+# class and direction maps (proposals, NMS, top-k) and the cascade's three
+# regression heads (each stage's ROIs and the regression loss's boxes)
+GEOMETRY_OUTPUTS = ('dense_head.conv_box', 'dense_head.conv_cls',
+                    'dense_head.conv_dir', 'roi_head.reg_head',
+                    'roi_head.reg_head_pi', 'roi_head.reg_head_p')
 
 
 def tiny_train_parity(devices=('cpu', 'cuda'), cfg=None, batch=None,
-                      tag='phase 7'):
+                      tag='phase 7', gate_unsnapped=True):
     """Phase 7 (and 11d): one training step of a tiny config (the tiny
-    training config by default) on a synthetic batch on each device
-    (``train_step_parity``): the loss within rtol 1e-4, each gradient
-    within 1e-3 x its scale. Returns the errors."""
+    training config by default) on a synthetic batch, on the first device
+    (the reference, its BN outputs and ``GEOMETRY_OUTPUTS`` recorded) and
+    three times on the second with the reference's draws: (a) as it is;
+    (b) with every BN output that (a) put on the other side of ReLU's kink
+    from the reference snapped to the reference's value; (c) as (b) with
+    the ``GEOMETRY_OUTPUTS`` replaced by the reference's values, gradients
+    passed through (``PreActivations``). Round-off in those outputs moves
+    the ROIs and the decoded boxes, and the regression loss's corner and
+    box terms (a min of two corner distances, interval overlaps) and the
+    pools' ReLUs then pick a branch by round-off: the gradients of (a)
+    differ by what a kink passes, though every value agrees. Gates: every
+    loss within rtol 1e-4; (c)'s snapped outputs moved by at most 1e-4 x
+    their scale and each of its gradients within 1e-3 x its scale; with
+    ``gate_unsnapped``, (a)'s gradients within 1e-3 x their scale as well.
+    Then the same step with the box-regression outputs zeroed
+    (``zero_box_outputs``: the proposals are the anchors, each stage's
+    ROIs the previous stage's, on both devices) on each device: the loss
+    and every gradient gated as (c). (a)'s and (b)'s worst gradients, by
+    scale and by norm, and the kinks crossed are printed. Returns the
+    errors."""
+    import torch
     from virconv_tpu_torch.configs.tiny import tiny_train_config
-    loss_rel, worst, (l_ref, l_dev) = train_step_parity(
-        tiny_train_config() if cfg is None else cfg,
-        tiny_train_batch(np.random.default_rng(0)) if batch is None
-        else batch, devices)
+    from virconv_tpu_torch.train.draws import Draws
+    cfg = tiny_train_config() if cfg is None else cfg
+    batch = tiny_train_batch(np.random.default_rng(0)) if batch is None \
+        else batch
+    draws = Draws(torch.Generator().manual_seed(7))
+    l_ref, g_ref, ref = _parity_step(cfg, batch, devices[0], draws,
+                                     values=GEOMETRY_OUTPUTS)
+    res = {}
+    for name, snap_to, values in (
+            ('unsnapped', None, ()), ('relu_kinks_snapped', ref.rows, ()),
+            ('snapped', ref.rows, GEOMETRY_OUTPUTS)):
+        loss, grads, rec = _parity_step(cfg, batch, devices[1],
+                                        Draws(replay=draws.log),
+                                        snap_to=snap_to, values=values)
+        res[name] = {'loss_rel_err': abs(loss - l_ref) / max(abs(l_ref),
+                                                             1e-12),
+                     'worst_grad': _grad_worst(grads, g_ref),
+                     'worst_grad_over_norm': _grad_norm_worst(grads,
+                                                              g_ref),
+                     'relu_kinks_crossed': sign_flips(ref.rows, rec.rows)}
+        if rec.moved:
+            res[name]['largest_move_over_scale'] = max(
+                (v, k) for k, v in rec.moved.items())
+    z_rel, z_worst, (z_ref, z_dev) = train_step_parity(
+        cfg, batch, devices, prepare=zero_box_outputs)
+    res['zeroed_box_outputs'] = {'loss_rel_err': z_rel,
+                                 'worst_grad': z_worst}
     print(f'[{tag}] tiny config training step {devices[1]} vs '
-          f'{devices[0]}: loss {l_dev:.6g} vs {l_ref:.6g} (rel err '
-          f'{loss_rel:.3g}, tol 1e-4), worst gradient {worst[1]} at '
-          f'{worst[0]:.3g} x its scale (tol 1e-3)', flush=True)
-    if not (loss_rel <= 1e-4 and worst[0] <= 1e-3):
+          f'{devices[0]}: loss {l_ref:.6g}; {json.dumps(res)} (tol: loss '
+          f'rel 1e-4; snapped and zeroed_box_outputs gradients 1e-3 x '
+          f'scale, moves 1e-4 x scale'
+          f'{"; unsnapped gradients 1e-3 x scale" if gate_unsnapped else ""})',
+          flush=True)
+    sn = res['snapped']
+    if not (all(r['loss_rel_err'] <= 1e-4 for r in res.values())
+            and sn['worst_grad'][0] <= 1e-3
+            and sn['largest_move_over_scale'][0] <= 1e-4
+            and z_worst[0] <= 1e-3
+            and (not gate_unsnapped
+                 or res['unsnapped']['worst_grad'][0] <= 1e-3)):
         fail('tiny config training step: devices disagree')
-    return {'loss_rel_err': loss_rel, 'worst_grad': worst[0],
-            'worst_param': worst[1]}
+    return res
 
 
 R40_KEYS = {f'Car_{m}/{d}_R40' for m in ('3d', 'bev', 'image')
@@ -1617,12 +1858,13 @@ def eval_tiny_parity(tmp, logger, devices=('cuda', 'cpu')):
 
 class StepCounts:
     """Counts the K1 forward, K1 input-gradient, K4 and K2+K3 launches of
-    each training step of ``trainer`` (read and reset by ``take``), as
+    each training step of ``trainer``, and the K1 forward calls with a
+    gather patch (read and reset by ``take``), as
     ``TrainCapture`` tells K1's forward calls (while the model's forward
     runs) from its input-gradient calls; the wrapped functions still
     launch the kernels and bump the modules' own counts."""
 
-    KEYS = ('k1_forward', 'k1_input_grad', 'k4', 'k2_k3')
+    KEYS = ('k1_forward', 'k1_input_grad', 'k4', 'k2_k3', 'k1_forward_patch')
 
     def __init__(self, trainer):
         from virconv_tpu_torch.ops import band_conv, roi_pool
@@ -1648,6 +1890,9 @@ class StepCounts:
                 if key == 'k1':
                     name = 'k1_forward' if self._in_forward \
                         else 'k1_input_grad'
+                    patch = a[8] if len(a) > 8 else k.get('patch')
+                    if self._in_forward and patch is not None:
+                        self.counts['k1_forward_patch'] += 1
                 else:
                     name = key
                 self.counts[name] += 1
@@ -1839,6 +2084,10 @@ def train_loader_tiny_parity(tmp, devices=('cpu', 'cuda')):
 
 
 L_CONVS = 20        # VirConv-L's sparse convs: 19 NRConv convs and conv_out
+# the training convs on the neighbor map per step: T's 3 LiDAR downs,
+# conv_out, 3 NRConv downs and 8 NRConv 2D convs; L's 3 downs, 8 2D convs
+# and conv_out
+NMAP_TRAIN_CONVS = {'VirConv-T': 15, 'VirConv-L': 12}
 SEMI_FRAMES, SEMI_N_TRAIN, SEMI_N_SEMI = 3, 2, 2   # phase 11f's tree
 
 
@@ -2014,14 +2263,11 @@ def virconv_l_phase(tmp, logger):
         batch = trainer.to_device(train_batch_l())
         train_cases = train_kernel_calls(trainer, batch, tag)
         cases.update(train_cases)
-        counter = StepCounts(trainer).__enter__()
-        try:
-            train_counts, train = train_steps(trainer, batch, N_TRAIN_STEPS,
-                                              tag, 'VirConv-L')
-        finally:
-            kinds = counter.take()
-            counter.__exit__()
-        train['launches_by_kind'] = kinds
+        train_counts, train = train_steps(
+            trainer, batch, N_TRAIN_STEPS, tag, 'VirConv-L',
+            per_step=per_step_launches(train_cases),
+            nmap_convs=NMAP_TRAIN_CONVS['VirConv-L'])
+        kinds = train['launches_by_kind']
         if not (kinds['k1_forward'] and kinds['k1_input_grad']
                 and kinds['k4']):
             fail(f'a VirConv-L training step missed a kernel: {kinds}')
@@ -3106,11 +3352,35 @@ class RouteCapture:
         return False
 
 
-def check_nmap_case(name, args):
-    """One eval ``nmap_conv`` call (``VIRCONV_BAND=0``, ``BAND2D=0``) against
-    its plain version (1e-4 x scale), kernel and plain times, and the
-    bound: features, map and weights read once, the output written once,
-    2 C C' operations per (row, tap) hit at the f32 peak."""
+def fragment_products(nmap):
+    """(fragment, tap) work of one ``nmap_conv`` tile-mode call per
+    (row, tap) hit, counted from the map: the previous body multiplies a
+    16-row fragment of its 64-row CTA by W[k] whenever any of the 16 rows
+    hits tap k; the redesign multiplies ceil(hits / 16) compacted fragments
+    per (CTA, tap). Returns (previous rows per hit, redesign's rows per
+    hit)."""
+    import torch
+    hit = nmap >= 0
+    n, k = hit.shape
+    hits = int(hit.sum())
+    if not hits:
+        return 0.0, 0.0
+    pad = -n % 64
+    cta = torch.nn.functional.pad(hit, (0, 0, 0, pad)).reshape(-1, 64, k)
+    prev = 16 * int(cta.reshape(-1, 4, 16, k).any(2).sum())
+    new = 16 * int(((cta.sum(1) + 15) // 16).sum())
+    return prev / hits, new / hits
+
+
+def check_nmap_case(name, args, tag='phase 15'):
+    """One ``nmap_conv`` call (eval under ``VIRCONV_BAND=0``, ``BAND2D=0``;
+    training forward and input gradient) against its plain version (1e-4 x
+    scale) and bit for bit against its previous body (``nmap_conv_prev``);
+    kernel, previous-body and plain times, the (fragment, tap) rows each
+    body multiplies per hit (``fragment_products``), and the bound:
+    features, map and weights read once, the output written once, 2 C C'
+    operations per (row, tap) hit at the f32 peak."""
+    from virconv_tpu_torch.ops import gather_conv as gc
     from virconv_tpu_torch.ops import nmap_conv as nc
     feats, nmap, w = args
     k, c_in, c_out = w.shape
@@ -3120,11 +3390,20 @@ def check_nmap_case(name, args):
     tol = 1e-4 * max(1.0, float(want.abs().max()) if want.numel() else 0.0)
     if not err <= tol:
         fail(f'nmap_conv {name}: max err {err} > {tol}')
+    if not bits_equal(got, nc.nmap_conv_prev(feats, nmap, w)):
+        fail(f'[{tag}] nmap_conv {name}: the redesigned body differs from '
+             'the previous one')
     hits = int((nmap >= 0).sum())
+    mode = gc.kernel_mode(c_in, c_out)
+    prev_rows, new_rows = fragment_products(nmap) if mode == 'tile' \
+        else (None, None)
     line = {'case': name, 'rows_in': feats.shape[0],
             'rows_out': nmap.shape[0], 'c_in': c_in, 'c_out': c_out,
-            'taps': k, 'max_abs_err_f32': err,
+            'taps': k, 'mode': mode, 'max_abs_err_f32': err,
+            'bit_equal_prev': True,
+            'prev_rows_per_hit': prev_rows, 'rows_per_hit': new_rows,
             'ms': cuda_ms(lambda: nc.nmap_conv(feats, nmap, w)),
+            'prev_ms': cuda_ms(lambda: nc.nmap_conv_prev(feats, nmap, w)),
             'plain_ms': cuda_ms(lambda: nc.nmap_conv_plain(feats, nmap, w),
                                 reps=3, warmup=1),
             'taps_hit': hits,
@@ -3455,32 +3734,47 @@ class PreActivations:
     """Records every BN output of ``module`` in a forward (the
     ``MaskedBatchNorm`` rows of the sparse blocks, the pools and the heads,
     the ``FlaxBatchNorm2d`` maps of the BEV: what every ReLU of the model
-    but the pools' reads), by module name and call. With ``snap_to``
-    (another forward's records) each entry on the other side of ReLU's
-    kink from the recorded one is moved onto the recorded value, its
-    gradient passed through unchanged."""
+    but the pools' reads), and the output of each module named in
+    ``values``, by module name and call. With ``snap_to`` (another
+    forward's records, on any device) each BN entry on the other side of
+    ReLU's kink from the recorded one is moved onto the recorded value,
+    and each output of ``values`` is replaced by the recorded one, its
+    gradient passed through unchanged; ``moved`` keeps, per call of a
+    ``values`` module, the largest move over the recorded output's
+    scale."""
 
-    def __init__(self, module, snap_to=None):
+    def __init__(self, module, snap_to=None, values=()):
         import torch
         from virconv_tpu_torch.models.layers import (FlaxBatchNorm2d,
                                                      MaskedBatchNorm)
-        self.rows, self._hooks = {}, []
+        self.rows, self.moved, self._hooks = {}, {}, []
+        named = dict(module.named_modules())
+        if any(n not in named for n in values):
+            fail(f'PreActivations: no module {set(values) - set(named)}')
 
-        def hook(m, args, out, name):
+        def hook(m, args, out, name, bn):
             calls = sum(k.startswith(f'{name} #') for k in self.rows)
             key = f'{name} #{calls}'
-            mask = args[1][:, None] if len(args) > 1 else torch.ones_like(
-                out, dtype=torch.bool)
+            mask = None
+            if bn:
+                mask = args[1][:, None] if len(args) > 1 else \
+                    torch.ones_like(out, dtype=torch.bool)
             self.rows[key] = (out.detach(), mask)
             if snap_to is None:
                 return None
-            ref = snap_to[key][0]
+            ref = snap_to[key][0].to(out.device)
+            if not bn:
+                self.moved[key] = float((ref - out.detach()).abs().max()) \
+                    / max(float(ref.abs().max()), 1e-30)
+                return out + (ref - out).detach()
             flip = ((out > 0) != (ref > 0)) & mask
             return out + torch.where(flip, ref - out, 0.0).detach()
-        for name, m in module.named_modules():
-            if isinstance(m, (MaskedBatchNorm, FlaxBatchNorm2d)):
+        for name, m in named.items():
+            bn = isinstance(m, (MaskedBatchNorm, FlaxBatchNorm2d))
+            if bn or name in values:
                 self._hooks.append(m.register_forward_hook(
-                    lambda m, a, out, name=name: hook(m, a, out, name)))
+                    lambda m, a, out, name=name, bn=bn:
+                    hook(m, a, out, name, bn)))
 
     def remove(self):
         for h in self._hooks:
@@ -3488,11 +3782,13 @@ class PreActivations:
 
 
 def sign_flips(a, b):
-    """Pre-activations on opposite sides of ReLU's kink in two forwards:
-    {module: (count, the largest |value| among them)}."""
+    """BN outputs on opposite sides of ReLU's kink in two forwards' records
+    (``a``'s device): {module: (count, the largest |value| among them)}."""
     out = {}
     for name, (x, mask) in a.items():
-        y = b[name][0]
+        if mask is None:
+            continue
+        y = b[name][0].to(x.device)
         flip = ((x > 0) != (y > 0)) & mask
         if bool(flip.any()):
             out[name] = (int(flip.sum()), max(float(x[flip].abs().max()),
@@ -3705,7 +4001,10 @@ def main():
 
         # ---- phase 6: the main training path --------------------------------
         t0 = phase_done(5, t0)
-        train_counts, train_run = train_steps(trainer, batch, N_TRAIN_STEPS)
+        train_counts, train_run = train_steps(
+            trainer, batch, N_TRAIN_STEPS,
+            per_step=per_step_launches(train_cases),
+            nmap_convs=NMAP_TRAIN_CONVS['VirConv-T'])
         del trainer
         torch.cuda.empty_cache()
         # 6b: one step's backward twice, every gradient compared (fault C4)
@@ -3714,7 +4013,7 @@ def main():
 
         # ---- phase 7: tiny config training step, CUDA vs CPU ----------------
         t0 = phase_done(6, t0)
-        tiny_train_parity(('cpu', 'cuda'))
+        tiny_train_parity(('cpu', 'cuda'), gate_unsnapped=False)
 
     # ---- phase 8: K5 and K6 on every submanifold conv of one request -------
     # (TF32 still off: the plain versions' f32 products are exact f32)
@@ -3914,6 +4213,28 @@ def main():
                         'replaces': rep, 'launches': r_counts[
                             name.replace('_eval', '')],
                         **summed(r_cases[name])})
+    # the training neighbor-map conv per T step (phase 5's calls, phase 6's
+    # launches) and per L step (11a, 11c): nmap_conv's forward and
+    # input-gradient calls (the JAX package's gathered_conv_train), and
+    # nmap_conv_dw's weight gradients (its _gct_bwd loop) with the band
+    # convs' gather-patch terms (_band_train_bwd's loop)
+    for name, s_, rep, parts in (
+            ('nmap_conv_fwd_train', meta['nmap_conv_fwd'][0],
+             'virconv_tpu/ops/sparse.py:284',
+             (('forward', 'nmap_conv_fwd_train'),
+              ('input_grad', 'nmap_conv_fwd_train_dgrad'))),
+            ('nmap_conv_dw', src, 'virconv_tpu/ops/sparse.py:333+905',
+             (('conv', 'nmap_conv_dw'), ('patch', 'nmap_conv_dw_patch')))):
+        launch_key = name.replace('_train', '')
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': s_, 'replaces': rep,
+            'launches': train_counts[launch_key],
+            **summed([c for _, k in parts for c in train_cases[k]], 'step'),
+            **{part: step_totals[k] for part, k in parts},
+            'virconv_l': {
+                'launches': l_train['launches'][launch_key],
+                **summed([c for _, k in parts for c in l_cases[k]], 'step'),
+                **{part: l_steps[k] for part, k in parts}}})
     print(json.dumps({'kernels': kernels, 'serve': serve_run,
                       'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,

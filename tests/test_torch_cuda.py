@@ -856,7 +856,9 @@ def test_nmap_conv_edge_cases(case):
     (row, tile, fma), fewer and more output rows than feature rows (a
     patch, a strided map), K = 27, 9 and 3, an input width not a multiple
     of 4, a map with no output row (no launch). Each run twice with
-    identical bits; outputs within 1e-4 x max(1, the output scale)."""
+    identical bits, and the bits of the body it had before its tile mode
+    was redesigned (``nmap_conv_prev``); outputs within 1e-4 x max(1, the
+    output scale)."""
     dev = _cuda()
     k, n_in, n_out, c, c_out, mode = {
         'row_k27': (27, 1000, 1000, 8, 16, 'row'),
@@ -880,12 +882,106 @@ def test_nmap_conv_edge_cases(case):
     n0 = tnc.launches
     got = tnc.nmap_conv(*args)
     again = tnc.nmap_conv(*args)
+    prev = tnc.nmap_conv_prev(*args)
     torch.cuda.synchronize()
     assert tnc.launches == n0 + (2 if n_out else 0)
     assert got.shape == (n_out, c_out) and torch.equal(got, again)
+    # the redesigned tile body gives the previous body's bits
+    assert torch.equal(got.view(torch.int32), prev.view(torch.int32))
     np.testing.assert_allclose(
         got.cpu().numpy(), want.numpy(), rtol=0,
         atol=1e-4 * max(1.0, float(want.abs().max()) if n_out else 0.0))
+
+
+@pytest.mark.parametrize('case', [
+    'empty', 'all_missing', 'hot_row', 'k3_c8', 'k9_c16_c64', 'k27_c32',
+    'k27_c64', 'k3_c64_c128', 'cin128'])
+def test_nmap_conv_dw_edge_cases(case):
+    """The neighbor-map weight gradient (a source pass, K4's sums, the
+    in-order partial sum) vs its plain version: no output row, a map with
+    every tap missing (dW zeros), a hot source row read by every output
+    row, K = 3, 9 and 27, C and C' of 8 to 128 (two output slabs at 128),
+    row counts that end mid-chunk. Each run twice with identical bits;
+    within 1e-4 x max(1, the dW scale): f32 sums in another order."""
+    dev = _cuda()
+    k, n_in, n_out, c, c_out = {
+        'empty': (27, 100, 0, 16, 16), 'all_missing': (27, 500, 700, 16, 32),
+        'hot_row': (9, 300, 3000, 32, 32), 'k3_c8': (3, 900, 2500, 8, 8),
+        'k9_c16_c64': (9, 1000, 2100, 16, 64),
+        'k27_c32': (27, 4000, 4500, 32, 32),
+        'k27_c64': (27, 6000, 5000, 64, 64),
+        'k3_c64_c128': (3, 3000, 2000, 64, 128),
+        'cin128': (27, 800, 900, 128, 64)}[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 5)
+    nmap = np.where(rng.random((n_out, k)) < 0.4,
+                    rng.integers(0, n_in, (n_out, k)), -1).astype(np.int32)
+    if case == 'all_missing':
+        nmap[:] = -1
+    if case == 'hot_row':
+        nmap[:, 4] = 7
+    nmap = torch.from_numpy(nmap)
+    feats = torch.from_numpy(rng.standard_normal((n_in, c)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal((n_out, c_out)).astype(
+        np.float32))
+    chunk = tnc.dw_chunk_rows(n_out, k, c_out)
+    if case in ('k27_c32', 'k27_c64'):
+        assert n_out % chunk and n_out > chunk
+    want = tnc.nmap_conv_dw_plain(feats, nmap, g)
+    args = (feats.to(dev), nmap.to(dev), g.to(dev))
+    n0 = tnc.dw_launches
+    got = tnc.nmap_conv_dw(*args)
+    again = tnc.nmap_conv_dw(*args)
+    torch.cuda.synchronize()
+    assert tnc.dw_launches == n0 + 2
+    assert got.shape == (k, c, c_out)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    np.testing.assert_allclose(
+        got.cpu().numpy(), want.numpy(), rtol=0,
+        atol=1e-4 * max(1.0, float(want.abs().max())))
+    if case in ('empty', 'all_missing'):
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize('case', ['subm', 'strided'])
+def test_nmap_train_conv_gradients_match_cpu(case):
+    """The training neighbor-map conv on CUDA (``nmap_conv`` forward and
+    input gradient, ``nmap_conv_dw``) vs the same conv on the CPU (plain
+    versions): value and input gradient within 1e-4, dW within 1e-3 x its
+    scale (chip_smoke phase 7's gradient rule); one launch of each
+    product."""
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    st = random_sparse(rng, 2, (8, 24, 20), 1500, 1536, 16)
+    k = 27
+    w = (rng.standard_normal((k, 16, 32)) * 0.3).astype(np.float32)
+    res = {}
+    for d in ('cpu', dev):
+        s = _to(st, d)
+        if case == 'subm':
+            conv = tsp.nmap_subm_conv_ctx(s, 3)
+            n_out = s.capacity
+        else:
+            out_st = tsp.downsample_coords(s, 2, 1, 3, 1024)
+            conv = tsp.nmap_strided_conv_ctx(s, out_st, 2, 1, 3)
+            n_out = out_st.capacity
+        cot = torch.from_numpy(np.random.default_rng(9).standard_normal(
+            (n_out, 32)).astype(np.float32)).to(d)
+        f = s.feats.clone().requires_grad_(True)
+        wt = torch.from_numpy(w).to(d).requires_grad_(True)
+        n0, m0 = tnc.launches, tnc.dw_launches
+        out = conv(f, wt)
+        out.backward(cot)
+        if d != 'cpu':
+            torch.cuda.synchronize()
+            assert (tnc.launches - n0, tnc.dw_launches - m0) == (2, 1)
+        res[str(d)] = [x.detach().cpu().numpy()
+                       for x in (out, f.grad, wt.grad)]
+    want, got = res['cpu'], res[str(dev)]
+    for a, b in zip(want[:2], got[:2]):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got[2], want[2], rtol=0,
+                               atol=1e-3 * np.abs(want[2]).max())
 
 
 def test_eval_loop_launches_band_conv_and_pool(tmp_path):

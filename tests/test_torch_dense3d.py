@@ -136,7 +136,8 @@ def test_lidar_stack_dense_tail_matches_jax(train):
                                    rtol=2e-4, err_msg=key)
     assert bool(got['out'].mask.any())
     if train:
-        assert branches == {'band_train': 4}, branches
+        # conv2's and conv3's downs on the neighbor map ('nmap_train')
+        assert branches == {'band_train': 4, 'nmap_train': 2}, branches
         stats = from_jax_variables({'params': {},
                                     'batch_stats': mut['batch_stats']})
         buffers = dict(tstack.named_buffers())

@@ -104,6 +104,17 @@
 //    chunks even the waves out); a third kernel sums the per-chunk partials
 //    in chunk order. No float atomics: the result has the same bits on
 //    every run.
+//
+// The neighbor-map weight gradient (nmap_conv_dw, ops/nmap_conv.py) is K4's
+// contract over a neighbor map instead of band windows: dW[k] = sum over
+// rows r with nmap[r][k] >= 0 of feats[nmap[r][k]]^T g[r]. It replaces the
+// JAX package's XLA loop in the gather-only backward of the training
+// neighbor-map conv (virconv_tpu/ops/sparse.py::_gct_bwd) and the gather
+// patch's term of the band conv's weight gradient (::_band_train_bwd). The
+// map is transposed into K4's tap-major source table (one small kernel),
+// then K4's sums kernel and its in-order partial sum run as they are: the
+// same bound (2*C*C' operations per hit at the f32 peak) and the same bits
+// on every run.
 
 #include "common.cuh"
 
@@ -721,6 +732,53 @@ long dw_src_bytes(int n_taps, int n_tiles, int tile) {
   return ((long)n_taps * n_tiles * tile * sizeof(int) + 255) / 256 * 256;
 }
 
+// K4's sums over the tap-major source table src[K][n_rows] (chunks of
+// chunk_rows rows), then the in-order sum of the partials into out
+// (n_taps, c_in, c_out); n_chunks 0 writes zeros. Returns the launch error.
+int launch_dw_sums(const float* feats, const float* g, const int* src,
+                   int c_in, int c_out, int n_taps, int bf16, int n_rows,
+                   int chunk_rows, int n_chunks, float* partial, float* out,
+                   cudaStream_t stream) {
+  const long n = (long)n_taps * c_in * c_out;
+  if (n_chunks > 0) {
+    const DwLayout l = dw_layout_of(c_in, c_out, chunk_rows);
+    if (l.smem > kSmemMax) return -1;
+    using Kernel = decltype(&band_conv_dw_kernel<4>);
+    static const Kernel kernels[2] = {band_conv_dw_kernel<4>,
+                                      band_conv_dw_kernel<8>};
+    static long smem_set[2] = {0, 0};
+    const int v = l.mt == 8;
+    int err = allow_smem(kernels[v], l.smem, &smem_set[v]);
+    if (err != 0) return err;
+    const int vec4f = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+    const int vec4g = c_out % 4 == 0 && (uintptr_t)g % 16 == 0;
+    const dim3 grid(n_chunks, n_taps, l.n_slabs);
+    kernels[v]<<<grid, kDwThreads, l.smem, stream>>>(
+        feats, g, src, c_in, c_out, n_taps, bf16, n_rows, chunk_rows, vec4f,
+        vec4g, partial);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  band_conv_dw_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      partial, n_chunks, n, out);
+  return (int)cudaGetLastError();
+}
+
+// The neighbor-map weight gradient's source pass: a thread per output row
+// writes src[k * n_out + row] = nmap[row][k] for every tap k (-1: missing,
+// or not one of the n_in feature rows); the row's taps are read from one
+// cached line, each tap's column written coalesced.
+__global__ void __launch_bounds__(256) nmap_dw_src_kernel(
+    const int* __restrict__ nmap, int n_out, int n_in, int n_taps,
+    int* __restrict__ src) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_out) return;
+  for (int k = 0; k < n_taps; ++k) {
+    const int idx = nmap[(long)row * n_taps + k];
+    src[(long)k * n_out + row] = idx >= 0 && idx < n_in ? idx : -1;
+  }
+}
+
 }  // namespace
 
 extern "C" long band_conv_fwd_scratch_bytes(int c_in, int c_out, int n_taps,
@@ -911,44 +969,59 @@ extern "C" int band_conv_dw(
       tile > kDwMaxTile || block < 1 || block > kMaxBlock ||
       tiles_per_chunk < 1 || (long)tiles_per_chunk * tile > kDwMaxChunk)
     return -1;
-  const long n = (long)n_taps * c_in * c_out;
   const int n_chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  int* src = static_cast<int*>(scratch);
   float* partial = reinterpret_cast<float*>(
       static_cast<char*>(scratch) + dw_src_bytes(n_taps, n_tiles, tile));
-  int err = 0;
   if (n_chunks > 0) {
-    int* src = static_cast<int*>(scratch);
     const long keys_smem = (long)n_groups * 2 * block * sizeof(int);
     static long src_smem_set = 0;
-    err = allow_smem(band_conv_dw_src_kernel, keys_smem, &src_smem_set);
+    int err = allow_smem(band_conv_dw_src_kernel, keys_smem, &src_smem_set);
     if (err != 0) return err;
     band_conv_dw_src_kernel<<<n_tiles, kDwThreads, keys_smem, stream>>>(
         keys, base_keys, valid_bits, blk, n_in, n_taps, n_groups, geo, tile,
         block, n_out, src);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
+  }
+  const int n_rows = n_tiles * tile;
+  return launch_dw_sums(feats, g, src, c_in, c_out, n_taps, bf16, n_rows,
+                        min(tiles_per_chunk * tile, n_rows), n_chunks,
+                        partial, out, stream);
+}
 
-    const int n_rows = n_tiles * tile;
-    const int chunk_rows = min(tiles_per_chunk * tile, n_rows);
-    const DwLayout l = dw_layout_of(c_in, c_out, chunk_rows);
-    if (l.smem > kSmemMax) return -1;
-    using Kernel = decltype(&band_conv_dw_kernel<4>);
-    static const Kernel kernels[2] = {band_conv_dw_kernel<4>,
-                                      band_conv_dw_kernel<8>};
-    static long smem_set[2] = {0, 0};
-    const int v = l.mt == 8;
-    err = allow_smem(kernels[v], l.smem, &smem_set[v]);
-    if (err != 0) return err;
-    const int vec4f = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
-    const int vec4g = c_out % 4 == 0 && (uintptr_t)g % 16 == 0;
-    const dim3 grid(n_chunks, n_taps, l.n_slabs);
-    kernels[v]<<<grid, kDwThreads, l.smem, stream>>>(
-        feats, g, src, c_in, c_out, n_taps, bf16, n_rows, chunk_rows, vec4f,
-        vec4g, partial);
-    err = (int)cudaGetLastError();
+extern "C" long nmap_conv_dw_scratch_bytes(int n_taps, int c_in, int c_out,
+                                           int n_out, int chunk_rows) {
+  // the source table src[K][n_out] int32, then the per-chunk partials
+  // (chunks, K, C, C') f32
+  const long n_chunks = ((long)n_out + chunk_rows - 1) / chunk_rows;
+  return dw_src_bytes(n_taps, n_out, 1) +
+         n_chunks * n_taps * c_in * c_out * (long)sizeof(float);
+}
+
+extern "C" int nmap_conv_dw(const float* feats, const int* nmap,
+                            const float* g, int n_in, int n_out, int c_in,
+                            int c_out, int n_taps, int chunk_rows,
+                            void* scratch, float* out, cudaStream_t stream) {
+  // feats (n_in, c_in), nmap (n_out, n_taps) of feature rows (-1 =
+  // missing), g (n_out, c_out); out (n_taps, c_in, c_out) = sum over rows
+  // r with a tap-k source of feats[nmap[r][k]]^T g[r], f32 operands, in
+  // K4's CTAs of chunk_rows rows; scratch holds nmap_conv_dw_scratch_bytes
+  // bytes.
+  if (n_taps < 1 || c_in < 1 || c_in > kMaxCin || c_out < 1 || n_in < 0 ||
+      n_out < 0 || chunk_rows < 1 || chunk_rows > kDwMaxChunk)
+    return -1;
+  const int n_chunks = (n_out + chunk_rows - 1) / chunk_rows;
+  int* src = static_cast<int*>(scratch);
+  float* partial = reinterpret_cast<float*>(
+      static_cast<char*>(scratch) + dw_src_bytes(n_taps, n_out, 1));
+  if (n_chunks > 0) {
+    nmap_dw_src_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(
+        nmap, n_out, n_in, n_taps, src);
+    const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  band_conv_dw_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      partial, n_chunks, n, out);
-  return (int)cudaGetLastError();
+  return launch_dw_sums(feats, g, src, c_in, c_out, n_taps, 0, n_out,
+                        min(chunk_rows, n_out), n_chunks, partial, out,
+                        stream);
 }

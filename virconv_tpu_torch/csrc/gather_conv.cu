@@ -41,10 +41,22 @@
 // input channels at a time. The caller picks the mode
 // (ops/gather_conv.py::kernel_mode); the entry points refuse any other.
 //
-// The exact conv from a neighbor map (nmap_conv_fwd: the band conv's gather
-// patch and its neighbor-map branch, ops/nmap_conv.py) is K5 with one
+// The exact conv from a neighbor map (nmap_conv_fwd, ops/nmap_conv.py: the
+// eval convs of a context on the neighbor map, and the training
+// neighbor-map conv's forward and input gradient) has K5's rule with one
 // window over every feature row: n_out output rows, each neighbor index of
-// the n_in feature rows counts, and an index at or past n_in is a miss.
+// the n_in feature rows counts, and an index at or past n_in is a miss. It
+// replaces the JAX package's XLA gather + matmul
+// (virconv_tpu/ops/sparse.py::gathered_conv, ::gathered_conv_train). Its
+// row and fma modes are K5's; its tile mode has a body of its own
+// (nmap_tile_kernel): each tap's hit rows compacted into dense fragments,
+// the rows' sums in shared memory, the same bits as K5's body. Bound: 2*C*C'
+// operations per (row, tap) hit at the f32 peak; K5's body spends a
+// fragment's product on every tap any of its 16 rows hits (1.6-2.6 rows
+// per hit at the 3D eval layers, 3-8 at the strided training maps; the
+// redesign 1.1-1.5 and 1.4-3.5). nmap_conv_fwd_prev keeps
+// K5's body for the tile mode as well: it runs on no path, and is there to
+// hold the redesign to it bit for bit on the card.
 //
 // All kernels count misses per row tile in shared memory and add them with
 // integer atomics (the same counts on every run).
@@ -271,6 +283,240 @@ __global__ void __launch_bounds__(kRowThreads) windowed_row_kernel(
   }
 }
 
+// ---- the neighbor-map conv's tile mode (nmap_conv_fwd) ---------------------
+
+constexpr int kSumsPad = 4;   // floats past the slab in a row of the sums
+
+// Shared memory of nmap_tile_kernel: the (tap, row) source table, compacted
+// in place per tap; the CTA row of each compacted slot (one byte); the
+// rows' running sums (64 x (slab + kSumsPad) f32); the ring.
+struct NmapLayout {
+  long row_off, sums_off, ring_off, smem;
+};
+
+__host__ __device__ inline NmapLayout nmap_layout_of(const Layout& l,
+                                                  int n_taps) {
+  NmapLayout m;
+  m.row_off = (long)kTileRows * n_taps * sizeof(int);
+  m.sums_off = (m.row_off + (long)kTileRows * n_taps + 15) / 16 * 16;
+  m.ring_off = m.sums_off + (long)kTileRows * (l.slab + kSumsPad) * 4;
+  m.smem = m.ring_off + (long)l.n_stages * l.tile_pitch;
+  return m;
+}
+
+// acc += (16 gathered rows) @ kNJ column tiles of one tap's f32 weight
+// tile for the calling lane: ap points at the lane's first row (row ty of
+// the fragment), wf at its first column (tx + 8 j0); acc[kNJ r + j] = row
+// ty + 4r, column tx + 8(j0 + j). tap_product's f32 branch with its column
+// tiles cut to [j0, j0 + kNJ): each element sees the same fmaf chain, in
+// channel order, and no lane multiplies a column tile it does not own.
+template <int kNJ>
+__device__ __forceinline__ void frag_product(float* acc, const float* ap,
+                                             const float* wf, int slab,
+                                             int a_stride, int c_end) {
+  for (int c = 0; c < c_end; c += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = *reinterpret_cast<const float4*>(ap + 4 * r * a_stride + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float bv[kNJ];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) bv[j] = wf[(c + cc) * slab + 8 * j];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = cc == 0 ? av[r].x : cc == 1 ? av[r].y
+                      : cc == 2 ? av[r].z : av[r].w;
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+          acc[kNJ * r + j] = fmaf(x, bv[j], acc[kNJ * r + j]);
+      }
+    }
+  }
+}
+
+// One warp's unit of a tap: fragment f (compacted slots 16f .. 16f + 15 of
+// the tap's n hit rows, rows_k their CTA rows) times column tiles
+// [j0, j0 + kNJ): the slots' running sums loaded from shared memory, the
+// product, the sums stored back (pad slots past n are neither).
+template <int kNJ>
+__device__ __forceinline__ void frag_unit(float* sums, int pitch,
+                                          const unsigned char* rows_k, int n,
+                                          int f, int j0, const float* a,
+                                          const float* w, const Layout& L,
+                                          int c_end, int lane) {
+  const int ty = lane >> 3, tx = lane & 7;
+  int off[4];   // shared offset of each of the lane's 4 rows' sums, or -1
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int slot = 16 * f + ty + 4 * r;
+    off[r] = slot < n ? rows_k[slot] * pitch + tx + 8 * j0 : -1;
+  }
+  float acc[4 * kNJ];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      acc[kNJ * r + j] = off[r] >= 0 ? sums[off[r] + 8 * j] : 0.0f;
+  frag_product<kNJ>(acc, a + (16 * f + ty) * L.a_stride, w + tx + 8 * j0,
+                    L.slab, L.a_stride, c_end);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      if (off[r] >= 0) sums[off[r] + 8 * j] = acc[kNJ * r + j];
+}
+
+// frag_unit with kNJ = nj (1 <= nj <= kMax), instantiated for each width.
+template <int kMax>
+__device__ __forceinline__ void frag_dispatch(int nj, float* sums, int pitch,
+                                              const unsigned char* rows_k,
+                                              int n, int f, int j0,
+                                              const float* a, const float* w,
+                                              const Layout& L, int c_end,
+                                              int lane) {
+  if (nj == kMax) {
+    frag_unit<kMax>(sums, pitch, rows_k, n, f, j0, a, w, L, c_end, lane);
+  } else if constexpr (kMax > 1) {
+    frag_dispatch<kMax - 1>(nj, sums, pitch, rows_k, n, f, j0, a, w, L,
+                            c_end, lane);
+  }
+}
+
+// The exact conv from a neighbor map, tile mode: CTA (64 rows, output
+// slab). K5's tile body multiplies a whole 16-row fragment by W[k] when any
+// of its rows hits tap k; here each tap's hit rows are first compacted
+// (ballots and prefix counts, in row order) into dense 16-row fragments,
+// only those rows are copied into the ring and multiplied. A row then sits
+// in another fragment slot at each tap, so the rows' sums live in shared
+// memory keyed by row: per tap a warp loads its slots' sums into
+// registers, runs the channel loop and stores them back. The tap's
+// fragments are spread over the 4 warps (1 fragment: a quarter of the
+// slab's column tiles each; 2: halves; 3 or 4: one each). Each output
+// element sees the fmaf chain of K5's body in tap then channel order, less
+// its zero rows' products (x = 0: they add +0), so the outputs are K5's,
+// and K1's f32 rows, bit for bit (apart from a sum of -0, which a zero
+// row's product turns into +0 there: only products below 2^-149 give one).
+template <int kNT>
+__global__ void __launch_bounds__(kTileThreads) nmap_tile_kernel(
+    const float* __restrict__ feats, const int* __restrict__ nmap, Window w,
+    const void* __restrict__ wprep, int n_rows, int c_in, int c_out,
+    int n_taps, int vec4, float* __restrict__ out,
+    int* __restrict__ misses) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int n_hit[kMaxTaps];      // hit rows of each tap
+  __shared__ int tap_list[kMaxTaps];   // taps with any hit, in tap order
+  __shared__ int n_active;
+  __shared__ int miss_s[kTileRows];
+  const Layout L = layout_of(c_in, c_out, n_taps, 0, 0, false);
+  const NmapLayout M = nmap_layout_of(L, n_taps);
+  int* src_s = reinterpret_cast<int*>(smem);         // [K][kTileRows]
+  unsigned char* row_s = smem + M.row_off;           // [K][kTileRows]
+  float* sums = reinterpret_cast<float*>(smem + M.sums_off);
+  unsigned char* ring = smem + M.ring_off;
+  const int pitch = L.slab + kSumsPad;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * kTileRows;
+  const int s0 = blockIdx.y * L.slab;
+  if (tid < kTileRows) miss_s[tid] = 0;
+  for (int i = tid; i < kTileRows * pitch; i += kTileThreads) sums[i] = 0.0f;
+  __syncthreads();
+  // 1) the source of every (row, tap) of the CTA
+  fill_sources<false>(src_s, kTileRows, kTileThreads, nmap, w, row0, n_rows,
+                      n_taps, n_rows, miss_s, misses);
+  // 2) per tap (a warp each), its hit rows compacted in row order in place:
+  //    slot p holds the source and the CTA row of the p-th hit row; the
+  //    slots up to the next multiple of 16 get -1 (rows of zeros)
+  const unsigned below = (1u << lane) - 1u;
+  for (int k = warp; k < n_taps; k += kTileThreads / 32) {
+    int* sk = src_s + k * kTileRows;
+    const int v0 = sk[lane], v1 = sk[32 + lane];
+    const unsigned m0 = __ballot_sync(0xffffffffu, v0 >= 0);
+    const unsigned m1 = __ballot_sync(0xffffffffu, v1 >= 0);
+    const int n0 = __popc(m0), n = n0 + __popc(m1);
+    __syncwarp();
+    if (v0 >= 0) {
+      const int p = __popc(m0 & below);
+      sk[p] = v0;
+      row_s[k * kTileRows + p] = (unsigned char)lane;
+    }
+    if (v1 >= 0) {
+      const int p = n0 + __popc(m1 & below);
+      sk[p] = v1;
+      row_s[k * kTileRows + p] = (unsigned char)(32 + lane);
+    }
+    __syncwarp();
+    if (n + lane < ((n + 15) & ~15)) sk[n + lane] = -1;
+    if (lane == 0) n_hit[k] = n;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int na = 0;
+    for (int k = 0; k < n_taps; ++k)
+      if (n_hit[k]) tap_list[na++] = k;
+    n_active = na;
+  }
+  // the gathered rows' pad columns [c_in, ck) are zero once for all taps
+  const int pad = L.ck - c_in;
+  for (int i = tid; i < L.n_stages * kTileRows * pad; i += kTileThreads) {
+    const int rr = i / pad, c = c_in + i - rr * pad;  // rr: stage * 64 + row
+    reinterpret_cast<float*>(ring + (long)(rr / kTileRows) * L.tile_pitch)
+        [(rr % kTileRows) * L.a_stride + c] = 0.0f;
+  }
+  __syncthreads();
+
+  // 3) a ring of (compacted rows, W[k] tile) stages over the active taps
+  const int a_bytes = kTileRows * L.a_stride * 4;
+  auto stage = [&](int s) { return ring + (long)s * L.tile_pitch; };
+  auto issue = [&](int s, int k) {
+    const int frags = (n_hit[k] + 15) >> 4;
+    gather_rows(reinterpret_cast<float*>(stage(s)), L.a_stride,
+                src_s + k * kTileRows, (1 << frags) - 1, feats, c_in, vec4,
+                tid);
+    copy_w_tile<false>(stage(s) + a_bytes, wprep, k, s0, L, tid,
+                       kTileThreads);
+  };
+  const int n_tiles = L.slab / 8;
+  const int c_end = (c_in + 3) & ~3;  // padded channels are zeros
+  const int na = n_active;
+  for (int s = 0; s < L.n_stages - 1; ++s) {
+    if (s < na) issue(s, tap_list[s]);
+    cp_async_commit();
+  }
+  for (int i = 0; i < na; ++i) {
+    const int nxt = i + L.n_stages - 1;
+    if (nxt < na) issue(nxt % L.n_stages, tap_list[nxt]);
+    cp_async_commit();
+    cp_async_wait(L.n_stages - 1);
+    __syncthreads();
+    const int k = tap_list[i], n = n_hit[k];
+    // the tap's units: nf fragments, each cut into ns column ranges, so
+    // that up to 4 warps share the work (3 fragments: one warp idles)
+    const int nf = (n + 15) >> 4;
+    const int ns = min(nf >= 3 ? 1 : (nf == 2 ? 2 : 4), n_tiles);
+    const int f = warp / ns, q = warp - f * ns;
+    const int per = (n_tiles + ns - 1) / ns;
+    const int j0 = q * per, j1 = min(j0 + per, n_tiles);
+    if (f < nf && j0 < j1) {
+      const unsigned char* st = stage(i % L.n_stages);
+      frag_dispatch<kNT>(j1 - j0, sums, pitch, row_s + k * kTileRows, n, f,
+                         j0, reinterpret_cast<const float*>(st),
+                         reinterpret_cast<const float*>(st + a_bytes), L,
+                         c_end, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait(0);
+  // 4) the sums to the output rows, coalesced
+  for (int i = tid; i < kTileRows * L.slab; i += kTileThreads) {
+    const int r = i / L.slab, c = i - r * L.slab;
+    const int row = row0 + r, co = s0 + c;
+    if (row < n_rows && co < c_out)
+      out[(long)row * c_out + co] = sums[r * pitch + c];
+  }
+}
+
 // K6's window table, the entry function's index work (ops/onehot_conv.py::
 // window_blocks): a CTA per row tile t of the n_pad padded rows takes lo,
 // the least valid neighbor index of each tap k over the tile's rows (0 if
@@ -390,6 +636,23 @@ extern "C" int gather_conv_fwd(const float* feats, const int* nmap,
                               stream);
 }
 
+namespace {
+
+// nmap_conv_fwd's checks and its window: one row tile of n_out rows, its
+// window [0, n_in). Returns 1 when the call is valid and has rows.
+int nmap_window(int n_out, int n_in, int c_in, int c_out, int n_taps,
+                int mode, Window* w, int* err) {
+  *err = 0;
+  if (n_taps < 1 || n_taps > kMaxTaps || c_out < 1 || n_out < 0 ||
+      n_in < 0 || mode != mode_of(c_in, c_out))
+    *err = -1;
+  *w = Window{};
+  w->span = n_in;
+  return *err == 0 && n_out > 0;
+}
+
+}  // namespace
+
 extern "C" int nmap_conv_fwd(const float* feats, const int* nmap,
                              const float* weights, int n_out, int n_in,
                              int c_in, int c_out, int n_taps, int mode,
@@ -398,15 +661,45 @@ extern "C" int nmap_conv_fwd(const float* feats, const int* nmap,
   // feats (n_in, c_in), nmap (n_out, n_taps) of feature rows (-1 =
   // missing), weights (n_taps, c_in, c_out); out (n_out, c_out); misses
   // (1,) zeroed by the caller counts indices at or past n_in; wprep holds
-  // gather_conv_scratch_bytes bytes; mode as gather_conv_fwd's.
-  if (n_taps < 1 || n_taps > kMaxTaps || c_out < 1 || n_out < 0 ||
-      n_in < 0 || mode != mode_of(c_in, c_out))
-    return -1;
-  if (n_out == 0) return 0;
-  Window w{};   // one row tile of n_out rows, its window [0, n_in)
-  w.window = 0;
-  w.span = n_in;
-  w.base_max = 0;
+  // gather_conv_scratch_bytes bytes; mode as gather_conv_fwd's. The tile
+  // mode runs nmap_tile_kernel, the others K5's bodies.
+  Window w;
+  int err;
+  if (!nmap_window(n_out, n_in, c_in, c_out, n_taps, mode, &w, &err))
+    return err;
+  if (mode != kModeTile)
+    return launch<false, false>(feats, nmap, w, weights, n_out, c_in, c_out,
+                                n_taps, n_out, mode, wprep, out, misses,
+                                stream);
+  const Layout l = layout_of(c_in, c_out, n_taps, 0, 0, false);
+  const NmapLayout m = nmap_layout_of(l, n_taps);
+  if (m.smem > kSmemMax) return -1;
+  err = prep_weights(weights, n_taps, c_in, c_out, l, false, wprep, stream);
+  if (err != 0) return err;
+  const auto kernel = l.slab > 16 ? nmap_tile_kernel<8> : nmap_tile_kernel<2>;
+  static long smem_set[2] = {0, 0};   // largest size granted: kNT 2, 8
+  err = allow_smem(kernel, m.smem, &smem_set[l.slab > 16]);
+  if (err != 0) return err;
+  const int vec4 = c_in % 4 == 0 && (uintptr_t)feats % 16 == 0;
+  const dim3 grid((unsigned)((n_out + kTileRows - 1) / kTileRows),
+                  (unsigned)l.n_slabs);
+  kernel<<<grid, kTileThreads, m.smem, stream>>>(
+      feats, nmap, w, wprep, n_out, c_in, c_out, n_taps, vec4, out, misses);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nmap_conv_fwd_prev(const float* feats, const int* nmap,
+                                  const float* weights, int n_out, int n_in,
+                                  int c_in, int c_out, int n_taps, int mode,
+                                  void* wprep, float* out, int* misses,
+                                  cudaStream_t stream) {
+  // nmap_conv_fwd as it was before its tile mode had a body of its own:
+  // K5's bodies in every mode. No path runs it; the card's checks hold
+  // nmap_conv_fwd to it bit for bit.
+  Window w;
+  int err;
+  if (!nmap_window(n_out, n_in, c_in, c_out, n_taps, mode, &w, &err))
+    return err;
   return launch<false, false>(feats, nmap, w, weights, n_out, c_in, c_out,
                               n_taps, n_out, mode, wprep, out, misses,
                               stream);

@@ -39,7 +39,9 @@ SIGNATURES = {
                           + [_P] * 3 + [_I] * 3 + [_P] * 3),
         'band_conv_dw_scratch_bytes': (_L, [_I] * 6),
         'band_conv_dw': (_I, [_P] * 6 + [_I] * 5 + [_P] + [_I] * 6
-                         + [_P] * 3)},
+                         + [_P] * 3),
+        'nmap_conv_dw_scratch_bytes': (_L, [_I] * 5),
+        'nmap_conv_dw': (_I, [_P] * 3 + [_I] * 6 + [_P] * 3)},
     'roi_pool': {
         'roi_pool_fwd': (_I, [_P] * 9 + [_I] * 7 + [_F] * 6
                          + [_P, _P, _I, _P])},
@@ -47,6 +49,7 @@ SIGNATURES = {
         'gather_conv_scratch_bytes': (_L, [_I] * 4),
         'gather_conv_fwd': (_I, [_P] * 3 + [_I] * 6 + [_P] * 4),
         'nmap_conv_fwd': (_I, [_P] * 3 + [_I] * 6 + [_P] * 4),
+        'nmap_conv_fwd_prev': (_I, [_P] * 3 + [_I] * 6 + [_P] * 4),
         'onehot_window_blocks': (_I, [_P] + [_I] * 4 + [_P] * 3),
         'onehot_conv_scratch_bytes': (_L, [_I] * 5),
         'onehot_conv_fwd': (_I, [_P] * 4 + [_I] * 8 + [_P] * 4)},

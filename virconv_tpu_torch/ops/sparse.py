@@ -37,8 +37,9 @@ CAP_LOG = None
 ROW_VALID_BIT = 30           # bit of valid_bits marking "output row valid"
 
 # Which branch each conv took, counted per conv call ('band', 'nmap_slow',
-# 'band_train', 'band_train_nmap', and 'nmap' for an eval context on the
-# neighbor map); read by chip_smoke.py (a slow branch on the main path is a
+# 'band_train', 'band_train_nmap', 'nmap' for an eval context on the
+# neighbor map, and 'nmap_train' for every training conv on the neighbor
+# map); read by chip_smoke.py (a slow branch on the main path is a
 # performance fault).
 branch_counts = collections.Counter()
 
@@ -308,24 +309,29 @@ class _GatheredConvTrain(torch.autograd.Function):
     """``gathered_conv`` with the gather-only backward of the JAX package's
     ``gathered_conv_train``: dfeats is the transpose conv over the
     transpose map, ``dfeats[p] = sum_k g[tmap[p, k]] @ W[k]^T``, and
-    ``dW[k] = gather_k(feats)^T @ g``; no scatter."""
+    ``dW[k] = gather_k(feats)^T @ g``; no scatter. Every product is one
+    call: the forward and the input gradient ``nmap_conv``, the weight
+    gradient ``nmap_conv_dw`` (CUDA kernels on the card, their plain
+    versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, feats, weights, nmap, tmap, out_mask, in_mask):
+        from .nmap_conv import nmap_conv
         ctx.save_for_backward(feats, weights, nmap, tmap, out_mask, in_mask)
-        return gathered_conv(feats, nmap, weights, out_mask)
+        out = nmap_conv(feats, nmap, weights)
+        return out * out_mask[:, None].to(out.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        from .nmap_conv import nmap_conv, nmap_conv_dw
         feats, w, nmap, tmap, out_mask, in_mask = ctx.saved_tensors
         g = g * out_mask[:, None].to(g.dtype)
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
-            dfeats = _gathered_conv_raw(g, tmap, w.transpose(1, 2)) \
+            dfeats = nmap_conv(g, tmap, w.transpose(1, 2).contiguous()) \
                 * in_mask[:, None].to(g.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.stack([_gather(feats, nmap[:, j]).T @ g
-                              for j in range(nmap.shape[1])])
+            dw = nmap_conv_dw(feats, nmap, g)
         return dfeats, dw, None, None, None, None
 
 
@@ -333,7 +339,8 @@ def gathered_conv_train(feats, weights, neighbor_map, transpose_map,
                         out_mask, in_mask):
     """Differentiable neighbor-map conv (see ``_GatheredConvTrain``).
     ``transpose_map`` (N_in, K): the output row whose tap k reads each
-    input row, -1 if none."""
+    input row, -1 if none. Counted as ``branch_counts['nmap_train']``."""
+    branch_counts['nmap_train'] += 1
     return _GatheredConvTrain.apply(feats, weights, neighbor_map,
                                     transpose_map, out_mask, in_mask)
 
@@ -655,7 +662,8 @@ class _BandTrain(torch.autograd.Function):
     same conv with tap-reversed, transposed weights ``W_T[k] = W[K-1-k]^T``
     (offset_{K-1-k} == -offset_k, so plan, windows and patch are reused as
     they are); the weight gradient is K4 over the rows of fitting tiles
-    (``bits_dw``) plus the patch rows' exact contribution. ``bf16``: bf16
+    (``bits_dw``) plus the patch rows' exact contribution
+    (``nmap_conv_dw`` over the patch map). ``bf16``: bf16
     operands in K1 (forward and input gradient) and K4; the patch terms
     keep f32 operands, as in the JAX package."""
 
@@ -669,6 +677,7 @@ class _BandTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from .band_conv import band_conv, band_conv_dw
+        from .nmap_conv import nmap_conv_dw
         feats, weights = ctx.saved_tensors
         keys, plan, bits_dw, patch, bf16 = ctx.rest
         g = g.contiguous()
@@ -681,9 +690,7 @@ class _BandTrain(torch.autograd.Function):
                               bf16=bf16)
             if patch is not None:
                 pidx, pnmap = patch
-                g_patch = g[pidx]
-                dw = dw + torch.stack([_gather(feats, pnmap[:, j]).T @ g_patch
-                                       for j in range(pnmap.shape[1])])
+                dw = dw + nmap_conv_dw(feats, pnmap, g[pidx])
         return dfeats, dw, None, None, None, None, None
 
 

@@ -87,14 +87,19 @@ def rows_of(data):
             out.append((f'{label} {key} {g}: ms per launch, device ms, '
                         'bound', f'{span("ms")} {span("device_ms")} '
                         f'{span("bound_ms")} x{len(cs)}'))
-    units = {'band_conv_dw': 'step', 'gather_rows': 'step', 'cspn': 'frame'}
+    units = {'band_conv_dw': 'step', 'gather_rows': 'step', 'cspn': 'frame',
+             'nmap_conv_fwd_train': 'step', 'nmap_conv_dw': 'step'}
     for k in data['kernels']:
         unit = units.get(k['name'], 'request')
         total(f'{k["name"]} per {unit}', k, k['launches'])
-        for part in ('forward', 'backward'):        # gather_rows
+        # gather_rows; the training neighbor-map conv's products
+        for part in ('forward', 'backward', 'input_grad', 'conv', 'patch'):
             if part in k:
                 total(f'{k["name"]} {part} per {unit}', k[part],
                       k[part][f'launches_per_{unit}'])
+        if 'prev_ms' in k:                   # nmap_conv's previous body
+            out.append((f'{k["name"]}: ms, previous body ms',
+                        f'{k["ms"]:.3f} {k["prev_ms"]:.3f}'))
         if 'train' in k:
             parts = [p for p in ('forward', 'input_grad') if p in k['train']]
             for part in parts:
