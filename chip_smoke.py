@@ -206,9 +206,10 @@ K1's and K2+K3's over the phase 9a run as
 request and per step under ``virconv_l``) with phase 9's numbers under
 ``eval``, phase 10's under ``train_cli``, phase 11's under ``virconv_l``
 and ``virconv_s``, phase 12's under ``virtual_points``, phase 13's under
-``precision``, phase 14's under ``data_parallel`` and phase 15's under
+``precision``, phase 14's under ``data_parallel``, phase 15's under
 ``routing`` (its kernel rows ``nmap_conv_fwd_eval`` and
-``roi_pool_fwd_tiled`` per T request), the training neighbor-map conv's
+``roi_pool_fwd_tiled`` per T request) and phase 16's under
+``multi_rank``, the training neighbor-map conv's
 rows ``nmap_conv_fwd_train`` and ``nmap_conv_dw`` per T step (phase 5's
 calls, phase 6's launches; VirConv-L's per step under ``virconv_l``), the
 card's
@@ -1165,36 +1166,18 @@ def short(line):
 
 
 def tiny_frames(rng, frames=2, n_pts=1500):
-    pcr = [0, -8, -3, 16, 8, 1]
-    pts = rng.uniform([pcr[0], pcr[1], pcr[2], 0, 0, 0, 0, 1],
-                      [pcr[3], pcr[4], pcr[5], 1, 1, 1, 1, 2.01],
-                      (frames, n_pts, 8)).astype(np.float32)
-    pts[..., 7] = np.round(pts[..., 7])
-    valid = np.ones((frames, n_pts), bool)
-    valid[:, -50:] = False
-    v2r = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0], [0, 0, 0]],
-                   np.float32)
-    p2t = np.array([[200., 0, 0], [0, 200., 0], [700., 300., 1.],
-                    [0, 0, 0]], np.float32)
-    return {'points': pts, 'points_valid': valid, 'points_mm': pts.copy(),
-            'points_mm_valid': valid.copy(),
-            'v2r': np.tile(v2r, (frames, 1, 1)),
-            'p2t': np.tile(p2t, (frames, 1, 1))}
+    """Frames of the tiny configs: ``tiny_batch``'s points and cameras."""
+    from virconv_tpu_torch.utils.bench_inputs import tiny_batch
+    batch = tiny_batch(rng, n_entries=frames, n_pts=n_pts)
+    return {k: batch[k] for k in ('points', 'points_valid', 'points_mm',
+                                  'points_mm_valid', 'v2r', 'p2t')}
 
 
 def tiny_train_batch(rng, frames=2):
     """tiny_frames() with two gt cars per frame and a world transform per
-    entry (each entry is its own sample)."""
-    batch = tiny_frames(rng, frames)
-    gt = np.zeros((frames, 6, 8), np.float32)
-    gt[:, 0] = [4, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
-    gt[:, 1] = [10, 3, -1, 3.9, 1.6, 1.56, -0.5, 1]
-    gt_valid = np.zeros((frames, 6), bool)
-    gt_valid[:, :2] = True
-    batch.update(gt_boxes=gt, gt_valid=gt_valid, transform_param=None,
-                 trans_params=np.tile(np.float32([[0.1, 1.0, 1.01]]),
-                                      (frames, 1)))
-    return batch
+    entry (each entry is its own sample): ``tiny_batch(train=True)``."""
+    from virconv_tpu_torch.utils.bench_inputs import tiny_batch
+    return tiny_batch(rng, n_entries=frames, train=True)
 
 
 def request_kernel_calls(det, frames, tag='phase 2'):
@@ -3198,6 +3181,7 @@ def dp_cli_phase(tmp, logger, card, tag='phase 14', device='cuda',
     --launcher pytorch`` with 2 ranks for one epoch on phase 10's tree
     (global batch 2, a frame per rank) and its distributed evaluation.
     ``device`` and ``cfg`` (for both CLIs) let a CPU rehearsal run it."""
+    from virconv_tpu_torch.parallel.fullwidth import compare_preds
     from virconv_tpu_torch.parallel.spawn import run_ranks
     from virconv_tpu_torch.train.eval_loop import eval_one_ckpt
     root = tmp / 'scene'
@@ -3218,16 +3202,10 @@ def dp_cli_phase(tmp, logger, card, tag='phase 14', device='cuda',
     got = ranks[0]['result']
     ok_rank1 = ranks[1]['result'] is None
     ids = [a['frame_id'] for a in got['det_annos']] if got else []
-    counts = [len(a['score']) for a in got['det_annos']] if got else []
-    want_counts = [len(a['score']) for a in one.det_annos]
-    box = max((float(np.abs(a['boxes_lidar'] - b['boxes_lidar']).max())
-               for a, b in zip(got['det_annos'], one.det_annos)
-               if len(a['score']) and len(a['score']) == len(b['score'])),
-              default=0.0) if got else None
-    score = max((float(np.abs(a['score'] - b['score']).max())
-                 for a, b in zip(got['det_annos'], one.det_annos)
-                 if len(a['score']) and len(a['score']) == len(b['score'])),
-                default=0.0) if got else None
+    cmp = compare_preds(got['det_annos'] if got else [], one.det_annos,
+                        boxes='boxes_lidar', scores='score')
+    counts, want_counts = cmp['detections'], cmp['one_process_detections']
+    box, score = cmp['max_box_diff'], cmp['max_score_diff']
     ap = max((abs(got['result'][k] - v) for k, v in
               one.result_dict.items()), default=0.0) if got else None
     evaluation = {'frames': [got['frames'] if got else None],
@@ -3247,7 +3225,7 @@ def dp_cli_phase(tmp, logger, card, tag='phase 14', device='cuda',
             and counts == want_counts):
         fail('the merged distributed evaluation has other frames or '
              'detections than one process')
-    if not (box <= 5e-3 and score <= 2e-3 and ap <= 1e-4
+    if not (cmp['agree'] and ap <= 1e-4
             and got['result'].keys() == one.result_dict.keys()):
         fail('the merged distributed evaluation differs from one process')
     for r in ranks:
@@ -3926,6 +3904,114 @@ def routing_phase(frames, card):
              'dense_tail': dense_tail, 'band_train_off_step': step})
 
 
+# ---- phase 16: the multi-rank tools ----------------------------------------
+
+# the ranks of both multi-rank runs, all on cuda:0 over gloo: the JAX
+# tools' 8 devices
+MR_RANKS = 8
+
+
+def multi_rank_phase(card, device='cuda', cfg=None, ranks=MR_RANKS):
+    """Phase 16, on ``card`` (nvidia-smi's name and power limit), ``ranks``
+    ranks on cuda:0 over gloo: (a) ``entry.dryrun_multichip``: a finite
+    loss, K1 and K4 launched on every rank, and the capacity caps that
+    dropped rows on each rank beside those of one process's step on the
+    same entries (the JAX mesh sizes its caps as one process does); (b)
+    ``parallel.fullwidth.run_fullwidth`` (the full-width VirConv-T step
+    over 8 frames, then the evaluation of 24 entries, merged) with its
+    gates, and its merged prediction dicts against one process's
+    evaluation of the same entries from rank 0's trained weights (the same
+    detection counts per frame, boxes within 5e-3, scores within 2e-3).
+    An out-of-memory error fails the phase. ``device`` and ``cfg`` (the
+    full-width run's) let a CPU rehearsal run it. Returns the numbers."""
+    import torch
+    from virconv_tpu_torch import entry
+    from virconv_tpu_torch.ops import sparse
+    from virconv_tpu_torch.parallel import fullwidth as fw
+    from virconv_tpu_torch.train.trainer import Trainer
+    cuda = device == 'cuda'
+    tag = 'phase 16'
+    if cuda:
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    loss, dry_ranks = entry.dryrun_multichip(ranks, device=device,
+                                             backend='gloo')
+    seconds = time.perf_counter() - t
+    sparse.CAP_LOG = []
+    try:
+        with torch.enable_grad():
+            Trainer(entry.dryrun_config(), device=device, seed=0,
+                    total_steps=entry.DRYRUN_TOTAL_STEPS).step(
+                        entry.dryrun_batch(ranks))
+        one_caps = sparse.CAP_LOG
+    finally:
+        sparse.CAP_LOG = None
+    steps = [r['steps'][0] for r in dry_ranks]
+    dry = {'ranks': ranks, 'backend': 'gloo', 'loss': loss,
+           'seconds': seconds,
+           'step_ms': [s['seconds'] * 1e3 for s in steps],
+           'peak_gib': [(s['peak_bytes'] or 0) / 2 ** 30 for s in steps],
+           'sync_bn_calls': steps[0]['collectives']['moments']['calls'],
+           'launches': [s['launches'] for s in steps],
+           'dropped_rows': [entry.dropped_rows(r['caps'])
+                            for r in dry_ranks],
+           'one_process_dropped_rows': entry.dropped_rows(one_caps)}
+    print(f'[{tag}a] card "{card}": dryrun_multichip({ranks}) over '
+          f'gloo on one card, the small preset: loss {loss!r}, step ms per '
+          f'rank {dry["step_ms"]} ({dry["sync_bn_calls"]} sync-BN '
+          f'all-reduces, untimed), peak GiB per rank {dry["peak_gib"]}, '
+          f'{seconds:.1f} s with the start of the ranks, launches '
+          f'of rank 0 {dry["launches"][0]}', flush=True)
+    print(f'[{tag}a] caps that dropped rows (site, capacity, rows): per '
+          f'rank {dry["dropped_rows"]}; one process on the same '
+          f'{ranks} entries {dry["one_process_dropped_rows"]}', flush=True)
+    if not np.isfinite(loss):
+        fail(f'dryrun_multichip({ranks}): loss {loss}')
+    for r in dry['launches']:
+        if cuda and not (r['band_conv_fwd'] and r['band_conv_dw']):
+            fail(f'a rank of the dry run missed K1 or K4: {r}')
+
+    rec, det = fw.run_fullwidth(ranks, device, 'gloo', cfg=cfg, timeout=600)
+    t = time.perf_counter()
+    want = fw.one_process_eval(det['cfg'], det['ranks'][0]['state_dict'],
+                               det['eval_batch'], ranks, device)
+    cmp = fw.compare_preds(det['pred_dicts'], want)
+    results = det['ranks']
+
+    def coll(r, kind):
+        c = r['train']['collectives'][kind]
+        return {'calls': c['calls'], 'bytes': c['bytes'],
+                'ms': c['seconds'] * 1e3}
+    report = {
+        'card': card, 'record': rec, 'dryrun': dry,
+        'sync_bn': [coll(r, 'moments') for r in results],
+        'grad_allreduce': [coll(r, 'grads') for r in results],
+        'train_launches': [r['train']['launches'] for r in results],
+        'eval_s': [r['eval']['seconds'] for r in results],
+        'eval_peak_gib': [(r['eval']['peak_bytes'] or 0) / 2 ** 30
+                          for r in results],
+        'eval_launches': [r['eval']['launches'] for r in results],
+        'one_process': {**cmp, 'seconds': time.perf_counter() - t}}
+    print(f'[{tag}b] card "{card}": the full-width VirConv-T run over '
+          f'{ranks} ranks on one card over gloo: {json.dumps(rec)}',
+          flush=True)
+    print(f'[{tag}b] per rank: step s {rec["step_s"]} (collectives '
+          f'synchronized and timed), peak GiB {rec["peak_gib"]}, sync-BN '
+          f'{json.dumps(report["sync_bn"][0])} on rank 0 (ms per rank '
+          f'{[c["ms"] for c in report["sync_bn"]]}), gradient all-reduce '
+          f'ms {[c["ms"] for c in report["grad_allreduce"]]}, training '
+          f'launches {report["train_launches"]}; evaluation s '
+          f'{report["eval_s"]}, peak GiB {report["eval_peak_gib"]}, '
+          f'launches {report["eval_launches"]}', flush=True)
+    print(f'[{tag}b] merged dicts vs one process (rank 0\'s weights, a '
+          f'rank\'s share per forward: this checks that every rank held '
+          f'rank 0\'s weights and the merge kept rank order, not the '
+          f'split): {json.dumps(report["one_process"])}', flush=True)
+    if not cmp['agree']:
+        fail('the merged evaluation of the ranks differs from one process')
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4081,7 +4167,11 @@ def main():
     # ---- phase 15: the JAX package's routing switches ----------------------
     # (TF32 still off, as set for phase 4)
     r_cases, r_counts, routing = routing_phase(frames, card)
-    phase_done(15, t0)
+    t0 = phase_done(15, t0)
+
+    # ---- phase 16: the multi-rank tools, every rank on this card ----------
+    multi_rank = multi_rank_phase(card)
+    phase_done(16, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -4244,7 +4334,8 @@ def main():
                       'cases_cspn': vp_cases, 'precision': precision,
                       'cases_precision': p_cases,
                       'data_parallel': data_parallel, 'routing': routing,
-                      'cases_routing': r_cases}), flush=True)
+                      'cases_routing': r_cases, 'multi_rank': multi_rank}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -59,15 +59,17 @@ EVAL_MODULES = (
     'virconv_tpu_torch.models.depth_completion.virtual_points',
     'virconv_tpu_torch.parallel', 'virconv_tpu_torch.parallel.dist',
     'virconv_tpu_torch.parallel.data_parallel',
-    'virconv_tpu_torch.parallel.spawn')
+    'virconv_tpu_torch.parallel.spawn',
+    'virconv_tpu_torch.parallel.fullwidth', 'virconv_tpu_torch.entry')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'virconv_tpu', 'triton',
              'cv2', 'yaml', 'orbax')
 
 
 def test_import_loads_no_jax_and_no_jax_package():
-    """Every module of the port, tools/test_gpu.py, tools/train_gpu.py and
-    tools/generate_virtual_points_gpu.py import without JAX, the JAX
-    package, an image library, YAML or orbax."""
+    """Every module of the port, tools/test_gpu.py, tools/train_gpu.py,
+    tools/generate_virtual_points_gpu.py and tools/run_fullwidth_dp_gpu.py
+    import without JAX, the JAX package, an image library, YAML or
+    orbax."""
     code = (
         'import sys, runpy, virconv_tpu_torch, virconv_tpu_torch.serve, '
         'virconv_tpu_torch.train.trainer, virconv_tpu_torch.train.optim, '
@@ -80,6 +82,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "runpy.run_path('tools/test_gpu.py', run_name='imported')\n"
         "runpy.run_path('tools/train_gpu.py', run_name='imported')\n"
         "runpy.run_path('tools/generate_virtual_points_gpu.py', "
+        "run_name='imported')\n"
+        "runpy.run_path('tools/run_fullwidth_dp_gpu.py', "
         "run_name='imported')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -100,7 +104,8 @@ def test_sources_import_no_jax():
     files = sorted(PKG.rglob('*.py')) + [
         ROOT / 'chip_smoke.py', ROOT / 'tools' / 'test_gpu.py',
         ROOT / 'tools' / 'train_gpu.py',
-        ROOT / 'tools' / 'generate_virtual_points_gpu.py']
+        ROOT / 'tools' / 'generate_virtual_points_gpu.py',
+        ROOT / 'tools' / 'run_fullwidth_dp_gpu.py']
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in _IMPORT.finditer(f.read_text())]

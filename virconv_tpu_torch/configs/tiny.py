@@ -8,7 +8,9 @@ plain versions on a whole model (``chip_smoke.py`` phases 4, 7, 9b, 10b and
 11d, ``tests/test_torch_cuda.py``), and for training and evaluating on the
 CPU in the tests. ``tiny_l_config`` is VirConv-L's structure (the fused
 single stream, one refinement stage, no PART, no test-time replicas) at
-the same widths (``tiny_cfg(mm=False)``'s).
+the same widths (``tiny_cfg(mm=False)``'s). ``small_config`` is the tiny
+detector at narrower widths, the preset of the multi-rank dry run
+(``entry.dryrun_multichip``).
 """
 
 from __future__ import annotations
@@ -53,6 +55,55 @@ def tiny_config():
     rh.PART.IN_CHANNEL = 64
     rh.PART.GRID_OFFSETS = [0., 8.]
     rh.PART.FEATMAP_STRIDE = 0.8
+    return cfg
+
+
+# the suggested points per entry of a ``small_config`` batch
+SMALL_N_PTS = 512
+
+
+def small_config():
+    """``tiny_config()`` at the widths of the JAX package's width-shrunk
+    "small" preset (``tests/test_model_forward.py::shrink_cfg``, which
+    ``__graft_entry__.dryrun_multichip`` steps on its mesh): the same
+    modules and parameter names, narrower layers, fewer ROIs, 1024 voxels,
+    and ``tiny_cfg``'s ROI target stages, so that its training step is the
+    JAX preset's.
+    Batches of it take ``SMALL_N_PTS`` points per entry."""
+    cfg = tiny_config()
+    m = cfg.MODEL
+    b3 = m.BACKBONE_3D
+    b3.NUM_FILTERS = [8, 8, 16, 16]
+    b3.OUT_FEATURES = 16
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 32
+    b2 = m.BACKBONE_2D
+    b2.NUM_FILTERS = [16, 32]
+    b2.NUM_UPSAMPLE_FILTERS = [16, 16]
+    m.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.SAMPLE_SIZE = 256
+    rh = m.ROI_HEAD
+    rh.PART.IN_CHANNEL = 32
+    rh.SHARED_FC = [32, 32]
+    rh.CLS_FC = [32, 32]
+    rh.REG_FC = [32, 32]
+    for mode in ('TRAIN', 'TEST'):
+        rh.NMS_CONFIG[mode].NMS_PRE_MAXSIZE = 64
+        rh.NMS_CONFIG[mode].NMS_POST_MAXSIZE = 16
+    for s in ('STAGE0', 'STAGE1'):
+        # the JAX tests' one target stage for both (``tiny_cfg``'s), where
+        # the shipped config leaves stage 0 without hard sampling and
+        # sets stage 1's REG_FG_THRESH 0.55
+        t = rh.TARGET_CONFIG[s]
+        t.ROI_PER_IMAGE = 16
+        t.REG_FG_THRESH = [0.5]
+        t.ENABLE_HARD_SAMPLING = True
+    for key in ('ROI_GRID_POOL', 'ROI_GRID_POOL_MM'):
+        rh[key].GRID_SIZE = 3
+        for lc in rh[key].POOL_LAYERS.values():
+            lc.QUERY_RANGES = [[1, 1, 1], [2, 2, 2]]
+            lc.NSAMPLE = [4, 4]
+            lc.MLPS = [[8, 8], [8, 8]]
+    cfg.DATA_CONFIG.DATA_PROCESSOR[2].MAX_NUMBER_OF_VOXELS = {
+        'train': 1024, 'test': 1024}
     return cfg
 
 

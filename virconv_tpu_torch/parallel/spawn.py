@@ -15,6 +15,11 @@ global batch (``data_parallel.shard_frames``) with its share of the
 one-process step's draws (``Draws.for_rank``), and returns the loss, the
 terms, the gradients, the parameters, the buffers and what the capacity
 caps were asked to hold. Several ranks may share one CUDA card over gloo.
+
+``rank_backend`` picks the backend and the ranks' devices: NCCL puts rank
+r on ``cuda:r`` and needs a card per rank; gloo puts every rank on
+``cuda:0``, the only way to run several ranks on one card (NCCL refuses
+two ranks on one device), or on the CPU.
 """
 
 from __future__ import annotations
@@ -94,6 +99,61 @@ def run_ranks(fn, world: int, payload, backend='gloo', timeout=600.0,
         return results
 
 
+def rank_backend(world: int, device='cuda', backend=None):
+    """(backend, device) of ``world`` ranks asked for on ``device`` with
+    ``backend``: "nccl" gives device "cuda", which ``rank_device`` reads as
+    ``cuda:<rank>``, and raises with fewer cards than ranks; "gloo" gives
+    ``cuda:0`` for every rank (or "cpu"); None picks nccl when every rank
+    has a card of its own, else gloo. Raises when CUDA is asked for and
+    absent; on the CPU only gloo runs."""
+    from .. import resolve_device
+    if resolve_device(device).type == 'cpu':
+        if backend not in (None, 'gloo'):
+            raise ValueError(f'backend {backend!r} on the CPU: only gloo '
+                             'runs there')
+        return 'gloo', 'cpu'
+    cards = torch.cuda.device_count()
+    if backend is None:
+        backend = 'nccl' if cards >= world else 'gloo'
+    if backend == 'nccl':
+        if cards < world:
+            raise RuntimeError(
+                f'nccl puts rank r on cuda:r: {world} ranks need {world} '
+                f'cards, this machine has {cards} (gloo shares cuda:0)')
+        return 'nccl', 'cuda'
+    if backend != 'gloo':
+        raise ValueError(f'unknown backend {backend!r}')
+    return 'gloo', 'cuda:0'
+
+
+def rank_device(device: str, rank: int) -> str:
+    """The device of rank ``rank`` from ``rank_backend``'s: "cuda" is
+    ``cuda:<rank>``, any other is kept."""
+    return f'cuda:{rank}' if device == 'cuda' else device
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count a rank reads set to 0."""
+    from ..ops import band_conv, gather_rows, nmap_conv, roi_pool
+    band_conv.launches = band_conv.dw_launches = 0
+    band_conv.patch_launches = roi_pool.launches = 0
+    nmap_conv.launches = nmap_conv.dw_launches = 0
+    gather_rows.launches = gather_rows.bwd_launches = 0
+
+
+def launch_counts():
+    """The launch counts ``reset_launches`` set to 0, by kernel."""
+    from ..ops import band_conv, gather_rows, nmap_conv, roi_pool
+    return {'band_conv_fwd': band_conv.launches,
+            'band_conv_dw': band_conv.dw_launches,
+            'band_conv_patch': band_conv.patch_launches,
+            'roi_pool_fwd': roi_pool.launches,
+            'nmap_conv': nmap_conv.launches,
+            'nmap_conv_dw': nmap_conv.dw_launches,
+            'gather_rows': gather_rows.launches,
+            'gather_rows_bwd': gather_rows.bwd_launches}
+
+
 def _cpu(x):
     if torch.is_tensor(x):
         return x.detach().cpu()
@@ -106,7 +166,8 @@ def step_rank(rank, world, payload):
     """Data-parallel training steps on rank ``rank`` (module docstring).
     ``payload``: cfg, state_dict, batch (the global batch, numpy), draws
     (the per-rank ``Draws`` list, replayed by the first step) or None (the
-    ranks' own generators), device, and optionally entries_per_frame,
+    ranks' own generators), device (``rank_device``'s input), and
+    optionally entries_per_frame,
     seed, total_steps, steps (default 1), timing (``data_parallel.TIMING``,
     one for all steps or a list, one a step) and setup (an importable
     ``setup(rank, world, payload)`` called first, which may patch the
@@ -114,11 +175,10 @@ def step_rank(rank, world, payload):
     gradients, parameters, buffers and capacity-cap records, and per step
     its seconds, loss, peak memory,
     collectives (calls, bytes, seconds) and kernel launches."""
-    from ..ops import band_conv, gather_rows
     from ..ops import sparse as sp
     from . import data_parallel as dp
     from ..train.trainer import Trainer
-    device = payload['device']
+    device = rank_device(payload['device'], rank)
     cuda = device.startswith('cuda')
     if cuda:
         torch.cuda.set_device(torch.device(device))
@@ -140,9 +200,7 @@ def step_rank(rank, world, payload):
         dp.TIMING = timing[step] if isinstance(timing, (list, tuple)) \
             else timing
         dp.reset_counts()
-        band_conv.launches = band_conv.dw_launches = 0
-        band_conv.patch_launches = 0
-        gather_rows.launches = gather_rows.bwd_launches = 0
+        reset_launches()
         sp.CAP_LOG = [] if step == 0 else None
         if cuda:
             torch.cuda.synchronize()
@@ -158,11 +216,7 @@ def step_rank(rank, world, payload):
             else None,
             'collectives': {k: {**v, 'seconds': dp.SECONDS[k]}
                             for k, v in dp.COUNTS.items()},
-            'launches': {'band_conv_fwd': band_conv.launches,
-                         'band_conv_dw': band_conv.dw_launches,
-                         'band_conv_patch': band_conv.patch_launches,
-                         'gather_rows': gather_rows.launches,
-                         'gather_rows_bwd': gather_rows.bwd_launches}})
+            'launches': launch_counts()})
         if step == 0:
             first = {'loss': loss, 'tb': _cpu(tb), 'caps': sp.CAP_LOG,
                      'grads': {n: _cpu(p.grad) for n, p in

@@ -27,7 +27,10 @@ operands per request, the requests, steps and the ODIoU step); phase
 14's data-parallel rehearsal (2 ranks on one card over gloo: step ms per
 rank, the gradient and sync-BN all-reduces per step, peak memory, the
 comparison with one process, the distributed evaluation and training
-CLI); and phase 8's sums by layer shape (K, C -> C'). A row a log lacks
+CLI); phase 16's multi-rank tools (the full-width run's step seconds,
+sync-BN and gradient all-reduce ms, peak memory and evaluation seconds
+per rank, its merged dicts against one process, the dry run's step per
+rank); and phase 8's sums by layer shape (K, C -> C'). A row a log lacks
 (an older chip_smoke) shows as '-'. Times are the card's, as chip_smoke
 measured them; nothing here runs on a card.
 """
@@ -288,6 +291,26 @@ def rows_of(data):
         out.append(('data parallel train_gpu (2 ranks): ms per step, rank 0',
                     ' '.join(f'{t:.1f}' for t in
                              dp['train_cli']['ms_per_step'][0])))
+    mr = data.get('multi_rank')              # phase 16 (absent before)
+    if mr is not None:
+        rec, dry = mr['record'], mr['dryrun']
+        tag = f'multi-rank ({rec["devices"]} ranks, one card, gloo)'
+        for label, vals, fmt in (
+                ('full-width step s per rank', rec['step_s'], '.2f'),
+                ('sync-BN ms per rank', [c['ms'] for c in mr['sync_bn']],
+                 '.0f'),
+                ('gradient all-reduce ms per rank',
+                 [c['ms'] for c in mr['grad_allreduce']], '.1f'),
+                ('peak GiB per rank', rec['peak_gib'], '.3f'),
+                ('evaluation s per rank', mr['eval_s'], '.3f'),
+                (f'dry run ({dry["ranks"]} ranks) ms per step per rank',
+                 dry['step_ms'], '.0f')):
+            out.append((f'{tag} {label}', ' '.join(
+                format(v, fmt) for v in vals)))
+        one = mr['one_process']
+        out.append((f'{tag} loss, merged vs one process: box, score diff',
+                    f'{rec["loss"]:.4f} {one["max_box_diff"]:.3g} '
+                    f'{one["max_score_diff"]:.3g}'))
     vs = data.get('virconv_s')
     if vs is not None:
         out.append(('VirConv-S train_gpu ms per step', ' '.join(

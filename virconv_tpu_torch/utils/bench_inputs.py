@@ -18,7 +18,7 @@ import numpy as np
 
 from ..datasets.dataset import (LIDAR, VIRTUAL, fuse_streams,
                                 input_point_discard)
-from .calibration import Calibration
+from .calibration import Calibration, identity_calib
 from .synth_scene import fused_cloud, make_scene
 from .transforms import transform_boxes_np, transform_points_np
 
@@ -201,3 +201,43 @@ def train_batch_for(cfg, seed=0):
     if cfg.MODEL.BACKBONE_3D.get('MM', False):
         return train_batch(seed=seed, rot_num=cfg.MODEL.ROI_HEAD.ROT_NUM)
     return train_batch_l(seed=seed)
+
+
+def tiny_batch(rng, n_entries=1, n_pts=1500, train=True, n_rep=1):
+    """The batch of the JAX package's model tests (``tests/
+    test_model_forward.py::make_batch``, whose arrays it gives bit for bit):
+    ``n_pts`` uniform points per entry in the tiny range, both streams the
+    same, the last 50 invalid, two gt boxes per frame. ``train``:
+    ``trans_params`` of one augmentation; else ``n_rep`` test-time replicas
+    per frame (``transform_param``). Draws from ``rng``, a numpy
+    ``Generator``."""
+    pcr = [0, -8, -3, 16, 8, 1]
+    v2r, p2t = identity_calib(fu=200.0, fv=200.0, cu=700.0,
+                              cv=300.0).device_matrices()
+    pts = rng.uniform([pcr[0], pcr[1], pcr[2], 0, 0, 0, 0, 1],
+                      [pcr[3], pcr[4], pcr[5], 1, 1, 1, 1, 2.01],
+                      (n_entries, n_pts, 8)).astype(np.float32)
+    pts[..., 7] = np.round(pts[..., 7])
+    valid = np.ones((n_entries, n_pts), bool)
+    valid[:, -50:] = False
+    frames = n_entries // n_rep
+    gt = np.zeros((frames, 6, 8), np.float32)
+    gt[:, 0] = [4, 0, -1, 3.9, 1.6, 1.56, 0.3, 1]
+    gt[:, 1] = [10, 3, -1, 3.9, 1.6, 1.56, -0.5, 1]
+    gt_valid = np.zeros((frames, 6), bool)
+    gt_valid[:, :2] = True
+    batch = {'points': pts, 'points_valid': valid, 'points_mm': pts.copy(),
+             'points_mm_valid': valid.copy(),
+             'v2r': np.tile(v2r, (n_entries, 1, 1)),
+             'p2t': np.tile(p2t, (n_entries, 1, 1)),
+             'gt_boxes': gt, 'gt_valid': gt_valid}
+    if train:
+        batch['trans_params'] = np.tile(
+            np.array([[0.1, 1.0, 1.01]], np.float32), (n_entries, 1))
+        batch['transform_param'] = None
+    else:
+        params = np.array([[0.3, 0.0, 0.98], [0.3, 1.0, 1.02]],
+                          np.float32)[:n_rep]
+        batch['transform_param'] = np.tile(params[None], (frames, 1, 1))
+        batch['trans_params'] = np.tile(params, (frames, 1))
+    return batch
