@@ -1,0 +1,6 @@
+"""Host ms per request inside the program's 'rpn' span (the model's layer at inference)."""
+from benchlib.readers import span_ms
+
+
+def read(s):
+    return span_ms(s, 'infer', 'rpn')
