@@ -14,6 +14,7 @@ from ...config import CfgNode
 from ...ops import boxes as box_ops
 from ...ops.odiou import odiou_3d_weighted
 from ...parallel import data_parallel as dp
+from ...utils import trace
 
 
 def generate_anchors(point_cloud_range, grid_size, stride, anchor_sizes,
@@ -206,7 +207,7 @@ class AnchorHeadSingle(nn.Module):
         scores = torch.sigmoid(cls_preds.amax(-1))
         roi_labels = cls_preds.argmax(-1) + 1
         sels, valids = [], []
-        with torch.no_grad():                 # selection only
+        with torch.no_grad(), trace.span('rpn.nms'):   # selection only
             for i in range(b):
                 sel, valid = box_ops.nms_bev(
                     batch_boxes[i], scores[i], nms_cfg['thresh'],
@@ -229,10 +230,11 @@ class AnchorHeadSingle(nn.Module):
             'keep': sel,
         }
         if self.training:
-            tgt = [assign_anchor_targets(
-                self.anchors, gt_boxes[i], gt_valid[i], self.coder,
-                self.matched_threshold, self.unmatched_threshold)
-                for i in range(b)]
+            with trace.span('rpn.anchor_targets'):
+                tgt = [assign_anchor_targets(
+                    self.anchors, gt_boxes[i], gt_valid[i], self.coder,
+                    self.matched_threshold, self.unmatched_threshold)
+                    for i in range(b)]
             tgt = {k: torch.stack([t[k] for t in tgt]) for k in tgt[0]}
             tgt['labels'] = torch.where(amask_flat[None, :], tgt['labels'],
                                         torch.full_like(tgt['labels'], -1))

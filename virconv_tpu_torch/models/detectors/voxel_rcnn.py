@@ -25,10 +25,10 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ...config import CfgNode
 from ...ops import sparse as sp
+from ...utils import trace
 from ..backbones_2d.bev import BaseBEVBackbone, height_compression
 from ..backbones_3d.virconv import VirConv8x, VirConvL8x
 from ..dense_heads.anchor_head import AnchorHeadSingle
@@ -123,7 +123,7 @@ class VoxelRCNN(nn.Module):
         tp = batch.get('transform_param')
         n_rep = tp.shape[1] if tp is not None else 1
         b = n_entries // n_rep
-        with record_function('voxelize'):
+        with trace.span('voxelize'):
             st = self.voxelize(points, batch['points_valid'], n_entries,
                                self.indicator_max, mode)
             if self.is_mm:
@@ -132,7 +132,7 @@ class VoxelRCNN(nn.Module):
                 st_mm = self.voxelize(batch['points_mm'],
                                       batch['points_mm_valid'], n_entries,
                                       False, mode)
-        with record_function('backbone_3d'):
+        with trace.span('backbone_3d'):
             streams = (st, st_mm) if self.is_mm else (st,)
             bb = self.backbone(*streams, batch['v2r'], batch['p2t'],
                                batch.get('trans_params'), bf16, rng)
@@ -152,18 +152,18 @@ class VoxelRCNN(nn.Module):
                 coords=torch.where(keep[:, None], coords,
                                    torch.full_like(coords, -1)),
                 mask=keep, spatial_shape=enc.spatial_shape, batch_size=b)
-        with record_function('bev'):
+        with trace.span('bev'):
             bev_feats = self.bev_backbone(height_compression(enc))
 
         # anchor mask source: replica-0 points of the whole batch
         pts0 = points.reshape(b, n_rep, *points.shape[1:])[:, 0]
         pv0 = batch['points_valid'].reshape(b, n_rep, -1)[:, 0]
-        with record_function('rpn'):
+        with trace.span('rpn'):
             rpn = self.dense_head(bev_feats, pts0[..., 0:2].reshape(-1, 2),
                                   pv0.reshape(-1), self.nms_cfg[mode],
                                   batch.get('gt_boxes'),
                                   batch.get('gt_valid'))
-        with record_function('roi_head'):
+        with trace.span('roi_head'):
             roi_out = self.roi_head(
                 bb['multi_scale_3d_features'], feats_mm,
                 bb['multi_scale_3d_strides'], rpn, bev_feats, tp, bf16,
@@ -176,7 +176,7 @@ class VoxelRCNN(nn.Module):
                'bev_feats': bev_feats, 'backbone': bb}
         if train:
             rpn_lw, rcnn_lw = self.loss_weights
-            with record_function('loss'):
+            with trace.span('loss'):
                 rpn_loss, rpn_tb = self.dense_head.loss(
                     rpn, rpn_lw, rpn_lw['code_weights'])
                 rcnn_loss, rcnn_tb = self.roi_head.loss(

@@ -25,6 +25,7 @@ from torch import nn
 from ...config import CfgNode
 from ...ops import boxes as box_ops
 from ...parallel import data_parallel as dp
+from ...utils import trace
 from ...utils import transforms as tr
 from ..layers import DenseConvBlock, MaskedBatchNorm
 from .target_assign import proposal_targets
@@ -224,35 +225,41 @@ class TEDMHead(nn.Module):
 
     def _roi_grid_pool(self, name, pool_cfg, feats_3d, strides, rois,
                        roi_valid, entry_idx, tables, bf16):
-        b, n = rois.shape[0], rois.shape[1]
-        g = pool_cfg.GRID_SIZE
-        dev = rois.device
-        grid_xyz = dense_grid_points(rois.reshape(-1, rois.shape[-1]), g)
-        grid_xyz = grid_xyz.reshape(b, n * g ** 3, 3)
-        qmask = roi_valid.reshape(b, n).repeat_interleave(g ** 3, 1)
-        pcr = torch.as_tensor(self.point_cloud_range[:3], dtype=torch.float32,
-                              device=dev)
-        vs = torch.as_tensor(self.voxel_size, dtype=torch.float32, device=dev)
-        base = torch.floor((grid_xyz - pcr) / vs).to(torch.int32)
-        outs = []
-        for src in pool_cfg.FEATURES_SOURCE:
-            st = feats_3d[src]
-            stride = strides[src]
-            cz, cy, cx = (torch.div(base[..., i], stride,
-                                    rounding_mode='floor') for i in (2, 1, 0))
-            be = entry_idx[:, None].expand(b, n * g ** 3).to(torch.int32)
-            qc = torch.stack([be, cz, cy, cx], -1).reshape(-1, 4)
-            key = (name, src)
+        with trace.span('roi_head.grid_pool'):
+            b, n = rois.shape[0], rois.shape[1]
+            g = pool_cfg.GRID_SIZE
+            dev = rois.device
+            grid_xyz = dense_grid_points(rois.reshape(-1, rois.shape[-1]),
+                                         g)
+            grid_xyz = grid_xyz.reshape(b, n * g ** 3, 3)
+            qmask = roi_valid.reshape(b, n).repeat_interleave(g ** 3, 1)
+            pcr = torch.as_tensor(self.point_cloud_range[:3],
+                                  dtype=torch.float32, device=dev)
+            vs = torch.as_tensor(self.voxel_size, dtype=torch.float32,
+                                 device=dev)
+            base = torch.floor((grid_xyz - pcr) / vs).to(torch.int32)
+            outs = []
+            for src in pool_cfg.FEATURES_SOURCE:
+                st = feats_3d[src]
+                stride = strides[src]
+                cz, cy, cx = (torch.div(base[..., i], stride,
+                                        rounding_mode='floor')
+                              for i in (2, 1, 0))
+                be = entry_idx[:, None].expand(b, n * g ** 3).to(torch.int32)
+                qc = torch.stack([be, cz, cy, cx], -1).reshape(-1, 4)
+                key = (name, src)
 
-            def table_fn(st=st, key=key):
-                if key not in tables:
-                    tables[key] = build_pool_tables(st)
-                return tables[key]
-            outs.append(getattr(self, f'{name}_{src}')(
-                st, stride, grid_xyz.reshape(-1, 3), qc, qmask.reshape(-1),
-                table_fn=table_fn, q_per_roi=g ** 3, bf16=bf16))
-        pooled = torch.cat(outs, -1)
-        return pooled.reshape(b * n, -1), qmask.reshape(b * n, g ** 3)[:, 0]
+                def table_fn(st=st, key=key):
+                    if key not in tables:
+                        tables[key] = build_pool_tables(st)
+                    return tables[key]
+                outs.append(getattr(self, f'{name}_{src}')(
+                    st, stride, grid_xyz.reshape(-1, 3), qc,
+                    qmask.reshape(-1), table_fn=table_fn, q_per_roi=g ** 3,
+                    bf16=bf16))
+            pooled = torch.cat(outs, -1)
+            return (pooled.reshape(b * n, -1),
+                    qmask.reshape(b * n, g ** 3)[:, 0])
 
     def _part_scores(self, parts_feat, rois_score):
         cfg = self.cfg.PART

@@ -28,6 +28,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
+
 INVALID_KEY = 2 ** 31 - 1
 # rows each capacity cap was asked to hold: (site, capacity, rows) appended
 # by ``voxelize`` and ``downsample_coords`` while it is a list (a host
@@ -350,73 +352,74 @@ def downsample_coords(st: SparseTensor, stride, padding, kernel_size,
     """Output sites of a strided sparse conv (spconv SparseConv3d rule),
     sorted by key and compacted to ``out_capacity``. Feats are a (cap, 1)
     zero placeholder."""
-    ndim = st.ndim
-    stride = _triple(stride, ndim)
-    padding = _triple(padding, ndim)
-    kernel_size = _triple(kernel_size, ndim)
-    out_shape = tuple(
-        (st.spatial_shape[i] + 2 * padding[i] - kernel_size[i]) // stride[i]
-        + 1 for i in range(ndim))
-    key_mul, m_total = key_strides(out_shape)
-    if st.batch_size * m_total >= 2 ** 31:
-        raise ValueError('out key space overflows int32')
-    dev = st.coords.device
-    cand_per_dim, n_cand_per_dim = [], []
-    for i in range(ndim):
-        p = st.coords[:, i + 1] + padding[i]
-        lo = -torch.div(-(p - kernel_size[i] + 1), stride[i],
-                        rounding_mode='floor')
-        hi = torch.div(p, stride[i], rounding_mode='floor')
-        max_c = (kernel_size[i] + stride[i] - 1) // stride[i]
-        c = lo[:, None] + torch.arange(max_c, dtype=torch.int32,
-                                       device=dev)[None]
-        valid = (c <= hi[:, None]) & (c >= 0) & (c < out_shape[i])
-        cand_per_dim.append(torch.where(valid, c * key_mul[i],
-                                        torch.full_like(c, -1)))
-        n_cand_per_dim.append(max_c)
-    total = int(np.prod(n_cand_per_dim))
-    n = st.capacity
-    key = torch.zeros((n, total), dtype=torch.int32, device=dev)
-    ok = st.mask[:, None].expand(n, total)
-    rep = total
-    for i in range(ndim):
-        rep //= n_cand_per_dim[i]
-        tile = total // (rep * n_cand_per_dim[i])
-        col = cand_per_dim[i].repeat_interleave(rep, dim=1).repeat(1, tile)
-        ok = ok & (col >= 0)
-        key = key + col.clamp(min=0)
-    key = key + st.coords[:, :1] * m_total
-    keys = torch.where(ok, key, _full_like_invalid(key)).reshape(-1)
+    with trace.span('sparse_plan'):
+        ndim = st.ndim
+        stride = _triple(stride, ndim)
+        padding = _triple(padding, ndim)
+        kernel_size = _triple(kernel_size, ndim)
+        out_shape = tuple(
+            (st.spatial_shape[i] + 2 * padding[i] - kernel_size[i])
+            // stride[i] + 1 for i in range(ndim))
+        key_mul, m_total = key_strides(out_shape)
+        if st.batch_size * m_total >= 2 ** 31:
+            raise ValueError('out key space overflows int32')
+        dev = st.coords.device
+        cand_per_dim, n_cand_per_dim = [], []
+        for i in range(ndim):
+            p = st.coords[:, i + 1] + padding[i]
+            lo = -torch.div(-(p - kernel_size[i] + 1), stride[i],
+                            rounding_mode='floor')
+            hi = torch.div(p, stride[i], rounding_mode='floor')
+            max_c = (kernel_size[i] + stride[i] - 1) // stride[i]
+            c = lo[:, None] + torch.arange(max_c, dtype=torch.int32,
+                                           device=dev)[None]
+            valid = (c <= hi[:, None]) & (c >= 0) & (c < out_shape[i])
+            cand_per_dim.append(torch.where(valid, c * key_mul[i],
+                                            torch.full_like(c, -1)))
+            n_cand_per_dim.append(max_c)
+        total = int(np.prod(n_cand_per_dim))
+        n = st.capacity
+        key = torch.zeros((n, total), dtype=torch.int32, device=dev)
+        ok = st.mask[:, None].expand(n, total)
+        rep = total
+        for i in range(ndim):
+            rep //= n_cand_per_dim[i]
+            tile = total // (rep * n_cand_per_dim[i])
+            col = cand_per_dim[i].repeat_interleave(rep, dim=1).repeat(1, tile)
+            ok = ok & (col >= 0)
+            key = key + col.clamp(min=0)
+        key = key + st.coords[:, :1] * m_total
+        keys = torch.where(ok, key, _full_like_invalid(key)).reshape(-1)
 
-    srt = torch.sort(keys).values
-    is_first = torch.ones_like(srt, dtype=torch.bool)
-    is_first[1:] = srt[1:] != srt[:-1]
-    out_keys = torch.sort(torch.where(is_first, srt,
-                                      _full_like_invalid(srt))).values
-    if CAP_LOG is not None:
-        CAP_LOG.append(('downsample', out_capacity,
-                        int((out_keys != INVALID_KEY).sum())))
-    if out_capacity <= out_keys.shape[0]:
-        out_keys = out_keys[:out_capacity]
-    else:
-        out_keys = torch.cat([out_keys, torch.full(
-            (out_capacity - out_keys.shape[0],), INVALID_KEY,
-            dtype=torch.int32, device=dev)])
-    out_mask = out_keys != INVALID_KEY
-    safe = torch.where(out_mask, out_keys, torch.zeros_like(out_keys))
-    cols = [torch.div(safe, m_total, rounding_mode='floor')]
-    for i in range(ndim):
-        cols.append(torch.div(safe, key_mul[i], rounding_mode='floor')
-                    % out_shape[i])
-    out_coords = torch.where(out_mask[:, None],
-                             torch.stack(cols, 1).to(torch.int32),
-                             torch.full((out_capacity, ndim + 1), -1,
-                                        dtype=torch.int32, device=dev))
-    return SparseTensor(
-        feats=torch.zeros((out_capacity, 1), dtype=st.feats.dtype,
-                          device=dev),
-        coords=out_coords, mask=out_mask, spatial_shape=out_shape,
-        batch_size=st.batch_size)
+        srt = torch.sort(keys).values
+        is_first = torch.ones_like(srt, dtype=torch.bool)
+        is_first[1:] = srt[1:] != srt[:-1]
+        out_keys = torch.sort(torch.where(is_first, srt,
+                                          _full_like_invalid(srt))).values
+        if CAP_LOG is not None:
+            CAP_LOG.append(('downsample', out_capacity,
+                            int((out_keys != INVALID_KEY).sum())))
+        if out_capacity <= out_keys.shape[0]:
+            out_keys = out_keys[:out_capacity]
+        else:
+            out_keys = torch.cat([out_keys, torch.full(
+                (out_capacity - out_keys.shape[0],), INVALID_KEY,
+                dtype=torch.int32, device=dev)])
+        out_mask = out_keys != INVALID_KEY
+        safe = torch.where(out_mask, out_keys, torch.zeros_like(out_keys))
+        cols = [torch.div(safe, m_total, rounding_mode='floor')]
+        for i in range(ndim):
+            cols.append(torch.div(safe, key_mul[i], rounding_mode='floor')
+                        % out_shape[i])
+        out_coords = torch.where(out_mask[:, None],
+                                 torch.stack(cols, 1).to(torch.int32),
+                                 torch.full((out_capacity, ndim + 1), -1,
+                                            dtype=torch.int32, device=dev))
+        return SparseTensor(
+            feats=torch.zeros((out_capacity, 1), dtype=st.feats.dtype,
+                              device=dev),
+            coords=out_coords, mask=out_mask, spatial_shape=out_shape,
+            batch_size=st.batch_size)
 
 
 def build_strided_neighbor_map(st_in, st_out, stride, padding, kernel_size):
@@ -474,21 +477,23 @@ def nmap_subm_conv_ctx(st: SparseTensor, kernel_size):
     """Training conv function ``conv(feats, weights)`` of a submanifold conv
     on the neighbor map (any row order; the NRConv 2D image-plane tensor).
     The transpose map of a centered kernel is the tap-reversed map."""
-    nmap = build_subm_neighbor_map(st, kernel_size)
-    tmap = nmap.flip(1)
-    return lambda feats, weights: gathered_conv_train(
-        feats, weights, nmap, tmap, st.mask, st.mask)
+    with trace.span('sparse_plan'):
+        nmap = build_subm_neighbor_map(st, kernel_size)
+        tmap = nmap.flip(1)
+        return lambda feats, weights: gathered_conv_train(
+            feats, weights, nmap, tmap, st.mask, st.mask)
 
 
 def nmap_strided_conv_ctx(st_in, st_out, stride, padding, kernel_size):
     """Training conv function ``conv(feats, weights)`` of a strided conv on
     the neighbor map, with the transpose map for its backward."""
-    nmap = build_strided_neighbor_map(st_in, st_out, stride, padding,
-                                      kernel_size)
-    tmap = build_strided_transpose_map(st_in, st_out, stride, padding,
-                                       kernel_size)
-    return lambda feats, weights: gathered_conv_train(
-        feats, weights, nmap, tmap, st_out.mask, st_in.mask)
+    with trace.span('sparse_plan'):
+        nmap = build_strided_neighbor_map(st_in, st_out, stride, padding,
+                                          kernel_size)
+        tmap = build_strided_transpose_map(st_in, st_out, stride, padding,
+                                           kernel_size)
+        return lambda feats, weights: gathered_conv_train(
+            feats, weights, nmap, tmap, st_out.mask, st_in.mask)
 
 
 # --------------------------------------------------------------------------
@@ -706,31 +711,32 @@ def _subm_conv_train_ctx(st, kernel_size, tile, block, bf16):
     tensor is convolved in key order and its rows are put back, so the
     band kernels run where the JAX package's ctx would fall back to the
     neighbor map (same values)."""
-    keys = st.keys()
-    if not bool((keys[1:] >= keys[:-1]).all()):
-        st_s, perm = sort_by_key_with_perm(st)
-        inv = torch.argsort(perm)
-        conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block, bf16)
-        return lambda feats, weights: conv_s(feats[perm], weights)[inv]
-    plan, keys = subm_band_plan(st, kernel_size, tile, block)
-    fast_ok = bool(plan.keys_sorted)
-    patch = _sized_patch(plan, lambda qk: lookup(keys, qk)) if fast_ok \
-        else None
-    bits_dw = torch.where(plan.fits[:, None], plan.valid_bits,
-                          torch.zeros_like(plan.valid_bits))
-    slow = [None]
-    op_bf16 = bool(bf16) and band_train_bf16_enabled()
+    with trace.span('sparse_plan'):
+        keys = st.keys()
+        if not bool((keys[1:] >= keys[:-1]).all()):
+            st_s, perm = sort_by_key_with_perm(st)
+            inv = torch.argsort(perm)
+            conv_s = _subm_conv_train_ctx(st_s, kernel_size, tile, block, bf16)
+            return lambda feats, weights: conv_s(feats[perm], weights)[inv]
+        plan, keys = subm_band_plan(st, kernel_size, tile, block)
+        fast_ok = bool(plan.keys_sorted)
+        patch = _sized_patch(plan, lambda qk: lookup(keys, qk)) if fast_ok \
+            else None
+        bits_dw = torch.where(plan.fits[:, None], plan.valid_bits,
+                              torch.zeros_like(plan.valid_bits))
+        slow = [None]
+        op_bf16 = bool(bf16) and band_train_bf16_enabled()
 
-    def conv(feats, weights):
-        if fast_ok:
-            branch_counts['band_train'] += 1
-            return _BandTrain.apply(feats, weights, keys, plan, bits_dw,
-                                    patch, op_bf16)
-        branch_counts['band_train_nmap'] += 1
-        if slow[0] is None:
-            slow[0] = nmap_subm_conv_ctx(st, kernel_size)
-        return slow[0](feats, weights)
-    return conv
+        def conv(feats, weights):
+            if fast_ok:
+                branch_counts['band_train'] += 1
+                return _BandTrain.apply(feats, weights, keys, plan, bits_dw,
+                                        patch, op_bf16)
+            branch_counts['band_train_nmap'] += 1
+            if slow[0] is None:
+                slow[0] = nmap_subm_conv_ctx(st, kernel_size)
+            return slow[0](feats, weights)
+        return conv
 
 
 def _nmap_ctx(nmap, out_mask):
@@ -760,29 +766,30 @@ def subm_conv_ctx(st: SparseTensor, kernel_size, tile: int = 128,
     (the NRConv 2D image-plane tensor) all but the first row of each key
     are zeroed as sources, so the kernel's lower-bound search and the
     patch agree on one representative per key."""
-    kernel_size = _triple(kernel_size, st.ndim)
-    if not use_band:
+    with trace.span('sparse_plan'):
+        kernel_size = _triple(kernel_size, st.ndim)
+        if not use_band:
+            if train:
+                return nmap_subm_conv_ctx(st, kernel_size)
+            return _nmap_ctx(build_subm_neighbor_map(st, kernel_size), st.mask)
         if train:
-            return nmap_subm_conv_ctx(st, kernel_size)
-        return _nmap_ctx(build_subm_neighbor_map(st, kernel_size), st.mask)
-    if train:
+            if first_wins_sources:
+                raise ValueError('the band training conv takes no '
+                                 'duplicate-key sources')
+            return _subm_conv_train_ctx(st, kernel_size, tile, block, bf16)
+        plan, keys = subm_band_plan(st, kernel_size, tile, block)
+        src_sel = first_index = None
         if first_wins_sources:
-            raise ValueError('the band training conv takes no duplicate-key '
-                             'sources')
-        return _subm_conv_train_ctx(st, kernel_size, tile, block, bf16)
-    plan, keys = subm_band_plan(st, kernel_size, tile, block)
-    src_sel = first_index = None
-    if first_wins_sources:
-        is_first = torch.ones_like(keys, dtype=torch.bool)
-        is_first[1:] = keys[1:] != keys[:-1]
-        src_sel = (st.mask & is_first)[:, None]
-        ar = torch.arange(keys.shape[0], dtype=torch.int32,
-                          device=keys.device)
-        first_index = torch.cummax(
-            torch.where(is_first, ar, torch.zeros_like(ar)), 0).values
-    return _band_ctx(plan, keys, st.mask,
-                     lambda: build_subm_neighbor_map(st, kernel_size), bf16,
-                     src_sel=src_sel, first_index=first_index)
+            is_first = torch.ones_like(keys, dtype=torch.bool)
+            is_first[1:] = keys[1:] != keys[:-1]
+            src_sel = (st.mask & is_first)[:, None]
+            ar = torch.arange(keys.shape[0], dtype=torch.int32,
+                              device=keys.device)
+            first_index = torch.cummax(
+                torch.where(is_first, ar, torch.zeros_like(ar)), 0).values
+        return _band_ctx(plan, keys, st.mask,
+                         lambda: build_subm_neighbor_map(st, kernel_size),
+                         bf16, src_sel=src_sel, first_index=first_index)
 
 
 def strided_conv_ctx(st_in, st_out, stride, padding, kernel_size,
@@ -791,17 +798,18 @@ def strided_conv_ctx(st_in, st_out, stride, padding, kernel_size,
     """Eval conv function (see ``_band_ctx``) of a strided conv
     st_in -> st_out (both sorted); with ``use_band`` False, on the
     neighbor map (``_nmap_ctx``)."""
-    kernel_size = _triple(kernel_size, st_in.ndim)
-    if not use_band:
-        return _nmap_ctx(build_strided_neighbor_map(
-            st_in, st_out, stride, padding, kernel_size), st_out.mask)
-    plan, keys = strided_band_plan(st_in, st_out, stride, padding,
-                                   kernel_size, tile, block)
-    return _band_ctx(
-        plan, keys, st_out.mask,
-        lambda: build_strided_neighbor_map(st_in, st_out, stride, padding,
-                                           kernel_size),
-        bf16)
+    with trace.span('sparse_plan'):
+        kernel_size = _triple(kernel_size, st_in.ndim)
+        if not use_band:
+            return _nmap_ctx(build_strided_neighbor_map(
+                st_in, st_out, stride, padding, kernel_size), st_out.mask)
+        plan, keys = strided_band_plan(st_in, st_out, stride, padding,
+                                       kernel_size, tile, block)
+        return _band_ctx(
+            plan, keys, st_out.mask,
+            lambda: build_strided_neighbor_map(st_in, st_out, stride, padding,
+                                               kernel_size),
+            bf16)
 
 
 def to_dense(st: SparseTensor) -> torch.Tensor:

@@ -17,12 +17,12 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import resolve_device
 from .config import CfgNode, virconv_t_config
 from .models.detectors.voxel_rcnn import VoxelRCNN
 from .ops.wbf import compute_wbf
+from .utils import trace
 from .utils import transforms as tr
 from .utils.jax_weights import load_state_dict_checked, random_init_
 from .utils.postprocess import post_process_batch
@@ -94,7 +94,7 @@ class Detector:
     @torch.no_grad()
     def forward(self, frames: Dict[str, np.ndarray]):
         """Raw model outputs (device tensors) for a batch of frames."""
-        with record_function('make_batch'):
+        with trace.span('make_batch'):
             batch = self.make_batch(frames)
         return self.model(batch, bf16=self.bf16)
 
@@ -102,7 +102,7 @@ class Detector:
         """Per-frame ``{'boxes' (n, 7), 'scores' (n,), 'labels' (n,)}`` in
         the LiDAR frame after score threshold and WBF."""
         out = self.forward(frames)
-        with record_function('postprocess_wbf'):
+        with trace.span('postprocess_wbf'):
             return self._postprocess(out)
 
     def _postprocess(self, out):

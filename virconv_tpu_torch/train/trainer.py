@@ -11,12 +11,12 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..config import CfgNode, virconv_t_config
 from ..models.detectors.voxel_rcnn import VoxelRCNN
 from ..parallel import data_parallel as dp
+from ..utils import trace
 from ..utils.jax_weights import load_state_dict_checked, random_init_
 from .draws import Draws
 from .optim import OPTIMIZERS, build_optimizer
@@ -125,9 +125,9 @@ class Trainer:
         with (dp.synced(self.group) if self.group is not None
               else contextlib.nullcontext()):
             out = self.model(batch, rng=draws)
-            with record_function('backward'):
+            with trace.span('backward'):
                 out['loss'].backward()
-            with record_function('allreduce_grads'):
+            with trace.span('allreduce_grads'):
                 dp.allreduce_grads(self.model)
             loss, terms = out['loss'].detach(), {
                 k: v.detach() for k, v in out['tb'].items()}
@@ -138,7 +138,7 @@ class Trainer:
                     [loss.float()] + [terms[k].float() for k in names]))
                 loss = flat[0]
                 terms = dict(zip(names, flat[1:]))
-        with record_function('optimizer'):
+        with trace.span('optimizer'):
             self.optimizer.step()
         self.step_count += 1
         tb = {**terms, 'nonfinite_skips': self.optimizer.total_notfinite}

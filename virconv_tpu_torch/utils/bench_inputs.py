@@ -187,22 +187,6 @@ def train_batch_l(frames=2, seed=0):
             'transform_param': None, 'gt_boxes': gt, 'gt_valid': gt_valid}
 
 
-def frames_for(cfg, frames=FRAMES, seed=0):
-    """The serving frames of ``cfg``'s model: two streams (T, S) or one
-    (L)."""
-    if cfg.MODEL.BACKBONE_3D.get('MM', False):
-        return synth_frames(frames, seed)
-    return synth_frames_l(frames, seed)
-
-
-def train_batch_for(cfg, seed=0):
-    """The training batch of ``cfg``'s model: ``train_batch`` with the
-    ROI head's ROT_NUM replicas (T, S), or ``train_batch_l`` (L)."""
-    if cfg.MODEL.BACKBONE_3D.get('MM', False):
-        return train_batch(seed=seed, rot_num=cfg.MODEL.ROI_HEAD.ROT_NUM)
-    return train_batch_l(seed=seed)
-
-
 def tiny_batch(rng, n_entries=1, n_pts=1500, train=True, n_rep=1):
     """The batch of the JAX package's model tests (``tests/
     test_model_forward.py::make_batch``, whose arrays it gives bit for bit):

@@ -4,7 +4,8 @@ The port's copy of ``virconv_tpu/utils/metrics.py``: ``MetricsLogger``
 writes scalars to a JSONL event log and, when ``torch.utils.tensorboard``
 imports, to TensorBoard, and times host phases; ``compute_recall`` counts
 the gt boxes a frame's predictions hit. Device traces come from
-``torch.profiler`` (``profile_train.py``), not from this module.
+``torch.profiler`` over the program's spans (``utils/trace.py``), not from
+this module.
 """
 
 from __future__ import annotations
