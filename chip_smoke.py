@@ -20,8 +20,9 @@ Phases (each prints one line; any failure exits non-zero):
   3. serve 3 requests of FRAMES=2 synthetic KITTI-scale frames through the
      full-width VirConv-T Detector (ROT_NUM=3, seeded random weights), with
      every launch count set to 0 just before and read just after: K1 and
-     the gather patches launched as often as in the warm-up, no conv
-     context on the neighbor-map branch; then one more request under
+     the gather patches launched as often as in the warm-up, the NMS
+     kernel pair twice a request, no conv context on the neighbor-map
+     branch; then one more request under
      ``torch.profiler``, its kernel launches printed;
   4. the tiny test configuration on CUDA (kernels) and on the CPU (plain
      versions) with the same weights, TF32 off: final boxes and scores
@@ -49,7 +50,8 @@ Phases (each prints one line; any failure exits non-zero):
      step, K1, K4 and the gather's backward launched, no band training
      conv on the neighbor-map branch, every counter (K1, K4, ``nmap_conv``,
      ``nmap_conv_dw``, ``branch_counts['nmap_train']``) at phase 5's step's
-     calls per step, 15 neighbor-map convs per step; ms per step, peak
+     calls per step, 15 neighbor-map convs per step, the NMS kernel pair
+     twice a step; ms per step, peak
      memory and each step's loss terms; (6b) one step's forward and
      backward twice from one trainer with the same draws: every
      parameter's gradient the same bits (the modules that differ are
@@ -195,9 +197,20 @@ Phases (each prints one line; any failure exits non-zero):
      backward; a T training step's forward and backward under
      ``VIRCONV_BAND_TRAIN=0`` against the default's from the same state
      and draws;
+ 16. the multi-rank tools, every rank on this card (``multi_rank_phase``);
+ 17. the RPN's rotated NMS on the kernel pair of ``csrc/nms.cu``
+     (``nms_phase``): the call of one full-width VirConv-T training step
+     (6 entries at k = 4000) and of one request (2 at k = 2000), the
+     launch count set to 0 just before the step or request and read just
+     after (two each), the selections the call returned there against
+     the plain ``nms_bev`` of every entry, the mask's bits (one more
+     launch on the captured arguments) the plain suppression's; the
+     call's ms, each kernel's device ms, the plain loop's ms and the
+     bound;
 then one JSON line of per-kernel numbers (the six kernels' ports, the
 gather patch's (``band_conv_patch``), ``nmap_conv``'s (phase 8),
-``gather_rows``' per training step and ``cspn``'s per frame; times and
+``gather_rows``' per training step, ``cspn``'s per frame and ``nms``'s
+(phase 17) per step and request; times and
 bounds per request, step or frame, summed over its calls; launches over
 the phase 3 requests, the phase 6 steps, the phase 8 path and phase 12c,
 K1's and K2+K3's over the phase 9a run as
@@ -1223,9 +1236,10 @@ def serve_requests(det, frames, n_requests, model, per_request,
     from torch.profiler import ProfilerActivity, profile
     from virconv_tpu_torch.models.roi_heads import voxel_pool
     from virconv_tpu_torch.ops import band_conv, nmap_conv, roi_pool, sparse
+    from virconv_tpu_torch.ops import boxes as box_ops
     from virconv_tpu_torch.profile_serve import summarize
     band_conv.launches = band_conv.patch_launches = roi_pool.launches = 0
-    nmap_conv.launches = 0
+    nmap_conv.launches = box_ops.nms_launches = 0
     sparse.branch_counts.clear()
     voxel_pool.branch_counts.clear()
     times, dets = [], []
@@ -1243,7 +1257,8 @@ def serve_requests(det, frames, n_requests, model, per_request,
     counts = {'band_conv_fwd': band_conv.launches,
               'roi_pool_fwd': roi_pool.launches,
               'band_conv_patch': band_conv.patch_launches,
-              'nmap_conv_fwd': nmap_conv.launches}
+              'nmap_conv_fwd': nmap_conv.launches,
+              'nms': box_ops.nms_launches}
     conv_branches = dict(sparse.branch_counts)
     pool_branches = dict(voxel_pool.branch_counts)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1275,6 +1290,9 @@ def serve_requests(det, frames, n_requests, model, per_request,
     for k in ('band_conv_fwd', 'roi_pool_fwd'):
         if counts[k] == 0:
             fail(f'{k} was never launched on the main path')
+    if counts['nms'] != 2 * n_requests:
+        fail(f'{counts["nms"]} NMS launches over {n_requests} requests, '
+             'not 2 a request')
     for k in ('band_conv_fwd', 'band_conv_patch'):
         if counts[k] != per_request[k] * n_requests:
             fail(f'{counts[k]} {k} launches over {n_requests} requests, '
@@ -1465,8 +1483,9 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T',
     ``model`` has by its code."""
     import torch
     from virconv_tpu_torch.ops import band_conv, gather_rows, nmap_conv, sparse
+    from virconv_tpu_torch.ops import boxes as box_ops
     band_conv.launches = band_conv.dw_launches = 0
-    band_conv.patch_launches = 0
+    band_conv.patch_launches = box_ops.nms_launches = 0
     gather_rows.launches = gather_rows.bwd_launches = 0
     nmap_conv.launches = nmap_conv.dw_launches = 0
     sparse.branch_counts.clear()
@@ -1498,7 +1517,8 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T',
               'gather_rows': gather_rows.launches + gather_rows.bwd_launches,
               'gather_rows_bwd': gather_rows.bwd_launches,
               'nmap_conv_fwd': nmap_conv.launches,
-              'nmap_conv_dw': nmap_conv.dw_launches}
+              'nmap_conv_dw': nmap_conv.dw_launches,
+              'nms': box_ops.nms_launches}
     branches = dict(sparse.branch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'[{tag}] {model} training, {n_steps} steps of '
@@ -1511,6 +1531,9 @@ def train_steps(trainer, batch, n_steps, tag='phase 6', model='VirConv-T',
             fail(f'{k} was never launched on the training path')
     if not branches.get('band_train') or branches.get('band_train_nmap', 0):
         fail(f'a band training conv left the band kernels: {branches}')
+    if counts['nms'] != 2 * n_steps:
+        fail(f'{counts["nms"]} NMS launches over {n_steps} steps, not 2 a '
+             'step')
     if per_step is not None:
         # the gather-patch terms depend on each step's voxels (patched band
         # convs, one nmap_conv_dw each): nmap_conv_dw launches once per
@@ -2892,23 +2915,24 @@ def zero_box_outputs(model):
 
 
 class NmsRecord:
-    """Records the RPN's NMS selections of a step (``box_ops.nms_bev``, one
-    call per entry, in entry order) while it is entered."""
+    """Records the RPN's NMS selections of a step (``box_ops.
+    nms_bev_batched``), one (sel, sel_valid) per entry in entry order,
+    while it is entered."""
 
     def __enter__(self):
         from virconv_tpu_torch.ops import boxes
-        self._boxes, self._orig = boxes, boxes.nms_bev
+        self._boxes, self._orig = boxes, boxes.nms_bev_batched
         self.calls = []
 
         def record(*a, **k):
             out = self._orig(*a, **k)
-            self.calls.append(tuple(t.detach().cpu() for t in out))
+            self.calls += zip(*(t.detach().cpu() for t in out))
             return out
-        boxes.nms_bev = record
+        boxes.nms_bev_batched = record
         return self
 
     def __exit__(self, *exc):
-        self._boxes.nms_bev = self._orig
+        self._boxes.nms_bev_batched = self._orig
         return False
 
 
@@ -2916,15 +2940,17 @@ def replay_nms(rank, world, payload):
     """A ``step_rank`` setup: the rank's NMS calls return the one-process
     step's selections of its entries (``payload['nms']``, one per global
     entry), in order."""
+    import torch
     from virconv_tpu_torch.ops import boxes
     calls = payload['nms']
     per = len(calls) // world
     queue = list(calls[rank * per:(rank + 1) * per])
 
     def replay(boxes_, *a, **k):
-        sel, valid = queue.pop(0)
-        return sel.to(boxes_.device), valid.to(boxes_.device)
-    boxes.nms_bev = replay
+        entries = [queue.pop(0) for _ in range(boxes_.shape[0])]
+        return tuple(torch.stack(t).to(boxes_.device)
+                     for t in zip(*entries))
+    boxes.nms_bev_batched = replay
 
 
 def _one_process_step(make_cfg, device, batch, draws, prepare=None):
@@ -3801,16 +3827,16 @@ def band_train_off_step(batch, tag='phase 15'):
                           ('band_train_off', {'VIRCONV_BAND_TRAIN': '0'}),
                           ('band_train_off_snapped',
                            {'VIRCONV_BAND_TRAIN': '0'})):
-            orig = boxes.nms_bev
+            orig = boxes.nms_bev_batched
             if calls:
                 queue = list(calls)
-                boxes.nms_bev = lambda *a, **k: queue.pop(0)
+                boxes.nms_bev_batched = lambda *a, **k: queue.pop(0)
             else:
                 def record(*a, **k):
                     out = orig(*a, **k)
                     calls.append(out)
                     return out
-                boxes.nms_bev = record
+                boxes.nms_bev_batched = record
             rec = PreActivations(model, pre.get('default')
                                  if name.endswith('snapped') else None)
             try:
@@ -3826,7 +3852,7 @@ def band_train_off_step(batch, tag='phase 15'):
                     out['loss'].backward()
                     torch.cuda.synchronize()
             finally:
-                boxes.nms_bev = orig
+                boxes.nms_bev_batched = orig
                 rec.remove()
             res[name] = {'ms': (time.perf_counter() - t) * 1e3,
                          'peak_gib': torch.cuda.max_memory_allocated()
@@ -4012,6 +4038,132 @@ def multi_rank_phase(card, device='cuda', cfg=None, ranks=MR_RANKS):
     return report
 
 
+# ---- phase 17: the RPN's rotated NMS on the kernel pair -------------------
+
+# The plain composition's f32 operations a pair (ops/boxes.py): 503 for each
+# of the two clipped-edge integrals (23 per edge and half-plane, 12 for the
+# reductions over half-planes, 21 per edge after them, 3 for the edges' sum)
+# and 11 for the IoU, its threshold and the masks.
+NMS_PAIR_OPS = 2 * 503 + 11
+
+
+class NmsCapture:
+    """Records the arguments and the results (sel, sel_valid) of every
+    ``box_ops.nms_bev_batched`` call (the calls still run) while
+    entered."""
+
+    def __enter__(self):
+        from virconv_tpu_torch.ops import boxes
+        self._boxes, self._orig = boxes, boxes.nms_bev_batched
+        self.calls, self.outs = [], []
+
+        def record(boxes_, scores, thresh, pre_max, post_max, valid=None,
+                   num_iters=8):
+            self.calls.append((boxes_.detach().clone(),
+                               scores.detach().clone(), thresh, pre_max,
+                               post_max, valid, num_iters))
+            out = self._orig(boxes_, scores, thresh, pre_max, post_max,
+                             valid, num_iters)
+            self.outs.append(tuple(t.clone() for t in out))
+            return out
+        boxes.nms_bev_batched = record
+        return self
+
+    def __exit__(self, *exc):
+        self._boxes.nms_bev_batched = self._orig
+        return False
+
+
+def check_nms_case(name, args, out, launches):
+    """One ``nms_bev_batched`` call of the main path, its arguments
+    ``args``, results ``out`` and the launches counted around it, against
+    the plain ``nms_bev`` of each entry: the same sel and sel_valid, and
+    the mask's bits (one more launch on ``args``) the plain suppression's
+    on the strict lower triangle. Times: the call (events around the
+    wrapper: sort, top-k, corners, both kernels), each kernel alone (from
+    a CUDA graph), the plain loop; the bound at the f32 peak over the
+    triangle's pairs."""
+    import torch
+    from virconv_tpu_torch.ops import _cuda
+    from virconv_tpu_torch.ops import boxes as box_ops
+    boxes, scores, thresh, pre, post, valid, iters = args
+    b = boxes.shape[0]
+    sel, sel_valid = out
+    order, top_valid, top = box_ops.nms_top_k(boxes, scores, pre, valid)
+    k = top.shape[1]
+    mask, _ = box_ops._nms_mask_cuda(top, top_valid, thresh)
+    kept = []
+    for i in range(b):
+        want = box_ops.nms_bev(boxes[i], scores[i], thresh, pre, post,
+                               valid, iters)
+        if not (torch.equal(sel[i], want[0])
+                and torch.equal(sel_valid[i], want[1])):
+            fail(f'{name}: entry {i} selects other proposals than nms_bev')
+        one = slice(i, i + 1)
+        if not torch.equal(box_ops.nms_mask_bits(mask[one], k),
+                           box_ops.nms_sup_plain(top[one], top_valid[one],
+                                                 thresh)):
+            fail(f'{name}: entry {i} mask bits differ from the plain IoU')
+        kept.append(int(want[1].sum()))
+    geometry = (*box_ops.nms_geometry(top), top_valid.contiguous())
+    lib = _cuda.load('nms')
+    ptrs = [*map(_cuda.ptr, geometry), b, k, float(thresh), _cuda.ptr(mask)]
+    pairs = b * k * (k - 1) // 2
+    line = {'case': name, 'entries': b, 'k': k, 'post': post,
+            'thresh': thresh, 'kept': kept, 'pairs': pairs,
+            'bytes': nbytes(*geometry, mask, sel, sel_valid),
+            'ops': pairs * NMS_PAIR_OPS, 'launches': launches,
+            'ms': cuda_ms(lambda: box_ops.nms_bev_batched(*args)),
+            'mask_device_ms': graph_ms(lambda: lib.nms_overlap_mask(
+                *ptrs, _cuda.stream_ptr(boxes.device))),
+            'select_device_ms': graph_ms(lambda: box_ops._nms_select_cuda(
+                mask, top_valid, order, post, iters)),
+            'plain_ms': cuda_ms(lambda: [
+                box_ops.nms_bev(boxes[i], scores[i], thresh, pre, post,
+                                valid, iters) for i in range(b)], 3, 1)}
+    line['device_ms'] = line['mask_device_ms'] + line['select_device_ms']
+    bound(line, F32_FLOPS)
+    print(f'[phase 17] {name}: {json.dumps(line)}', flush=True)
+    return line
+
+
+def nms_phase(frames):
+    """Phase 17: the RPN's NMS of one full-width VirConv-T training step
+    (2 frames x ROT_NUM 3: 6 entries at k = 4000) and of one request (2
+    entries at k = 2000), with the launch count set to 0 just before the
+    step or request and read just after (one call, two launches each);
+    each call's arguments and results held against the plain version and
+    timed (``check_nms_case``). Returns the two lines."""
+    import torch
+    from virconv_tpu_torch.ops import boxes as box_ops
+    from virconv_tpu_torch.serve import Detector
+    from virconv_tpu_torch.train.trainer import Trainer
+    from virconv_tpu_torch.utils.bench_inputs import train_batch
+
+    def counted(run):
+        with NmsCapture() as cap:
+            box_ops.nms_launches = 0
+            run()
+            torch.cuda.synchronize()
+            launches = box_ops.nms_launches
+        if len(cap.calls) != 1 or launches != 2:
+            fail(f'NMS: {len(cap.calls)} calls and {launches} launches in '
+                 'a step or request, not 1 and 2')
+        return cap.calls[0], cap.outs[0], launches
+
+    with torch.enable_grad():
+        trainer = Trainer(device='cuda', seed=0)
+        batch = trainer.to_device(train_batch())
+        step = counted(lambda: trainer.step(batch))
+        del trainer, batch
+    det = Detector(device='cuda', seed=0)
+    request = counted(lambda: det(frames))
+    del det
+    torch.cuda.empty_cache()
+    return {'train_step': check_nms_case('train step', *step),
+            'request': check_nms_case('request', *request)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4171,7 +4323,11 @@ def main():
 
     # ---- phase 16: the multi-rank tools, every rank on this card ----------
     multi_rank = multi_rank_phase(card)
-    phase_done(16, t0)
+    t0 = phase_done(16, t0)
+
+    # ---- phase 17: the RPN's rotated NMS on the kernel pair ---------------
+    nms = nms_phase(frames)
+    phase_done(17, t0)
 
     # ---- result -------------------------------------------------------------
     src = 'virconv_tpu_torch/csrc/band_conv.cu'
@@ -4325,6 +4481,16 @@ def main():
                 'launches': l_train['launches'][launch_key],
                 **summed([c for _, k in parts for c in l_cases[k]], 'step'),
                 **{part: l_steps[k] for part, k in parts}}})
+    # phase 17: the kernel pair of the RPN's NMS (an XLA composition there);
+    # launches: phase 17's step and request, and over phase 6's steps and
+    # phase 3's requests
+    kernels.append({'name': 'nms', 'route': 'cuda',
+                    'source': 'virconv_tpu_torch/csrc/nms.cu',
+                    'replaces': 'virconv_tpu/ops/boxes.py:272',
+                    **nms['train_step'],
+                    'launches_phase6': train_counts['nms'],
+                    'request': {**nms['request'],
+                                'launches_phase3': counts['nms']}})
     print(json.dumps({'kernels': kernels, 'serve': serve_run,
                       'train_step': train_run,
                       'eval': eval_run, 'train_cli': train_cli,

@@ -9,10 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+import nms_cases
 from virconv_tpu.models.dense_heads import anchor_head as jah
 from virconv_tpu.ops import boxes as jbox
 from virconv_tpu_torch.models.dense_heads import anchor_head as tah
 from virconv_tpu_torch.ops import boxes as tbox
+from virconv_tpu_torch.ops import boxes_np
 
 torch.set_num_threads(1)
 
@@ -55,6 +57,69 @@ def test_box_ops_match_jax():
                               0.1, 50, 30, valid=torch.from_numpy(valid))
     np.testing.assert_array_equal(tsel.numpy(), _np(jsel))
     np.testing.assert_array_equal(tval.numpy(), _np(jval))
+
+
+def masked_scatter_select(sup, top_valid, order, post_max, num_iters=8):
+    """The fixed point and compaction ``nms_bev`` ran per entry before the
+    kernel pair: a scatter through a boolean-mask index (one host sync)."""
+    k = top_valid.shape[0]
+    keep = torch.ones((k,), dtype=torch.bool)
+    for _ in range(num_iters):
+        keep = ~(sup & keep[None, :]).any(1) & top_valid
+    rank = torch.cumsum(keep.to(torch.int32), 0) - 1
+    src = torch.where(keep & (rank < post_max), rank,
+                      torch.full_like(rank, post_max)).long()
+    sel = torch.zeros((post_max + 1,), dtype=torch.long)
+    sel[src[keep & (rank < post_max)]] = order[keep & (rank < post_max)]
+    sel = sel[:post_max]
+    count = torch.clamp(keep.sum(), max=post_max)
+    sel_valid = torch.arange(post_max) < count
+    return torch.where(sel_valid, sel, torch.zeros_like(sel)), sel_valid
+
+
+@pytest.mark.parametrize('case', nms_cases.CASES)
+def test_batched_nms_equals_the_plain_loop_and_jax(case):
+    """``nms_bev_batched`` on CPU tensors (``nms_bev_plain``, counted as
+    ``nms_counts['plain']``) gives each entry's ``nms_bev``, which is
+    JAX's; and its compaction, with no boolean-mask index, gives the same
+    selections as the old masked scatter on the same suppression."""
+    c = nms_cases.make(case, full=False)
+    boxes, scores, valid = (torch.from_numpy(c[k])
+                            for k in ('boxes', 'scores', 'valid'))
+    b = boxes.shape[0]
+    args = (c['thresh'], c['pre'], c['post'])
+    n0 = tbox.nms_counts['plain']
+    sel, sel_valid = tbox.nms_bev_batched(boxes, scores, *args, valid=valid)
+    assert tbox.nms_counts['plain'] == n0 + b
+    assert sel.shape == sel_valid.shape == (b, c['post'])
+    order, top_valid, top = tbox.nms_top_k(boxes, scores, c['pre'], valid)
+    sup = tbox.nms_sup_plain(top, top_valid, c['thresh'])
+    jax_nms = jax.jit(jbox.nms_bev, static_argnums=(2, 3, 4))
+    for i in range(b):
+        want = tbox.nms_bev(boxes[i], scores[i], *args, valid=valid)
+        jsel, jval = jax_nms(jnp.asarray(c['boxes'][i]),
+                             jnp.asarray(c['scores'][i]), *args,
+                             valid=jnp.asarray(c['valid']))
+        old = masked_scatter_select(sup[i], top_valid[i], order[i],
+                                    c['post'])
+        for got_sel, got_valid in ((sel[i], sel_valid[i]), old):
+            np.testing.assert_array_equal(got_sel.numpy(), want[0].numpy())
+            np.testing.assert_array_equal(got_valid.numpy(),
+                                          want[1].numpy())
+        np.testing.assert_array_equal(sel[i].numpy(), _np(jsel))
+        np.testing.assert_array_equal(sel_valid[i].numpy(), _np(jval))
+    kept = int(sel_valid.sum())
+    if case == 'invalid':
+        assert kept == 0
+    elif case == 'few':
+        assert 0 < int(sel_valid.sum(1).max()) < c['post']
+    elif case == 'chain':
+        # 8 passes of the fixed point are not greedy NMS here
+        greedy = boxes_np.nms_bev(c['boxes'][0], c['scores'][0],
+                                  c['thresh'], c['pre'], c['post'])
+        assert set(sel[0][sel_valid[0]].tolist()) != set(greedy.tolist())
+    else:
+        assert kept > 0 and bool(sup.any())
 
 
 @pytest.mark.parametrize('bev_shape', [(200, 176), (160, 160)])

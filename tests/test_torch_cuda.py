@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+import nms_cases
 from virconv_tpu_torch.ops import band_conv as tbc
+from virconv_tpu_torch.ops import boxes as tbox
 from virconv_tpu_torch.ops import gather_conv as tgc
 from virconv_tpu_torch.ops import nmap_conv as tnc
 from virconv_tpu_torch.ops import onehot_conv as toc
@@ -1339,3 +1341,56 @@ def test_cspn_kernel_rejects_bad_operands():
     with pytest.raises(ValueError):          # a double guide
         tcs.cspn_iteration([guides[0].double()] + guides[1:], ds, h0, mask,
                            dsp, 2, True)
+
+
+@pytest.mark.parametrize('case', nms_cases.CASES)
+def test_nms_kernel_pair_matches_plain(case):
+    """The RPN's NMS on the kernel pair (csrc/nms.cu), entry by entry
+    against the plain version on the card: ``nms_overlap_mask``'s bits are
+    ``(boxes_iou_bev > thresh) & valid_i & valid_j`` on the strict lower
+    triangle, ``nms_select`` on them gives the plain ``nms_bev``'s sel and
+    sel_valid; two launches for all the entries. At k <= 512 the test entry's float IoU of the triangle is the
+    plain IoU, bit for bit."""
+    dev = _cuda()
+    c = nms_cases.make(case)
+    boxes, scores, valid = (torch.from_numpy(c[k]).to(dev)
+                            for k in ('boxes', 'scores', 'valid'))
+    b = boxes.shape[0]
+    args = (c['thresh'], c['pre'], c['post'])
+    n0, e0 = tbox.nms_launches, tbox.nms_counts['kernel']
+    sel, sel_valid = tbox.nms_bev_batched(boxes, scores, *args, valid=valid)
+    torch.cuda.synchronize()
+    assert tbox.nms_launches == n0 + 2
+    assert tbox.nms_counts['kernel'] == e0 + b
+    _, top_valid, top = tbox.nms_top_k(boxes, scores, c['pre'], valid)
+    k = top.shape[1]
+    mask, iou = tbox._nms_mask_cuda(top, top_valid, c['thresh'],
+                                    iou=k <= 512)
+    tri = torch.tril(torch.ones((k, k), dtype=torch.bool, device=dev), -1)
+    for i in range(b):
+        want = tbox.nms_bev(boxes[i], scores[i], *args, valid=valid)
+        assert torch.equal(sel[i], want[0])
+        assert torch.equal(sel_valid[i], want[1])
+        one = slice(i, i + 1)
+        sup = tbox.nms_sup_plain(top[one], top_valid[one], c['thresh'])
+        assert torch.equal(tbox.nms_mask_bits(mask[one], k), sup)
+        if iou is not None:
+            plain = tbox.boxes_iou_bev(top[i], top[i])
+            assert torch.equal(_bits(iou[i][tri]), _bits(plain[tri]))
+            assert not iou[i][~tri].any()
+    if case != 'invalid':
+        assert bool(sel_valid.any())
+
+
+def test_nms_kernels_reject_bad_operands():
+    dev = _cuda()
+    top = torch.zeros((1, 8, 7), device=dev)
+    top_valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):          # a CPU valid mask
+        tbox._nms_mask_cuda(top, top_valid.cpu(), 0.5)
+    with pytest.raises(ValueError):          # double boxes
+        tbox._nms_mask_cuda(top.double(), top_valid, 0.5)
+    big = torch.zeros((1, tbox.NMS_MAX_K + 1, 7), device=dev)
+    with pytest.raises(ValueError):          # more keep bits than it holds
+        tbox._nms_mask_cuda(big, torch.ones(big.shape[:2], dtype=torch.bool,
+                                            device=dev), 0.5)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from virconv_tpu_torch.ops import (_cuda, band_conv, gather_conv,
+from virconv_tpu_torch.ops import (_cuda, band_conv, boxes, gather_conv,
                                    nmap_conv, onehot_conv, roi_pool)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -311,7 +311,7 @@ def _cuda_name(py_name):
 @pytest.mark.parametrize('module,source', [
     (band_conv, 'band_conv'), (roi_pool, 'roi_pool'),
     (gather_conv, 'gather_conv'), (onehot_conv, 'gather_conv'),
-    (nmap_conv, 'gather_conv')])
+    (nmap_conv, 'gather_conv'), (boxes, 'nms')])
 def test_wrapper_limits_match_kernel_constexprs(module, source):
     limits = {n: getattr(module, n) for n in dir(module)
               if re.fullmatch(r'([A-Z]+_)?MAX_[A-Z_]+', n)}

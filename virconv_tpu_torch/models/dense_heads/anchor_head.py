@@ -206,17 +206,11 @@ class AnchorHeadSingle(nn.Module):
 
         scores = torch.sigmoid(cls_preds.amax(-1))
         roi_labels = cls_preds.argmax(-1) + 1
-        sels, valids = [], []
         with torch.no_grad(), trace.span('rpn.nms'):   # selection only
-            for i in range(b):
-                sel, valid = box_ops.nms_bev(
-                    batch_boxes[i], scores[i], nms_cfg['thresh'],
-                    pre_max=nms_cfg['pre'], post_max=nms_cfg['post'],
-                    valid=amask_flat)
-                sels.append(sel)
-                valids.append(valid)
-        sel = torch.stack(sels)
-        valid = torch.stack(valids)
+            sel, valid = box_ops.nms_bev_batched(
+                batch_boxes, scores, nms_cfg['thresh'],
+                pre_max=nms_cfg['pre'], post_max=nms_cfg['post'],
+                valid=amask_flat)
         brange = torch.arange(b, device=sel.device)[:, None]
         rois = torch.where(valid[..., None], batch_boxes[brange, sel],
                            torch.zeros_like(batch_boxes[brange, sel]))

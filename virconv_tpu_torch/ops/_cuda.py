@@ -23,7 +23,8 @@ CSRC = _PKG / 'csrc'
 BUILD = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false']
-SOURCES = ('band_conv', 'roi_pool', 'gather_conv', 'gather_rows', 'cspn')
+SOURCES = ('band_conv', 'roi_pool', 'gather_conv', 'gather_rows', 'cspn',
+           'nms')
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
@@ -60,6 +61,10 @@ SIGNATURES = {
         'gather_rows_sum': (_I, [_P, _P, _LL, _LL, _I, _P, _P])},
     'cspn': {
         'cspn_iteration': (_I, [_P] * 9 + [_I] * 5 + [_P] * 4)},
+    'nms': {
+        'nms_overlap_mask': (_I, [_P] * 5 + [_I] * 2 + [_F] + [_P] * 2),
+        'nms_overlap_iou': (_I, [_P] * 5 + [_I] * 2 + [_F] + [_P] * 3),
+        'nms_select': (_I, [_P] * 3 + [_I] * 4 + [_P] * 3)},
 }
 
 _libs = {}

@@ -4,15 +4,25 @@ greedy rotated NMS, the residual box coder and the box losses of training
 are (x, y, z, dx, dy, dz, heading) in the LiDAR frame. All products are
 elementwise f32 (no matmuls), which keeps the parallel-edge tests of the
 overlap exact on every device. Everything is differentiable where the JAX
-version is (training backpropagates through the proposals)."""
+version is (training backpropagates through the proposals). The RPN's NMS
+over a forward's entries runs on the kernel pair of ``csrc/nms.cu`` for
+CUDA tensors (``nms_bev_batched``)."""
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
 
 EPS = 1e-8
+NMS_MAX_K = 65536          # csrc/nms.cu's kNmsMaxK: the keep bits it holds
+
+# nms_bev_batched: the kernel pair's launches (CUDA tensors only), and the
+# entries it ran on the kernels ('kernel') or on the plain loop ('plain');
+# reset and read by chip_smoke.py and the tests
+nms_launches = 0
+nms_counts = collections.Counter()
 
 
 def clip(x, lo=None, hi=None):
@@ -189,37 +199,171 @@ def boxes_iou3d(boxes_a, boxes_b):
 def nms_bev(boxes, scores, thresh: float, pre_max: int, post_max: int,
             valid=None, num_iters: int = 8):
     """Rotated NMS by fixed-point suppression (``virconv_tpu.ops.boxes.
-    nms_bev``). The top ``pre_max`` by score come from a stable descending
-    sort, so ties keep the lower index first as XLA's top_k does.
+    nms_bev``) of one entry: ``nms_bev_plain`` at B = 1, on any device. The
+    top ``pre_max`` by score come from a stable descending sort, so ties
+    keep the lower index first as XLA's top_k does.
 
     Returns (selected indices (post_max,) into the input, valid mask)."""
-    n = boxes.shape[0]
-    dev = boxes.device
+    sel, sel_valid = nms_bev_plain(boxes[None], scores[None], thresh,
+                                   pre_max, post_max, valid, num_iters)
+    return sel[0], sel_valid[0]
+
+
+def nms_bev_batched(boxes, scores, thresh: float, pre_max: int,
+                    post_max: int, valid=None, num_iters: int = 8):
+    """``nms_bev`` of each of B entries: boxes (B, n, 7), scores (B, n) and
+    one (n,) valid mask for all of them. Returns (sel, sel_valid), each
+    (B, post_max), row b ``nms_bev``'s of entry b. CUDA tensors run the
+    kernel pair of ``csrc/nms.cu`` for all entries (two launches, no host
+    sync) or raise; CPU tensors ``nms_bev_plain``."""
+    b = boxes.shape[0]
+    if not boxes.is_cuda:
+        nms_counts['plain'] += b
+        return nms_bev_plain(boxes, scores, thresh, pre_max, post_max, valid,
+                             num_iters)
+    nms_counts['kernel'] += b
+    order, top_valid, top = nms_top_k(boxes, scores, pre_max, valid)
+    mask, _ = _nms_mask_cuda(top, top_valid, thresh)
+    return _nms_select_cuda(mask, top_valid, order, post_max, num_iters)
+
+
+def nms_bev_plain(boxes, scores, thresh: float, pre_max: int, post_max: int,
+                  valid=None, num_iters: int = 8):
+    """The plain composition of ``nms_bev_batched`` (the same arguments and
+    results): the batched top-k, each entry's suppression, then the fixed
+    point and the compaction of all entries at once."""
+    order, top_valid, top = nms_top_k(boxes, scores, pre_max, valid)
+    return nms_select_plain(nms_sup_plain(top, top_valid, thresh), top_valid,
+                            order, post_max, num_iters)
+
+
+def nms_top_k(boxes, scores, pre_max: int, valid=None):
+    """``nms_bev``'s top ``pre_max`` of B entries at once, by one stable
+    descending sort of the (B, n) masked scores: order (B, k) into the
+    input, top_valid (B, k) (a finite score) and the boxes (B, k, 7)."""
+    b, n = scores.shape
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        valid = torch.ones((n,), dtype=torch.bool, device=scores.device)
     masked = torch.where(valid, scores,
                          torch.full_like(scores, -float('inf')))
     k = min(pre_max, n)
-    top_scores, order = torch.sort(masked, descending=True, stable=True)
-    top_scores, order = top_scores[:k], order[:k]
-    top_valid = torch.isfinite(top_scores)
-    b = boxes[order]
-    iou = boxes_iou_bev(b, b, row_chunk=256 if k > 512 else None)
-    over = (iou > thresh) & top_valid[:, None] & top_valid[None, :]
-    sup = over & torch.tril(torch.ones((k, k), dtype=torch.bool, device=dev),
-                            diagonal=-1)
-    keep = torch.ones((k,), dtype=torch.bool, device=dev)
+    top_scores, order = torch.sort(masked, dim=-1, descending=True,
+                                   stable=True)
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    top = torch.gather(boxes[..., :7], 1, order[..., None].expand(b, k, 7))
+    return order, torch.isfinite(top_scores), top
+
+
+def nms_sup_plain(top, top_valid, thresh: float):
+    """Plain version of ``nms_overlap_mask`` (csrc/nms.cu), unpacked:
+    ``nms_bev``'s suppression (B, k, k) of each entry's top-k boxes (B, k,
+    7), ``(iou > thresh) & valid_i & valid_j`` for j < i."""
+    k = top.shape[1]
+    tri = torch.tril(torch.ones((k, k), dtype=torch.bool, device=top.device),
+                     diagonal=-1)
+    return torch.stack([
+        (boxes_iou_bev(t, t, row_chunk=256 if k > 512 else None) > thresh)
+        & v[:, None] & v[None, :] & tri for t, v in zip(top, top_valid)])
+
+
+def nms_select_plain(sup, top_valid, order, post_max: int,
+                     num_iters: int = 8):
+    """Plain version of ``nms_select`` (csrc/nms.cu): ``nms_bev``'s fixed
+    point on each entry's suppression ``sup`` (B, k, k), then the kept
+    proposals' input indices (``order`` (B, k)) compacted by a scatter into
+    post_max + 1 slots, the last taking those past post_max: no
+    boolean-mask index, so no host sync. Returns (sel, sel_valid)."""
+    b, k = top_valid.shape
+    keep = torch.ones_like(top_valid)
     for _ in range(num_iters):
-        keep = ~(sup & keep[None, :]).any(1) & top_valid
-    rank = torch.cumsum(keep.to(torch.int32), 0) - 1
-    src = torch.where(keep & (rank < post_max), rank,
-                      torch.full_like(rank, post_max)).long()
-    sel = torch.zeros((post_max + 1,), dtype=torch.long, device=dev)
-    sel[src[keep & (rank < post_max)]] = order[keep & (rank < post_max)]
-    sel = sel[:post_max]
-    count = torch.clamp(keep.sum(), max=post_max)
-    sel_valid = torch.arange(post_max, device=dev) < count
+        keep = ~(sup & keep[:, None, :]).any(2) & top_valid
+    rank = torch.cumsum(keep.to(torch.int64), 1) - 1
+    slot = torch.where(keep & (rank < post_max), rank,
+                       torch.full_like(rank, post_max))
+    sel = torch.zeros((b, post_max + 1), dtype=torch.long,
+                      device=order.device).scatter_(1, slot, order)
+    count = torch.clamp(keep.sum(1, keepdim=True), max=post_max)
+    sel_valid = torch.arange(post_max, device=order.device) < count
+    sel = sel[:, :post_max]
     return torch.where(sel_valid, sel, torch.zeros_like(sel)), sel_valid
+
+
+def nms_mask_bits(mask, k: int):
+    """The (B, k, k) bool of ``nms_overlap_mask``'s words (B, k, ceil(k /
+    64)): bit j % 64 of word j // 64 of row i for j < i (the kernel writes
+    no word past a row's diagonal word)."""
+    j = torch.arange(k, device=mask.device)
+    return ((mask[..., j // 64] >> (j % 64)) & 1).bool() & (j[None, :, None]
+                                                          > j[None, None])
+
+
+def nms_geometry(top):
+    """``nms_overlap_mask``'s operands for boxes (B, k, 7): the corners,
+    half-plane normals and offsets and the areas of the B * k boxes, from
+    the plain version's functions, so their bits are its bits."""
+    flat = top.reshape(-1, 7)
+    normals, offsets = _rect_halfplanes(flat)
+    return (boxes_to_corners_bev(flat).contiguous(), normals, offsets,
+            flat[:, 3] * flat[:, 4])
+
+
+def _nms_mask_cuda(top, top_valid, thresh: float, iou: bool = False):
+    """Launch ``nms_overlap_mask`` on every entry's top-k boxes (B, k, 7)
+    and valid flags (B, k): the (B, k, ceil(k / 64)) int64 words of the
+    suppression's strict lower triangle. With ``iou`` (tests) the kernel
+    also writes the float IoU of each pair j < i, 0 elsewhere; returns
+    (words, IoU or None)."""
+    global nms_launches
+    from . import _cuda
+    dev = top.device
+    b, k = top_valid.shape
+    if k > NMS_MAX_K:
+        raise ValueError(f'nms: k = {k} past NMS_MAX_K = {NMS_MAX_K}')
+    geometry = (*nms_geometry(top), top_valid.contiguous())
+    for name, t in zip(('corners', 'normals', 'offsets', 'area', 'valid'),
+                       geometry):
+        _cuda.check_cuda_tensor(t, name, torch.bool if name == 'valid'
+                                else torch.float32, device=dev)
+    mask = torch.empty((b, k, -(-k // 64)), dtype=torch.int64, device=dev)
+    args = [*map(_cuda.ptr, geometry), b, k, float(thresh), _cuda.ptr(mask)]
+    lib = _cuda.load('nms')
+    out = None
+    if iou:
+        out = torch.zeros((b, k, k), dtype=torch.float32, device=dev)
+        err = lib.nms_overlap_iou(*args, _cuda.ptr(out), _cuda.stream_ptr(dev))
+    else:
+        err = lib.nms_overlap_mask(*args, _cuda.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f'nms_overlap_mask launch failed: CUDA error {err}')
+    if b and k:
+        nms_launches += 1
+    return mask, out
+
+
+def _nms_select_cuda(mask, top_valid, order, post_max: int, num_iters: int):
+    """Launch ``nms_select``: each entry's fixed point on the words of
+    ``_nms_mask_cuda`` and its kept proposals' input indices, (sel,
+    sel_valid) (B, post_max) as ``nms_select_plain`` gives them."""
+    global nms_launches
+    from . import _cuda
+    dev = mask.device
+    b, k = top_valid.shape
+    order, top_valid = order.contiguous(), top_valid.contiguous()
+    for name, t, dt in (('mask', mask, torch.int64),
+                        ('valid', top_valid, torch.bool),
+                        ('order', order, torch.int64)):
+        _cuda.check_cuda_tensor(t, name, dt, device=dev)
+    sel = torch.empty((b, post_max), dtype=torch.long, device=dev)
+    sel_valid = torch.empty((b, post_max), dtype=torch.bool, device=dev)
+    err = _cuda.load('nms').nms_select(
+        *map(_cuda.ptr, (mask, top_valid, order)), b, k, post_max,
+        num_iters, _cuda.ptr(sel), _cuda.ptr(sel_valid),
+        _cuda.stream_ptr(dev))
+    if err != 0:
+        raise RuntimeError(f'nms_select launch failed: CUDA error {err}')
+    if b and post_max:
+        nms_launches += 1
+    return sel, sel_valid
 
 
 class ResidualCoder:

@@ -91,7 +91,8 @@ def rows_of(data):
                         'bound', f'{span("ms")} {span("device_ms")} '
                         f'{span("bound_ms")} x{len(cs)}'))
     units = {'band_conv_dw': 'step', 'gather_rows': 'step', 'cspn': 'frame',
-             'nmap_conv_fwd_train': 'step', 'nmap_conv_dw': 'step'}
+             'nmap_conv_fwd_train': 'step', 'nmap_conv_dw': 'step',
+             'nms': 'step'}
     for k in data['kernels']:
         unit = units.get(k['name'], 'request')
         total(f'{k["name"]} per {unit}', k, k['launches'])
@@ -114,6 +115,9 @@ def rows_of(data):
         if 'f32' in k:
             total(f'{k["name"]} f32 per request', k['f32'],
                   k['f32']['launches'])
+        if 'request' in k:                   # nms: a step's call above
+            total(f'{k["name"]} per request', k['request'],
+                  k['request']['launches'])
         if 'launches_by_mode' in k:
             out.append((f'{k["name"]} launches by mode',
                         json.dumps(k['launches_by_mode'], sort_keys=True)))
