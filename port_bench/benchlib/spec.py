@@ -1,8 +1,9 @@
 """The benchmark as data: ``BENCHMARK.json`` at the checkout's root names
 the cells, and each piece is found by its name under ``port_bench/``:
-``configs/<config>.json``, ``traffic/<traffic>.json`` and
-``metrics/<metric>.py``. Adding a cell or a metric adds files and
-entries; nothing here names one."""
+``configs/<config>.json``, ``traffic/<traffic>.json``,
+``metrics/<metric>.py`` and ``modes/<mode>.py`` (the traffic's ``mode``).
+Adding a cell, a metric or a run mode adds files and entries; nothing
+here names one."""
 
 from __future__ import annotations
 
@@ -50,11 +51,26 @@ def load_cell(name: str, spec_path: str, bench_dir: str = HERE) -> Cell:
                            if _reports(m, name)])
 
 
-def metric_reader(name: str, bench_dir: str = HERE):
-    """``read(summary) -> float | None`` of ``metrics/<name>.py``."""
-    path = os.path.join(bench_dir, 'metrics', name + '.py')
+def _load(kind: str, name: str, bench_dir: str):
+    """The module ``<kind>/<name>.py`` of the bench directory, by path."""
+    path = os.path.join(bench_dir, kind, name + '.py')
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f'no {kind} file for {name!r}: {path}')
     mod_spec = importlib.util.spec_from_file_location(
-        'metric_' + name.replace('.', '_').replace('-', '_'), path)
+        f'{kind}_' + name.replace('.', '_').replace('-', '_'), path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, bench_dir: str = HERE):
+    """``read(summary) -> float | None`` of ``metrics/<name>.py``."""
+    return _load('metrics', name, bench_dir).read
+
+
+def run_mode(name: str, bench_dir: str = HERE):
+    """The run mode ``modes/<name>.py`` that a traffic file's ``mode``
+    names: ``run(cell, args, device, t_start, bench_dir, hooks)``, the
+    whole of one run, and ``side(cell, seed, side, device)``, the check's
+    numbers of one side (``calibrate.py``)."""
+    return _load('modes', name, bench_dir)

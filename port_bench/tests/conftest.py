@@ -21,10 +21,11 @@ def pytest_configure(config):
 
 @pytest.fixture
 def tiny_bench(tmp_path):
-    """A benchmark directory of the tiny cells: the shipped metric files,
-    tiny traffic and limits; returns (spec path, bench dir)."""
+    """A benchmark directory of the tiny cells: the shipped metric and
+    mode files, tiny traffic and limits; returns (spec path, bench dir)."""
     data = os.path.join(BENCH, 'tests', 'data')
     for name, src in (('metrics', os.path.join(BENCH, 'metrics')),
+                      ('modes', os.path.join(BENCH, 'modes')),
                       ('traffic', os.path.join(data, 'traffic')),
                       ('limits', os.path.join(data, 'limits'))):
         os.symlink(src, tmp_path / name)

@@ -49,3 +49,19 @@ def test_whole_names():
     names = {'virconv_tpu_torch', 'virconv_tpux', 'jaxtyping'}
     assert not names & set(run.FORBIDDEN)
     assert {'virconv_tpu', 'jax'} <= set(run.FORBIDDEN)
+
+
+def test_shared_cells_know_no_model():
+    """What every run mode shares imports nothing of the program, of the
+    reference or of the detector's helpers, and names no detector."""
+    path = os.path.join(BENCH, 'benchlib', 'cells.py')
+    assert not set(imported(path)) & {PROGRAM, 'refnet'}
+    local = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            local |= {node.module or ''} | {a.name for a in node.names}
+    assert not local & {'detector', 'capture', 'traffic', 'weights',
+                        'faults', 'work'}
+    src = open(path).read()
+    for name in ('Detector', 'Trainer', 'voxel_pool', 'STAGES'):
+        assert name not in src

@@ -76,8 +76,10 @@ def test_pieces_exist():
         assert conf['source'] == c['source']
         assert conf['reduced'] == c['reduced'] == []
     for w in SPEC['workloads']:
-        assert os.path.isfile(os.path.join(BENCH, 'traffic',
-                                           w['traffic'] + '.json'))
+        traffic = os.path.join(BENCH, 'traffic', w['traffic'] + '.json')
+        assert os.path.isfile(traffic)
+        assert os.path.isfile(os.path.join(
+            BENCH, 'modes', json.load(open(traffic))['mode'] + '.py'))
         assert os.path.isfile(os.path.join(BENCH, 'limits',
                                            w['name'] + '.json'))
     for m in SPEC['per_layer']:
