@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.cspn import KERNEL_SIZES, cspn_iteration, nn_up
+from ...utils import trace
 
 BN_EPS = 1e-5
 CROP_H, CROP_W = 352, 1216
@@ -235,38 +236,42 @@ class PENetC2(nn.Module):
     def heads(self, rgb, d, position, k_mat):
         """ENet and the propagation inputs of both stages: a dict with the
         coarse depth, the guides, masks, kernel confidences and sparse
-        depths."""
-        valid = (d > 0).to(d.dtype)
-        f_s1, f_s2, coarse = self.backbone(rgb, d, position, k_mat)
-        d_s2, vm_s2 = sparse_downsample_close(d, valid)
-        return {
-            'coarse': coarse, 'd': d, 'd_s2': d_s2,
-            'mask_s2': torch.sigmoid(self.mask_s2(f_s2)) * vm_s2,
-            'kconf_s2': torch.softmax(self.kconf_s2(f_s2), 1),
-            'guides_s2': [getattr(self, f'guide{k}_s2')(f_s2)
-                          for k in KERNEL_SIZES],
-            'mask': torch.sigmoid(self.mask(f_s1)) * valid,
-            'kconf': torch.softmax(self.kconf(f_s1), 1),
-            'guides': [getattr(self, f'guide{k}')(f_s1)
-                       for k in KERNEL_SIZES]}
+        depths (span ``penet.enet``)."""
+        with trace.span('penet.enet'):
+            valid = (d > 0).to(d.dtype)
+            f_s1, f_s2, coarse = self.backbone(rgb, d, position, k_mat)
+            d_s2, vm_s2 = sparse_downsample_close(d, valid)
+            return {
+                'coarse': coarse, 'd': d, 'd_s2': d_s2,
+                'mask_s2': torch.sigmoid(self.mask_s2(f_s2)) * vm_s2,
+                'kconf_s2': torch.softmax(self.kconf_s2(f_s2), 1),
+                'guides_s2': [getattr(self, f'guide{k}_s2')(f_s2)
+                              for k in KERNEL_SIZES],
+                'mask': torch.sigmoid(self.mask(f_s1)) * valid,
+                'kconf': torch.softmax(self.kconf(f_s1), 1),
+                'guides': [getattr(self, f'guide{k}')(f_s1)
+                           for k in KERNEL_SIZES]}
 
     def propagate(self, p):
         """The two propagation stages over ``heads``' dict: 2 x ``iters``
-        ``cspn_iteration`` calls. Returns the refined depth."""
-        coarse = p['coarse']
-        ds = (coarse,) * 3
-        for _ in range(self.iters):
-            ds = cspn_iteration(p['guides_s2'], ds, coarse, p['mask_s2'],
-                                p['d_s2'], dilation=2, half_res=True)
-        kc = [nn_up(p['kconf_s2'][:, i:i + 1]) for i in range(3)]
-        depth_s2 = kc[0] * ds[0] + kc[1] * ds[1] + kc[2] * ds[2]
-        ds = (depth_s2,) * 3
-        for _ in range(self.iters):
-            ds = cspn_iteration(p['guides'], ds, depth_s2, p['mask'], p['d'],
-                                dilation=1, half_res=False)
-        kconf = p['kconf']
-        return (kconf[:, 0:1] * ds[0] + kconf[:, 1:2] * ds[1]
-                + kconf[:, 2:3] * ds[2])
+        ``cspn_iteration`` calls (span ``penet.cspn``). Returns the refined
+        depth."""
+        with trace.span('penet.cspn'):
+            coarse = p['coarse']
+            ds = (coarse,) * 3
+            for _ in range(self.iters):
+                ds = cspn_iteration(p['guides_s2'], ds, coarse,
+                                    p['mask_s2'], p['d_s2'], dilation=2,
+                                    half_res=True)
+            kc = [nn_up(p['kconf_s2'][:, i:i + 1]) for i in range(3)]
+            depth_s2 = kc[0] * ds[0] + kc[1] * ds[1] + kc[2] * ds[2]
+            ds = (depth_s2,) * 3
+            for _ in range(self.iters):
+                ds = cspn_iteration(p['guides'], ds, depth_s2, p['mask'],
+                                    p['d'], dilation=1, half_res=False)
+            kconf = p['kconf']
+            return (kconf[:, 0:1] * ds[0] + kconf[:, 1:2] * ds[1]
+                    + kconf[:, 2:3] * ds[2])
 
     def forward(self, rgb, d, position, k_mat):
         return self.propagate(self.heads(rgb, d, position, k_mat))

@@ -10,13 +10,20 @@ of pixels hit twice stay those of the JAX tool); complete the depth with
 (``depth2points``, on the host); write ``velodyne_depth/<frame>.npy``
 (float16 [x, y, z, i, r/3, g/3, b/3, indicator]).
 
-``VirtualPointGenerator.generate`` keeps the model on the device and
-overlaps the host stages: frame k+1 is read and prepared, and frame k-1's
-points made and saved, in worker threads while frame k's forward runs.
+``VirtualPointGenerator.stream`` keeps the model on the device and
+overlaps the host tail: frame k-1's points are made on a worker thread
+while frame k's forward runs. ``generate`` reads and prepares frame k+1
+on a worker thread too, drives ``stream`` and saves what it yields.
+Spans (``utils/trace.py``): ``vp.copy`` (a frame's uploads and its
+depth's download), ``penet.enet``, ``penet.cspn`` and
+``vp.depth2points``; counters per frame: ``vp.sparse_pixels`` (crop
+pixels with a LiDAR depth), ``vp.virtual_points`` (before thinning),
+``vp.thinned_points`` (kept by ``la_sampling2``), ``vp.fused_points``.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -29,12 +36,14 @@ import torch
 from ... import resolve_device
 from ...utils.calibration import Calibration
 from ...utils.jax_weights import load_state_dict_checked, random_init_
+from ...utils import trace
 from ...utils.png import read_png
 from .depth2points import depth_to_points_rgb, fuse_virtual_and_lidar
 from .penet import PENetC2
 
 CROP_H, CROP_W = 352, 1216
 STAGES = ('read_prepare', 'enet', 'cspn', 'depth2points', 'save')
+TAIL_WORKERS = 2        # host threads that make the frames' points
 
 
 def prepare_frame(root, frame_id):
@@ -80,11 +89,20 @@ def crop_calibration(k_mat, calib):
         'R0': calib.R0, 'Tr_velo2cam': calib.V2C})
 
 
-def frame_points(depth, rgb_c, k_mat, calib, lidar):
-    """The fused float16 cloud of one frame from its completed depth."""
-    virtual = depth_to_points_rgb(depth, rgb_c, crop_calibration(k_mat,
-                                                                 calib))
-    return fuse_virtual_and_lidar(virtual, lidar)
+def frame_points(depth, rgb_c, k_mat, calib, lidar, sparse=None):
+    """The fused float16 cloud of one frame from its completed depth (span
+    ``vp.depth2points``; the counters with ``sparse``, the frame's sparse
+    depth, given)."""
+    with trace.span('vp.depth2points'):
+        virtual = depth_to_points_rgb(depth, rgb_c,
+                                      crop_calibration(k_mat, calib))
+        fused = fuse_virtual_and_lidar(virtual, lidar)
+    if sparse is not None and trace.enabled():
+        trace.count({'vp.sparse_pixels': int(np.count_nonzero(sparse)),
+                     'vp.virtual_points': len(virtual),
+                     'vp.thinned_points': len(fused) - len(lidar),
+                     'vp.fused_points': len(fused)})
+    return fused
 
 
 @dataclass
@@ -128,74 +146,106 @@ class VirtualPointGenerator:
 
     @torch.no_grad()
     def complete(self, rgb_c, sparse, position, k_mat, seconds=None):
-        """The completed depth (CROP_H, CROP_W) of one prepared frame;
-        ``seconds`` (a dict) gets the 'enet' and 'cspn' times."""
+        """The completed depth (CROP_H, CROP_W) of one prepared frame.
+        ``seconds`` (a dict) gets the 'enet' and 'cspn' times, for which
+        the device is synchronized after each stage; without it the two
+        run back to back up to the depth's download."""
         dev = self.device
 
         def dev_t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        rgb = dev_t(rgb_c).permute(2, 0, 1)[None].float()
-        d = dev_t(sparse)[None, None]
-        pos = dev_t(position).permute(2, 0, 1)[None]
-        k = dev_t(k_mat)[None]
+        with trace.span('vp.copy'):
+            rgb = dev_t(rgb_c).permute(2, 0, 1)[None].float()
+            d = dev_t(sparse)[None, None]
+            pos = dev_t(position).permute(2, 0, 1)[None]
+            k = dev_t(k_mat)[None]
         with torch.backends.cudnn.flags(enabled=True, deterministic=True,
                                         allow_tf32=False):
             t = time.perf_counter()
             heads = self.model.heads(rgb, d, pos, k)
-            self._sync()
-            t1 = time.perf_counter()
+            if seconds is not None:
+                self._sync()
+                t1 = time.perf_counter()
             depth = self.model.propagate(heads)
-            self._sync()
-            t2 = time.perf_counter()
-        if seconds is not None:
-            seconds['enet'], seconds['cspn'] = t1 - t, t2 - t1
-        return depth[0, 0].cpu().numpy()
+            if seconds is not None:
+                self._sync()
+                seconds['enet'] = t1 - t
+                seconds['cspn'] = time.perf_counter() - t1
+        with trace.span('vp.copy'):
+            return depth[0, 0].cpu().numpy()
+
+    def stream(self, prepared, seconds=None):
+        """Yield ``(frame_id, fused float16 cloud)`` for each ``(frame_id,
+        prepare_frame's outputs)`` of ``prepared``, in order: each frame's
+        forward on the device and one download of its depth, then its
+        points (``frame_points``) on one of ``TAIL_WORKERS`` threads while
+        the next frames' forwards run; a frame's cloud is yielded once
+        ``TAIL_WORKERS`` later frames are on their way, or at the end.
+        ``seconds`` (a dict) gets each frame's stage seconds, by frame id:
+        'enet', 'cspn' (the device synchronized after each) and
+        'depth2points'."""
+        def tail(fid, depth, prep):
+            _, rgb_c, sparse, _, k_mat, calib, lidar, _ = prep
+            t = time.perf_counter()
+            fused = frame_points(depth, rgb_c, k_mat, calib, lidar, sparse)
+            if seconds is not None:
+                seconds[fid]['depth2points'] = time.perf_counter() - t
+            return fused
+
+        with ThreadPoolExecutor(TAIL_WORKERS) as pool:
+            tails = collections.deque()
+            for fid, prep in prepared:
+                _, rgb_c, sparse, position, k_mat, _, _, _ = prep
+                stage = None
+                if seconds is not None:
+                    stage = seconds.setdefault(fid, {})
+                depth = self.complete(rgb_c, sparse, position, k_mat, stage)
+                tails.append((fid, pool.submit(tail, fid, depth, prep)))
+                if len(tails) > TAIL_WORKERS:
+                    fid0, fut = tails.popleft()
+                    yield fid0, fut.result()
+            while tails:
+                fid0, fut = tails.popleft()
+                yield fid0, fut.result()
 
     def generate(self, root, frames):
         """Write ``velodyne_depth/<frame>.npy`` for ``frames`` of the split
-        ``root``. Returns a ``GenerationResult``."""
+        ``root``: each frame read and prepared ahead on a worker thread,
+        ``stream``, and each yielded cloud saved. Returns a
+        ``GenerationResult``."""
         root = Path(root)
         out_dir = root / 'velodyne_depth'
         out_dir.mkdir(parents=True, exist_ok=True)
         res = GenerationResult(device=str(self.device))
-        per_frame = [dict.fromkeys(STAGES, 0.0) for _ in frames]
-        counts = [None] * len(frames)
+        stages = {f: dict.fromkeys(STAGES, 0.0) for f in frames}
+        lidar_points = {}
 
-        def prepare(k):
+        def prepare(fid):
             t = time.perf_counter()
-            out = prepare_frame(root, frames[k])
-            per_frame[k]['read_prepare'] = time.perf_counter() - t
+            out = prepare_frame(root, fid)
+            stages[fid]['read_prepare'] = time.perf_counter() - t
+            lidar_points[fid] = len(out[6])
             return out
 
-        def finish(k, depth, prep):
-            _, rgb_c, _, _, k_mat, calib, lidar, _ = prep
-            t = time.perf_counter()
-            fused = frame_points(depth, rgb_c, k_mat, calib, lidar)
-            t1 = time.perf_counter()
-            np.save(out_dir / f'{frames[k]}.npy', fused)
-            per_frame[k]['depth2points'] = t1 - t
-            per_frame[k]['save'] = time.perf_counter() - t1
-            counts[k] = (len(fused), len(lidar))
-            print(f'{frames[k]}: {len(fused)} points', flush=True)
-
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            ahead = pool.submit(prepare, 0) if frames else None
-            tails = []
-            for k in range(len(frames)):
-                prep = ahead.result()
-                if k + 1 < len(frames):
-                    ahead = pool.submit(prepare, k + 1)
-                _, rgb_c, sparse, position, k_mat, _, _, _ = prep
-                depth = self.complete(rgb_c, sparse, position, k_mat,
-                                      per_frame[k])
-                tails.append(pool.submit(finish, k, depth, prep))
-            for f in tails:
-                f.result()
+        with ThreadPoolExecutor(1) as reader:
+            def prepared():
+                ahead = reader.submit(prepare, frames[0]) if frames else None
+                for k, fid in enumerate(frames):
+                    prep = ahead.result()
+                    if k + 1 < len(frames):
+                        ahead = reader.submit(prepare, frames[k + 1])
+                    yield fid, prep
+
+            for fid, fused in self.stream(prepared(), seconds=stages):
+                t = time.perf_counter()
+                np.save(out_dir / f'{fid}.npy', fused)
+                stages[fid]['save'] = time.perf_counter() - t
+                res.points.append(len(fused))
+                print(f'{fid}: {len(fused)} points', flush=True)
         res.wall_s = time.perf_counter() - t0
         res.frames = list(frames)
-        res.points = [c[0] for c in counts]
-        res.lidar_points = [c[1] for c in counts]
+        res.lidar_points = [lidar_points[f] for f in frames]
         for s in STAGES:
-            res.seconds[s] = [p[s] for p in per_frame]
+            res.seconds[s] = [stages[f][s] for f in frames]
         return res

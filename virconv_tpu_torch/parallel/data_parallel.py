@@ -41,6 +41,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 KINDS = ('moments', 'counts', 'broadcast', 'grads', 'params')
 COUNTS = {k: {'calls': 0, 'bytes': 0} for k in KINDS}
 SECONDS = {k: 0.0 for k in KINDS}
@@ -128,11 +130,12 @@ def all_reduce_sum(x):
 
 def sync_moments(*parts):
     """The ranks' sums of each of ``parts`` (partial BN moments and counts),
-    in one differentiable all-reduce. Outside ``synced`` the parts come
-    back as they are."""
+    in one differentiable all-reduce (span ``sync_bn``). Outside ``synced``
+    the parts come back as they are."""
     if _GROUP is None:
         return parts
-    flat = all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]))
+    with trace.span('sync_bn'):
+        flat = all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]))
     out, i = [], 0
     for p in parts:
         out.append(flat[i:i + p.numel()].reshape(p.shape))

@@ -15,9 +15,11 @@ allocation. On, a span
   takes as Unix time floored to a three-month boundary.
 
 A span entered while one of the same name is open on the thread is not
-counted again (and is no trace event). Each recording starts from an empty
-registry: the first span once tracing turns on clears what an earlier
-recording left.
+counted again (and is no trace event). ``count({name: value})`` appends
+values (a frame's counts, say) to the registry's counters while tracing is
+on, and does nothing while it is off. Each recording
+starts from an empty registry: the first span or count once tracing turns
+on clears what an earlier recording left.
 
 While on, CUDA's sync debug mode is 'warn', and its "called a synchronizing
 CUDA operation" warnings are counted, not printed: under the innermost
@@ -30,7 +32,7 @@ back as they were.
 
     with trace.recording():
         detector(frames)
-    snap = trace.snapshot()     # {'spans', 'sites', 'timeline'}
+    snap = trace.snapshot()     # {'spans', 'sites', 'timeline', 'counters'}
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ from torch.autograd import profiler as _autograd_profiler
 SPANS = ('make_batch', 'voxelize', 'backbone_3d', 'sparse_plan', 'bev',
          'rpn', 'rpn.nms', 'rpn.anchor_targets', 'roi_head',
          'roi_head.grid_pool', 'loss', 'backward', 'allreduce_grads',
-         'optimizer', 'postprocess_wbf')
+         'optimizer', 'postprocess_wbf', 'sync_bn', 'penet.enet',
+         'penet.cspn', 'vp.depth2points', 'vp.copy')
+COUNTERS = ('vp.sparse_pixels', 'vp.virtual_points', 'vp.thinned_points',
+            'vp.fused_points')
 SYNC_MESSAGE = 'called a synchronizing CUDA operation'
 TRIMONTH_S = 7889238        # Kineto's base-time boundary, in seconds
 
@@ -76,6 +81,7 @@ class _Registry:
         self.sites = collections.Counter()
         self.timeline = []          # (name, start us, end us)
         self.syncs = []             # (us, span, site)
+        self.counters = {}          # name -> [values]
 
     def stack(self):
         ident = threading.get_ident()
@@ -91,10 +97,15 @@ class _Registry:
 _reg = _Registry()
 
 
+def enabled() -> bool:
+    """Whether tracing is on (``torch.profiler`` or ``recording()``)."""
+    return _autograd_profiler._is_profiler_enabled or bool(_reg.recording)
+
+
 def span(name: str):
     """A context manager that opens the program span ``name`` (one of
     ``SPANS``) while tracing is on, and does nothing while it is off."""
-    if _autograd_profiler._is_profiler_enabled or _reg.recording:
+    if enabled():
         stack = _reg.stack()
         if name in stack:
             return _NOOP
@@ -131,6 +142,20 @@ class _Span:
         return False
 
 
+def count(values):
+    """Append each value of ``values`` ({name: value}, names of
+    ``COUNTERS``) to its counter, all under one lock, while tracing is on;
+    nothing while it is off. The values of one call keep one index across
+    their counters."""
+    if not enabled():
+        return
+    if not _reg.hooked:
+        _hook()
+    with _reg.lock:
+        for name, value in values.items():
+            _reg.counters.setdefault(name, []).append(value)
+
+
 @contextlib.contextmanager
 def recording():
     """Tracing on inside the block, without the profiler (nestable)."""
@@ -146,16 +171,17 @@ def recording():
 
 def snapshot():
     """A copy of the registry: ``spans`` {name: {'calls', 'host_s',
-    'syncs'}}, ``sites`` {'file:line': syncs} and ``timeline`` {'spans':
+    'syncs'}}, ``sites`` {'file:line': syncs}, ``timeline`` {'spans':
     [(name, start, end)], 'syncs': [(t, span, site)]}, times in the
-    Chrome trace's microseconds."""
+    Chrome trace's microseconds, and ``counters`` {name: [values]}."""
     with _reg.lock:
         return {
             'spans': {n: {'calls': c, 'host_s': ns / 1e9, 'syncs': s}
                       for n, (c, ns, s) in _reg.spans.items()},
             'sites': dict(_reg.sites),
             'timeline': {'spans': list(_reg.timeline),
-                         'syncs': list(_reg.syncs)}}
+                         'syncs': list(_reg.syncs)},
+            'counters': {n: list(v) for n, v in _reg.counters.items()}}
 
 
 def reset():
