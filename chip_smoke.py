@@ -142,10 +142,14 @@ Phases (each prints one line; any failure exits non-zero):
      tree (375 x 1242 images) with the CSPN count set to 0 just before
      and read just after (12 per frame): each ``velodyne_depth`` file
      float16 with 8 columns, the scan first (indicator 2, intensity x
-     10), then the virtual points (indicator 1, z < 1); seconds per frame
-     by stage and points per frame; (d) ``eval_one_ckpt`` of VirConv-T
-     over the generated tree, gated as 9a; (e) PENetC2 at 64 x 96 on CUDA
-     against the CPU, the depth within 1e-4 x scale;
+     10), then the virtual points (indicator 1, z < 1), every frame's
+     made on the depth2points kernels; seconds per frame by stage and
+     points per frame; (d) ``eval_one_ckpt`` of VirConv-T over the
+     generated tree, gated as 9a; (f) the depth2points tail
+     (``csrc/depth2points.cu``) on 4 street depths at the crop: numpy's
+     cloud bit for bit, host and device ms a call, calls, the bound and
+     numpy's ms; (e) PENetC2 at 64 x 96 on CUDA against the CPU, the
+     depth within 1e-4 x scale;
  13. the JAX package's precision switches (K1 with bf16 features, K1
      and K4 with bf16 training operands, K2+K3 at f32 operands, the
      ODIoU step);
@@ -2381,6 +2385,109 @@ def check_velodyne_depth(split, fid, n_points, n_lidar):
     return float((pts[n_lidar:, 4:7] > 0).any(1).mean())
 
 
+D2P_FRAMES = 4         # phase 12f's street depths
+D2P_REPS = 20          # timed calls of each
+
+
+def depth2points_cases(prep, tag):
+    """Phase 12f: the depth2points tail (``ops.depth2points.virtual_cloud``,
+    ``csrc/depth2points.cu``) on D2P_FRAMES street depths
+    (``mini_kitti.street_depth``) with ``prep``'s crop, calibration and
+    scan: the fused cloud against numpy's ``frame_points`` bit for bit;
+    per frame the host ms of a call (its two syncs and numpy's angles
+    included; median of D2P_REPS after a warm call), the kernels' device
+    ms (CUDA events around ``project`` and ``thin``), the library calls a
+    call (two, or the phase fails), the table's slots, the bound by the
+    bytes the tail needs (each once: the depth, 28 B a kept row, 27 B a
+    winner) and numpy's ms. First, this host's np.dot must sum in the
+    kernels' orders (``host_order_holds``)."""
+    import statistics
+    import torch
+    from virconv_tpu_torch.models.depth_completion import virtual_points as vp
+    from virconv_tpu_torch.models.depth_completion.depth2points import \
+        lidar_rows
+    from virconv_tpu_torch.ops import depth2points as d2p
+    from virconv_tpu_torch.utils.mini_kitti import street_depth
+    _, rgb_c, _, _, k_mat, calib, lidar, _ = prep
+    if not d2p.host_order_holds():
+        fail('depth2points: this host\'s np.dot sums in another order than '
+             'the kernels')
+    cam = d2p.camera_params(vp.crop_calibration(k_mat, calib))
+    rgb = torch.from_numpy(np.ascontiguousarray(rgb_c)).cuda()
+    wrapped = {name: getattr(d2p, name) for name in ('project', 'thin')}
+    cases = []
+    for seed in range(D2P_FRAMES):
+        depth_np = street_depth(np.random.default_rng(seed))
+        depth = torch.from_numpy(depth_np).cuda()
+        t = time.perf_counter()
+        want = vp.frame_points(depth_np, rgb_c, k_mat, calib, lidar)
+        numpy_ms = 1e3 * (time.perf_counter() - t)
+        rows, n_in = d2p.virtual_cloud(depth, rgb, cam)
+        got = np.concatenate([lidar_rows(lidar).astype(np.float16), rows])
+        if got.shape != want.shape or not np.array_equal(
+                got.view(np.uint16), want.view(np.uint16)):
+            fail(f'depth2points street {seed}: the kernels\' cloud differs '
+                 f'from numpy\'s')
+        events = {name: [] for name in wrapped}
+
+        def timed(name):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = wrapped[name](*args)
+                end.record()
+                events[name].append((start, end))
+                return out
+            return call
+        host_ms, launches, boxes = [], d2p.launches, []
+        table_box = d2p.table_box
+
+        def boxed(*args):
+            boxes.append(table_box(*args))
+            return boxes[-1]
+        try:
+            d2p.table_box = boxed
+            for name in wrapped:
+                setattr(d2p, name, timed(name))
+            for _ in range(D2P_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                d2p.virtual_cloud(depth, rgb, cam)
+                host_ms.append(1e3 * (time.perf_counter() - t))
+        finally:
+            d2p.table_box = table_box
+            for name, fn in wrapped.items():
+                setattr(d2p, name, fn)
+        torch.cuda.synchronize()
+        calls = (d2p.launches - launches) / D2P_REPS
+        if calls != 2:
+            fail(f'depth2points street {seed}: {calls} library calls a '
+                 f'frame, not 2')
+        device = {name: statistics.median(s.elapsed_time(e) for s, e in ev)
+                  for name, ev in events.items()}
+        n = int(d2p.project(depth, cam)[0][0])
+        nbytes = 4 * depth_np.size + 28 * n + 27 * len(rows)
+        _, v_rows, _, h_cols = boxes[-1]
+        case = {'name': f'street {seed}', 'pixels_in_range': n_in,
+                'kept_rows': n, 'thinned': len(rows),
+                'table_slots': v_rows * h_cols,
+                'ms': statistics.median(host_ms),
+                'ms_range': [min(host_ms), max(host_ms)],
+                'device_ms': sum(device.values()), 'device_ms_by_call': device,
+                'calls': calls,
+                'bound_ms': 1e3 * nbytes / HBM_BYTES_PER_S,
+                'numpy_ms': numpy_ms}
+        cases.append(case)
+        print(f'[{tag}] depth2points {case["name"]}: numpy\'s bits; '
+              f'{n_in} in range, {n} kept, {len(rows)} thinned; ms '
+              f'{case["ms"]:.3f} (device {case["device_ms"]:.4f}: '
+              f'{json.dumps(device)}), {case["calls"]} calls, '
+              f'{v_rows * h_cols} table slots, bound '
+              f'{case["bound_ms"]:.4f}, numpy {numpy_ms:.1f}', flush=True)
+    return cases
+
+
 def virtual_points_phase(tmp, logger):
     """Phase 12, PENet virtual points at full width (seeded weights): (a)
     build PENetC2 on the card; (b) every CSPN kernel launch of one
@@ -2388,14 +2495,17 @@ def virtual_points_phase(tmp, logger):
     twice with the same bits; (c)
     ``tools/generate_virtual_points_gpu.py``'s ``main`` over a
     VP_FRAMES-frame scene tree with the CSPN count set to 0 just before
-    and read just after (CSPN_PER_FRAME per frame), each file checked;
-    (d) ``eval_one_ckpt`` of VirConv-T over the generated tree (K1 and
-    K2+K3 launched); (e) PENetC2 at 64 x 96 on CUDA against the CPU, the
-    depth within 1e-4 x scale. Returns (per-call lines, the numbers)."""
+    and read just after (CSPN_PER_FRAME per frame), each file checked,
+    every frame's points made on the depth2points kernels; (d)
+    ``eval_one_ckpt`` of VirConv-T over the generated tree (K1 and K2+K3
+    launched); (f) ``depth2points_cases``; (e) PENetC2 at 64 x 96 on CUDA
+    against the CPU, the depth within 1e-4 x scale. Returns (per-call
+    lines, the numbers)."""
     import torch
     from virconv_tpu_torch.models.depth_completion import virtual_points as vp
     from virconv_tpu_torch.models.depth_completion.penet import PENetC2
     from virconv_tpu_torch.ops import cspn
+    from virconv_tpu_torch.ops import depth2points as d2p
     from virconv_tpu_torch.utils.bench_inputs import FRAMES
     from virconv_tpu_torch.utils.jax_weights import random_init_
     from virconv_tpu_torch.utils.mini_kitti import write_tree
@@ -2440,8 +2550,15 @@ def virtual_points_phase(tmp, logger):
     torch.cuda.empty_cache()
 
     cspn.launches = 0
+    d2p.counts.clear()
+    d2p.launches = 0
     res = cli.main(['--detpath', str(split)])
     launches = cspn.launches
+    if (d2p.counts['kernel'] != len(res.frames) or d2p.counts['plain']
+            or d2p.launches != 2 * len(res.frames)):
+        fail(f'depth2points: {dict(d2p.counts)} and {d2p.launches} library '
+             f'calls over {len(res.frames)} frames, not every frame on the '
+             f'kernels, two calls each')
     colour = [check_velodyne_depth(split, f, n, m) for f, n, m in
               zip(res.frames, res.points, res.lidar_points)]
     per_frame = res.per_frame()
@@ -2466,6 +2583,7 @@ def virtual_points_phase(tmp, logger):
 
     stats['eval'] = eval_scene(tmp, VP_FRAMES, FRAMES, logger, tag=tag,
                                root=root)
+    stats['depth2points'] = depth2points_cases(prep, tag)
 
     rng = np.random.default_rng(0)
     h, w = 64, 96

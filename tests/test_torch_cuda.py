@@ -1394,3 +1394,152 @@ def test_nms_kernels_reject_bad_operands():
     with pytest.raises(ValueError):          # more keep bits than it holds
         tbox._nms_mask_cuda(big, torch.ones(big.shape[:2], dtype=torch.bool,
                                             device=dev), 0.5)
+
+
+# ---- the depth2points tail (csrc/depth2points.cu) ------------------------
+
+def _frame_on(dev, frame):
+    depth, rgb, k_mat, calib, scan = frame
+    from virconv_tpu_torch.models.depth_completion import virtual_points
+    from virconv_tpu_torch.ops import depth2points as td2p
+    cam = td2p.camera_params(virtual_points.crop_calibration(k_mat, calib))
+    return (torch.from_numpy(depth).to(dev), torch.from_numpy(rgb).to(dev),
+            cam)
+
+
+@pytest.mark.parametrize('kind', ['street', 'range_bounds', 'behind',
+                                  'all_below_z', 'none_in_range',
+                                  'one_in_range', 'one_in_range',
+                                  'one_in_range'])
+def test_depth2points_project_kernel_matches_plain(kind, request):
+    """``project`` against ``project_plain``: counts, c, q, pixels and r
+    bit for bit; a frame with one pixel in range takes the sgemv order."""
+    dev = _cuda()
+    import depth2points_cases as cases
+    from virconv_tpu_torch.ops import depth2points as td2p
+    seed = 11 + request.node.callspec.indices['kind']
+    frame = cases.frame(np.random.default_rng(seed), kind)
+    depth, rgb, cam = _frame_on(dev, frame)
+    head, pix, r = td2p.project(depth, cam)
+    torch.cuda.synchronize()
+    want_head, want_pix, want_r = td2p.project_plain(depth.cpu(), cam)
+    n, hw = int(want_head[0]), depth.numel()
+    head = head.cpu()
+    assert torch.equal(head[:2], want_head[:2])
+    for part in (slice(4, 4 + n), slice(4 + hw, 4 + hw + n)):   # c, q
+        assert torch.equal(head[part], want_head[part])
+    assert torch.equal(pix[:n].cpu(), want_pix[:n])
+    assert torch.equal(_bits(r[:n]), _bits(want_r[:n]))
+
+
+@pytest.mark.parametrize('kind', ['street', 'hard_angles', 'ties', 'one',
+                                  'one_row'])
+def test_depth2points_thin_kernel_matches_plain(kind):
+    """The bins (numpy's float32 ``//`` of the angles), the nearest row of
+    each and their float16 rows, against ``thin_plain``: rows of a street
+    frame; angles on bin edges and their neighbours; every row four times
+    (ties in r in each bin); one row; one row of a frame with one pixel in
+    range (back-projected in the sgemv order)."""
+    dev = _cuda()
+    import depth2points_cases as cases
+    from virconv_tpu_torch.ops import depth2points as td2p
+    rng = np.random.default_rng(3)
+    frame = cases.frame(rng, 'street')
+    depth, rgb, cam = _frame_on(dev, frame)
+    head, pix, r = td2p.project_plain(depth.cpu(), cam)
+    n, hw = int(head[0]), depth.numel()
+    cq = head[4:].view(torch.float32).numpy()
+    theta, fan = td2p.angles(cq[:n], cq[hw:hw + n])
+    pix, r = pix[:n], r[:n]
+    if kind == 'hard_angles':
+        theta = cases.hard_angles(rng, 0.0025, n, 0, np.pi)
+        fan = cases.hard_angles(rng, 0.0015, n, -np.pi / 2, np.pi / 2)
+        n = min(len(theta), n)
+        theta, fan, pix, r = theta[:n], fan[:n], pix[:n], r[:n]
+    elif kind == 'ties':
+        pick = rng.permutation(n // 4).repeat(4)
+        theta, fan, r = theta[pick], fan[pick], r[pick]
+        pix, n = pix[:len(pick)], len(pick)
+    elif kind in ('one', 'one_row'):
+        theta, fan, pix, r, n = theta[:1], fan[:1], pix[:1], r[:1], 1
+    one_row = kind == 'one_row'
+    theta_fan = torch.from_numpy(np.concatenate([theta, fan]))
+    box = td2p.table_box(theta, fan, 0.0025, 0.0015)
+    want = td2p.thin_plain(depth.cpu(), rgb.cpu(), cam, pix, r, theta_fan,
+                           0.0025, 0.0015, box, one_row)
+    got = td2p.thin(depth, rgb, cam, pix.to(dev), r.to(dev),
+                    theta_fan.to(dev), 0.0025, 0.0015, box, one_row).cpu()
+    k = int(want[0])
+    assert int(want[1]) == 0 and k > 0
+    assert torch.equal(got[:2], want[:2])
+    assert torch.equal(got[4:4 + 4 * k], want[4:4 + 4 * k])
+    with pytest.raises(ValueError):
+        td2p.thin(depth, rgb, cam, pix.to(dev), r.to(dev), theta_fan.to(dev),
+                  1e-5, 1e-5, td2p.table_box(np.float32([0, 3]),
+                                             np.float32([-1.5, 1.5]), 1e-5,
+                                             1e-5))
+
+
+@pytest.mark.parametrize('kind', ['street', 'street', 'street',
+                                  'range_bounds', 'behind', 'none_in_range',
+                                  'one_in_range', 'all_below_z',
+                                  'one_in_range', 'one_in_range'])
+def test_depth2points_kernels_give_numpy_s_cloud(kind, request):
+    """``frame_points`` from the depth and crop on the card, on a stream of
+    its own after the frame's event, against numpy's on the host depth:
+    float16 bits equal at the 352 x 1216 crop."""
+    dev = _cuda()
+    import depth2points_cases as cases
+    from virconv_tpu_torch.models.depth_completion import virtual_points
+    from virconv_tpu_torch.ops import depth2points as td2p
+    seed = request.node.callspec.indices['kind']
+    frame = cases.frame(np.random.default_rng(100 + seed), kind)
+    depth, rgb, k_mat, calib, scan = frame
+    d_dev, rgb_dev, _ = _frame_on(dev, frame)
+    ready = torch.cuda.Event()
+    ready.record()
+    before = td2p.counts['kernel']
+    got = virtual_points.frame_points(
+        depth, rgb, k_mat, calib, scan,
+        on_device={'depth': d_dev, 'rgb': rgb_dev, 'ready': ready},
+        stream=torch.cuda.Stream(dev))
+    want = cases.numpy_cloud(depth, rgb, k_mat, calib, scan)
+    assert got.shape == want.shape
+    assert np.array_equal(got.view(np.uint16), want.view(np.uint16))
+    assert td2p.counts['kernel'] == before + 1
+
+
+def test_depth2points_stream_and_generate_on_the_card(tmp_path, monkeypatch):
+    """A CUDA ``stream`` over a 3-frame scene tree (the refined depth
+    replaced by street depths, so that the tails thin ~90 000 points) yields
+    numpy's clouds of each frame's depth, ``generate`` writes them byte for
+    byte, and every frame's rows came from the kernels."""
+    dev = _cuda()
+    from virconv_tpu_torch.models.depth_completion import virtual_points
+    from virconv_tpu_torch.ops import depth2points as td2p
+    from virconv_tpu_torch.utils.mini_kitti import street_depth, write_tree
+    split = write_tree(tmp_path / 'kitti', 'scene', frames=3, seed=4) \
+        / 'training'
+    frames = ['000000', '000001', '000002']
+    depths = [street_depth(np.random.default_rng(i)) for i in range(3)]
+    gen = virtual_points.VirtualPointGenerator(device='cuda')
+    calls = []
+
+    def propagate(heads):
+        calls.append(None)
+        return torch.from_numpy(depths[(len(calls) - 1) % 3]).to(dev)[None,
+                                                                      None]
+    monkeypatch.setattr(gen.model, 'propagate', propagate)
+    td2p.counts.clear()
+    gen.generate(split, frames)
+    preps = [(f, virtual_points.prepare_frame(split, f)) for f in frames]
+    got = list(gen.stream(iter(preps)))
+    assert td2p.counts['kernel'] == 6 and not td2p.counts['plain']
+    assert [f for f, _ in got] == frames
+    for (fid, cloud), (_, prep), depth in zip(got, preps, depths):
+        _, rgb_c, _, _, k_mat, calib, lidar, _ = prep
+        want = virtual_points.frame_points(depth, rgb_c, k_mat, calib, lidar)
+        assert len(want) > len(lidar) + 50000
+        saved = np.load(split / 'velodyne_depth' / f'{fid}.npy')
+        assert np.array_equal(cloud.view(np.uint16), want.view(np.uint16))
+        assert np.array_equal(saved.view(np.uint16), want.view(np.uint16))

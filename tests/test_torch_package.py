@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from virconv_tpu_torch.ops import (_cuda, band_conv, boxes, gather_conv,
-                                   nmap_conv, onehot_conv, roi_pool)
+from virconv_tpu_torch.ops import (_cuda, band_conv, boxes, depth2points,
+                                   gather_conv, nmap_conv, onehot_conv,
+                                   roi_pool)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / 'virconv_tpu_torch'
@@ -57,6 +58,7 @@ EVAL_MODULES = (
     'virconv_tpu_torch.models.depth_completion.penet_import',
     'virconv_tpu_torch.models.depth_completion.depth2points',
     'virconv_tpu_torch.models.depth_completion.virtual_points',
+    'virconv_tpu_torch.ops.depth2points',
     'virconv_tpu_torch.parallel', 'virconv_tpu_torch.parallel.dist',
     'virconv_tpu_torch.parallel.data_parallel',
     'virconv_tpu_torch.parallel.spawn',
@@ -311,7 +313,8 @@ def _cuda_name(py_name):
 @pytest.mark.parametrize('module,source', [
     (band_conv, 'band_conv'), (roi_pool, 'roi_pool'),
     (gather_conv, 'gather_conv'), (onehot_conv, 'gather_conv'),
-    (nmap_conv, 'gather_conv'), (boxes, 'nms')])
+    (nmap_conv, 'gather_conv'), (boxes, 'nms'),
+    (depth2points, 'depth2points')])
 def test_wrapper_limits_match_kernel_constexprs(module, source):
     limits = {n: getattr(module, n) for n in dir(module)
               if re.fullmatch(r'([A-Z]+_)?MAX_[A-Z_]+', n)}
@@ -395,3 +398,12 @@ def test_dw_tiles_per_chunk(n_tiles, tile, n_taps, c_out, min_ctas):
     elif n_tiles:
         assert per == 1
     assert chunks * n_taps * slabs >= min_ctas
+
+
+def test_depth2points_layout_matches_kernel():
+    """The wrapper sizes the per-CTA counts from THREADS and reads the
+    counts ahead of c, q and the rows from HEAD: the kernel's kThreads and
+    kHead."""
+    consts = _constexprs('depth2points')
+    assert consts['kThreads'] == depth2points.THREADS
+    assert consts['kHead'] == depth2points.HEAD

@@ -7,13 +7,22 @@ project the LiDAR into it as sparse depth (``prepare_frame``, numpy on
 the host, so ``np.round``'s half-to-even and the last-write-wins scatter
 of pixels hit twice stay those of the JAX tool); complete the depth with
 ``PENetC2`` on the device; back-project, fuse with the LiDAR and thin
-(``depth2points``, on the host); write ``velodyne_depth/<frame>.npy``
-(float16 [x, y, z, i, r/3, g/3, b/3, indicator]).
+(``frame_points``); write ``velodyne_depth/<frame>.npy`` (float16 [x, y,
+z, i, r/3, g/3, b/3, indicator]).
+
+``frame_points`` is numpy's ``depth2points`` on the host depth, except on
+a CUDA device: there the back-projection, the z cut and la_sampling2's
+binning and keep-nearest run on the card from the depth and the crop
+already there (``ops/depth2points.py``), on a stream of the worker
+thread's own that waits for the frame's CSPN, and give numpy's bits; the
+host takes only la_sampling2's angles (numpy's arccos and arctan: a device
+transcendental one ulp off would move points across bins) and puts the
+LiDAR's rows first.
 
 ``VirtualPointGenerator.stream`` keeps the model on the device and
-overlaps the host tail: frame k-1's points are made on a worker thread
-while frame k's forward runs. ``generate`` reads and prepares frame k+1
-on a worker thread too, drives ``stream`` and saves what it yields.
+overlaps the tail: frame k-1's points are made on a worker thread while
+frame k's forward runs. ``generate`` reads and prepares frame k+1 on a
+worker thread too, drives ``stream`` and saves what it yields.
 Spans (``utils/trace.py``): ``vp.copy`` (a frame's uploads and its
 depth's download), ``penet.enet``, ``penet.cspn`` and
 ``vp.depth2points``; counters per frame: ``vp.sparse_pixels`` (crop
@@ -24,6 +33,7 @@ pixels with a LiDAR depth), ``vp.virtual_points`` (before thinning),
 from __future__ import annotations
 
 import collections
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -38,12 +48,14 @@ from ...utils.calibration import Calibration
 from ...utils.jax_weights import load_state_dict_checked, random_init_
 from ...utils import trace
 from ...utils.png import read_png
-from .depth2points import depth_to_points_rgb, fuse_virtual_and_lidar
+from ...ops import depth2points as d2p
+from .depth2points import (depth_to_points_rgb, fuse_virtual_and_lidar,
+                           lidar_rows)
 from .penet import PENetC2
 
 CROP_H, CROP_W = 352, 1216
 STAGES = ('read_prepare', 'enet', 'cspn', 'depth2points', 'save')
-TAIL_WORKERS = 2        # host threads that make the frames' points
+TAIL_WORKERS = 2        # threads that make the frames' points
 
 
 def prepare_frame(root, frame_id):
@@ -89,20 +101,40 @@ def crop_calibration(k_mat, calib):
         'R0': calib.R0, 'Tr_velo2cam': calib.V2C})
 
 
-def frame_points(depth, rgb_c, k_mat, calib, lidar, sparse=None):
+def frame_points(depth, rgb_c, k_mat, calib, lidar, sparse=None,
+                 on_device=None, stream=None):
     """The fused float16 cloud of one frame from its completed depth (span
     ``vp.depth2points``; the counters with ``sparse``, the frame's sparse
-    depth, given)."""
+    depth, given). ``on_device``, what ``complete`` left there: the
+    virtual rows come from ``ops.depth2points.virtual_cloud`` on
+    ``stream`` (after the frame's ``ready`` event), else from numpy."""
     with trace.span('vp.depth2points'):
-        virtual = depth_to_points_rgb(depth, rgb_c,
-                                      crop_calibration(k_mat, calib))
-        fused = fuse_virtual_and_lidar(virtual, lidar)
+        calib_c = crop_calibration(k_mat, calib)
+        if on_device is None:
+            virtual = depth_to_points_rgb(depth, rgb_c, calib_c)
+            fused = fuse_virtual_and_lidar(virtual, lidar)
+            n_virtual = len(virtual)
+        else:
+            rows, n_virtual = _device_rows(on_device, calib_c, stream)
+            fused = np.concatenate([lidar_rows(lidar).astype(np.float16),
+                                    rows])
     if sparse is not None and trace.enabled():
         trace.count({'vp.sparse_pixels': int(np.count_nonzero(sparse)),
-                     'vp.virtual_points': len(virtual),
+                     'vp.virtual_points': n_virtual,
                      'vp.thinned_points': len(fused) - len(lidar),
                      'vp.fused_points': len(fused)})
     return fused
+
+
+def _device_rows(on_device, calib_c, stream):
+    """``virtual_cloud`` of a frame's depth and crop on the card, on
+    ``stream`` once the frame's ``ready`` event has passed."""
+    depth, rgb = on_device['depth'], on_device['rgb']
+    stream.wait_event(on_device['ready'])
+    depth.record_stream(stream)
+    rgb.record_stream(stream)
+    with torch.cuda.stream(stream):
+        return d2p.virtual_cloud(depth, rgb, d2p.camera_params(calib_c))
 
 
 @dataclass
@@ -145,17 +177,22 @@ class VirtualPointGenerator:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def complete(self, rgb_c, sparse, position, k_mat, seconds=None):
+    def complete(self, rgb_c, sparse, position, k_mat, seconds=None,
+                 on_device=None):
         """The completed depth (CROP_H, CROP_W) of one prepared frame.
         ``seconds`` (a dict) gets the 'enet' and 'cspn' times, for which
         the device is synchronized after each stage; without it the two
-        run back to back up to the depth's download."""
+        run back to back up to the depth's download. ``on_device`` (a dict,
+        CUDA) gets what the card's tail reads: the depth ('depth'), the
+        crop (H, W, 3) uint8 ('rgb') and an event recorded after the CSPN
+        ('ready')."""
         dev = self.device
 
         def dev_t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         with trace.span('vp.copy'):
-            rgb = dev_t(rgb_c).permute(2, 0, 1)[None].float()
+            rgb8 = dev_t(rgb_c)
+            rgb = rgb8.permute(2, 0, 1)[None].float()
             d = dev_t(sparse)[None, None]
             pos = dev_t(position).permute(2, 0, 1)[None]
             k = dev_t(k_mat)[None]
@@ -171,6 +208,10 @@ class VirtualPointGenerator:
                 self._sync()
                 seconds['enet'] = t1 - t
                 seconds['cspn'] = time.perf_counter() - t1
+        if on_device is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            on_device.update(depth=depth[0, 0], rgb=rgb8, ready=ready)
         with trace.span('vp.copy'):
             return depth[0, 0].cpu().numpy()
 
@@ -179,28 +220,40 @@ class VirtualPointGenerator:
         prepare_frame's outputs)`` of ``prepared``, in order: each frame's
         forward on the device and one download of its depth, then its
         points (``frame_points``) on one of ``TAIL_WORKERS`` threads while
-        the next frames' forwards run; a frame's cloud is yielded once
-        ``TAIL_WORKERS`` later frames are on their way, or at the end.
-        ``seconds`` (a dict) gets each frame's stage seconds, by frame id:
-        'enet', 'cspn' (the device synchronized after each) and
-        'depth2points'."""
-        def tail(fid, depth, prep):
+        the next frames' forwards run (on a CUDA device from the depth on
+        the card, on a high-priority stream of each thread's own); a
+        frame's cloud is yielded once ``TAIL_WORKERS`` later frames are on
+        their way, or at the end. ``seconds`` (a dict) gets each frame's
+        stage seconds, by frame id: 'enet', 'cspn' (the device
+        synchronized after each) and 'depth2points'."""
+        cuda = self.device.type == 'cuda'
+        local = threading.local()
+
+        def own_stream():       # high priority: ahead of the forwards' queue
+            if cuda:
+                local.stream = torch.cuda.Stream(self.device, priority=-1)
+
+        def tail(fid, depth, prep, on_device):
             _, rgb_c, sparse, _, k_mat, calib, lidar, _ = prep
             t = time.perf_counter()
-            fused = frame_points(depth, rgb_c, k_mat, calib, lidar, sparse)
+            fused = frame_points(depth, rgb_c, k_mat, calib, lidar, sparse,
+                                 on_device, getattr(local, 'stream', None))
             if seconds is not None:
                 seconds[fid]['depth2points'] = time.perf_counter() - t
             return fused
 
-        with ThreadPoolExecutor(TAIL_WORKERS) as pool:
+        with ThreadPoolExecutor(TAIL_WORKERS, initializer=own_stream) as pool:
             tails = collections.deque()
             for fid, prep in prepared:
                 _, rgb_c, sparse, position, k_mat, _, _, _ = prep
                 stage = None
                 if seconds is not None:
                     stage = seconds.setdefault(fid, {})
-                depth = self.complete(rgb_c, sparse, position, k_mat, stage)
-                tails.append((fid, pool.submit(tail, fid, depth, prep)))
+                on_device = {} if cuda else None
+                depth = self.complete(rgb_c, sparse, position, k_mat, stage,
+                                      on_device=on_device)
+                tails.append((fid, pool.submit(tail, fid, depth, prep,
+                                               on_device)))
                 if len(tails) > TAIL_WORKERS:
                     fid0, fut = tails.popleft()
                     yield fid0, fut.result()

@@ -24,7 +24,7 @@ BUILD = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false']
 SOURCES = ('band_conv', 'roi_pool', 'gather_conv', 'gather_rows', 'cspn',
-           'nms')
+           'nms', 'depth2points')
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
@@ -65,6 +65,10 @@ SIGNATURES = {
         'nms_overlap_mask': (_I, [_P] * 5 + [_I] * 2 + [_F] + [_P] * 2),
         'nms_overlap_iou': (_I, [_P] * 5 + [_I] * 2 + [_F] + [_P] * 3),
         'nms_select': (_I, [_P] * 3 + [_I] * 4 + [_P] * 3)},
+    'depth2points': {
+        'd2p_project': (_I, [_P, _I, _I] + [_P] * 6),
+        'd2p_thin': (_I, [_P, _P, _I, _I] + [_P] * 4 + [_I, _F, _F]
+                     + [_I] * 5 + [_P] * 4)},
 }
 
 _libs = {}

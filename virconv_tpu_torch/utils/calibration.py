@@ -65,13 +65,17 @@ class Calibration:
         pts_hom = self.cart_to_hom(pts_lidar)
         return np.dot(pts_hom, np.dot(self.V2C.T, self.R0.T))
 
-    def rect_to_lidar(self, pts_rect):
-        pts_hom = self.cart_to_hom(pts_rect)
+    def rect_to_lidar_matrix(self):
+        """The (4, 4) float32 ``rect_to_lidar`` applies: [rect, 1] @ it."""
         r0_ext = np.eye(4, dtype=np.float32)
         r0_ext[:3, :3] = self.R0
         v2c_ext = np.eye(4, dtype=np.float32)
         v2c_ext[:3, :4] = self.V2C
-        return np.dot(pts_hom, np.linalg.inv(np.dot(r0_ext, v2c_ext).T))[:, :3]
+        return np.linalg.inv(np.dot(r0_ext, v2c_ext).T)
+
+    def rect_to_lidar(self, pts_rect):
+        pts_hom = self.cart_to_hom(pts_rect)
+        return np.dot(pts_hom, self.rect_to_lidar_matrix())[:, :3]
 
     def rect_to_img(self, pts_rect):
         pts_hom = self.cart_to_hom(pts_rect)
